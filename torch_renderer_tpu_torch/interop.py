@@ -1,0 +1,46 @@
+"""Carry the JAX package's state into the port.
+
+Every function takes numpy arrays (``np.asarray`` of the JAX dataclass
+fields), so this module needs neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cameras.perspective import PerspectiveCamera
+from .rasterize.geometry import FacePlanes
+from .structures.meshes import Meshes
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    # a copy: arrays viewed from another framework are often read-only
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def meshes_from_arrays(verts, faces, num_verts, num_faces,
+                       device=None) -> Meshes:
+    """Padded (B, V, 3) verts, (B, F, 3) faces and (B,) counts -> Meshes."""
+    return Meshes(verts=_tensor(verts, np.float32, device),
+                  faces=_tensor(faces, np.int64, device),
+                  num_verts=_tensor(num_verts, np.int64, device),
+                  num_faces=_tensor(num_faces, np.int64, device))
+
+
+def camera_from_arrays(fx, fy, cx, cy, R, t, image_size,
+                       device=None) -> PerspectiveCamera:
+    """(B,) intrinsics, (B, 3, 3) R and (B, 3) t -> PerspectiveCamera."""
+    f = [_tensor(a, np.float32, device) for a in (fx, fy, cx, cy, R, t)]
+    return PerspectiveCamera(*f, image_size=(int(image_size[0]),
+                                             int(image_size[1])))
+
+
+def face_planes_from_arrays(x0, y0, x1, y1, x2, y2, z0, z1, z2, valid,
+                            device=None) -> FacePlanes:
+    """The ten (B, F) planes of a FacePlanes, in field order -> FacePlanes.
+    A JAX FacePlanes is a NamedTuple, so ``face_planes_from_arrays(
+    *map(np.asarray, fp))`` carries it over."""
+    planes = [_tensor(a, np.float32, device)
+              for a in (x0, y0, x1, y1, x2, y2, z0, z1, z2)]
+    return FacePlanes(*planes, valid=_tensor(valid, np.bool_, device))
