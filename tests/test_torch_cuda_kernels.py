@@ -1,10 +1,13 @@
-"""The hand-written CUDA soft-coverage kernels against their plain PyTorch
-versions, on an NVIDIA GPU. Marked ``cuda``: without a card every test here
-skips (the decision is made in a fixture, never at import).
+"""The hand-written CUDA kernels (soft coverage, hard raster) against their
+plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``: without a card
+every test here skips (the decision is made in a fixture, never at import).
 
-Tolerances: forward sums within 1e-4 + 1e-5 * max|S| (float32 sums in
-another order); backward within 1e-3 of max|dq| (another order and form of
-the pixel sums).
+Tolerances: soft forward sums within 1e-4 + 1e-5 * max|S| (float32 sums in
+another order); soft backward within 1e-3 of max|dq| (another order and
+form of the pixel sums). Hard winners equal, or differing only at
+selection-depth ties within 1e-6 on under 0.1% of pixels; hard values within
+1e-5 where the winners agree (the kernels repeat the plain arithmetic op
+for op, so they are expected to be equal).
 """
 
 import numpy as np
@@ -91,3 +94,114 @@ def test_wrapper_rejects_strided_input(device):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_soft.soft_coverage_fwd(q.transpose(0, 1), count.t(), 8,
                                     1.0 / 16, 1e4)
+
+
+# ---------------------------------------------------------------------------
+# Hard-raster kernels (csrc/hard_raster.cu)
+# ---------------------------------------------------------------------------
+
+def _hard_slabs(seed, B, A, F, tile, device, inv_s=1.0 / 16):
+    """Random candidate slabs over tiles at origin (0, 0) + a random shift:
+    corners spread past the tile, z in [1, 3], invz = 1 / z, face ids in
+    ascending slot order; one full tile and one empty tile."""
+    rng = np.random.default_rng(seed)
+    span = tile * inv_s
+    q = rng.uniform(-0.3 * span, 1.3 * span, size=(B, A, F, 6))
+    z = rng.uniform(1.0, 3.0, size=(B, A, F, 3))
+    fid = np.sort(rng.choice(4 * F, size=(B, A, F)), axis=-1)
+    slab = np.concatenate([q, z, 1.0 / z, fid[..., None]], axis=-1)
+    count = rng.integers(0, F + 1, size=(B, A))
+    count[0, 0] = F
+    count[-1, -1] = 0
+    origin = rng.uniform(-1.0, 1.0, size=(B, A, 2))
+    as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa
+    return (as_t(slab, torch.float32), as_t(count, torch.int32),
+            as_t(origin, torch.float32))
+
+
+def _equal_or_ties(lane_k, lane_p, prio):
+    """Winner slots (B, A, K, P) agree, or differ only at selection-depth
+    ties within 1e-6 (float32 rounding of equal depths)."""
+    diff = (lane_k != lane_p).transpose(2, 3)
+    if not bool(diff.any()):
+        return
+    z = lambda lane: prio.gather(  # noqa: E731
+        -1, lane.clamp_min(0).long().transpose(2, 3))
+    gap = (z(lane_k) - z(lane_p)).abs()[diff]
+    assert float(gap.max()) <= 1e-6
+    assert float(diff.any(-1).float().mean()) < 1e-3
+
+
+# F=300 streams three shared-memory chunks; tile=32 is the 1024-thread
+# maximum; blur 0 tests inside-only cover, blur > 0 the boundary band.
+@pytest.mark.parametrize("B,A,F,tile,blur,clip", [
+    (2, 3, 5, 4, 0.0, False), (2, 7, 64, 8, 1e-3, True),
+    (1, 5, 300, 16, 1e-4, True), (3, 2, 40, 32, 0.0, False),
+])
+def test_hard_k1_matches_plain(device, B, A, F, tile, blur, clip):
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    slab, count, origin = _hard_slabs(0, B, A, F, tile, device)
+    args = (slab, count, origin, tile, 1.0 / 16, blur, 1e-5, clip)
+    before = cuda_hard.HARD_LAUNCHES
+    out = cuda_hard.hard_k1(*args)
+    torch.cuda.synchronize()
+    assert cuda_hard.HARD_LAUNCHES == before + 1
+    ref = cuda_hard.hard_k1_reference(*args)
+    lane = lambda o: torch.where(  # noqa: E731
+        o[:, :, 6] > 0, o[:, :, 7], -1.0).round().int()[:, :, None]
+    prio = cuda_hard._priority(slab, count, origin, tile, 1.0 / 16, blur,
+                               1e-5)
+    _equal_or_ties(lane(out), lane(ref), prio)
+    same = lane(out) == lane(ref)
+    assert float(((out - ref).abs() * same).max()) <= 1e-5
+    # the empty tile carries the empty band everywhere
+    empty = torch.tensor(cuda_hard.EMPTY_BAND, device=device)[:, None]
+    assert bool((out[-1, -1] == empty).all())
+
+
+@pytest.mark.parametrize("K,blur", [(1, 0.0), (4, 9.21e-4), (50, 1e-4),
+                                    (64, 1e-3)])
+def test_topk_select_matches_plain(device, K, blur):
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    slab, count, origin = _hard_slabs(1, 2, 6, 150, 16, device)
+    args = (slab, count, origin, K, 16, 1.0 / 16, blur, 1e-5)
+    before = cuda_hard.TOPK_LAUNCHES
+    lane = cuda_hard.topk_select(*args)
+    torch.cuda.synchronize()
+    assert cuda_hard.TOPK_LAUNCHES == before + 1
+    ref = cuda_hard.topk_select_reference(*args)
+    assert lane.shape == ref.shape == (2, 6, K, 256)
+    prio = cuda_hard._priority(slab, count, origin, 16, 1.0 / 16, blur, 1e-5)
+    _equal_or_ties(lane, ref, prio)
+    assert bool((lane[-1, -1] == -1).all())
+
+
+def test_binned_raster_matches_cpu(device):
+    """rasterize_meshes (K=1 and K=4, binned) and a vertex gradient on the
+    card against the same calls on the CPU (plain versions)."""
+    import torch_renderer_tpu_torch as trt
+
+    verts, faces = trt.icosphere(2)
+    f = 0.8 * 64
+    K = np.array([[f, 0, 32], [0, f, 32], [0, 0, 1]], np.float32)
+    t = np.array([[0.0, 0.0, 3.0], [0.2, -0.1, 2.5]], np.float32)
+    for k, blur in ((1, 0.0), (4, 1e-4)):
+        st = trt.RasterizationSettings((64, 64), blur_radius=blur,
+                                       faces_per_pixel=k, bin_size=16)
+        out = {}
+        for dev in ("cpu", device):
+            meshes = trt.Meshes.from_single(verts, faces, device=dev).extend(2)
+            cam = trt.PerspectiveCamera.from_K(K, (64, 64), t=t, device=dev)
+            v = meshes.verts.clone().requires_grad_(True)
+            fr = trt.rasterize_meshes(meshes.update_padded(v), cam, st)
+            (fr.zbuf * fr.mask).sum().backward()
+            out[str(dev)] = (fr.pix_to_face.cpu(), fr.zbuf.detach().cpu(),
+                             v.grad.cpu())
+        (p_c, z_c, g_c), (p_g, z_g, g_g) = out["cpu"], out[str(device)]
+        assert float((p_c != p_g).float().mean()) < 1e-3
+        same = p_c == p_g
+        torch.testing.assert_close(z_g[same], z_c[same], rtol=0, atol=1e-5)
+        torch.testing.assert_close(g_g, g_c, rtol=0,
+                                   atol=1e-3 * float(g_c.abs().max()))

@@ -97,7 +97,12 @@ def test_bench_steps_match_jax():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, torch_renderer_tpu_torch\n"
+    """The package and every module in it import without JAX."""
+    code = ("import importlib, pkgutil, sys, torch_renderer_tpu_torch as p\n"
+            "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
+            "'torch_renderer_tpu_torch.')]\n"
+            "assert len(mods) > 20, mods\n"
+            "for m in mods: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'torch_renderer_tpu'))\n"
             "assert not bad, bad\n")

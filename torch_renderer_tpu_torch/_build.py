@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. At first use they are
-compiled by ``nvcc`` for Hopper (sm_90a) into one shared library under
+The sources under ``csrc/`` have a plain C interface. At first use each is
+compiled by its own ``nvcc`` for Hopper (sm_90a), all started together, and
+the objects are linked into one shared library under
 ``build/kernels/<hash of the sources and flags>/`` at the repository root,
-and loaded with ctypes. Nothing is built or loaded when the package is
+which is loaded with ctypes. Nothing is built or loaded when the package is
 imported, and a failed build raises: no caller falls back.
 """
 
@@ -22,9 +23,11 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libtrt_torch_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -Xptxas -v only reports registers, shared memory and spills into build.log.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def find_nvcc() -> str:
@@ -37,17 +40,31 @@ def find_nvcc() -> str:
     if cand.is_file():
         return str(cand)
     raise RuntimeError(
-        "nvcc not found (searched PATH and $CUDA_HOME/bin): the soft-coverage "
+        "nvcc not found (searched PATH and $CUDA_HOME/bin): the port's "
         "kernels are CUDA C++ and must be compiled for sm_90a on a machine "
         "with the CUDA toolkit")
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def _run(cmds):
+    """Run the commands in parallel; returns (log text, first failing rc)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    secs = time.perf_counter() - t0
+    log = "".join(f"$ {' '.join(c)}\n# rc {p.returncode}\n{o}"
+                  for c, p, o in zip(cmds, procs, outs))
+    rc = next((p.returncode for p in procs if p.returncode), 0)
+    return f"{log}# {secs:.2f} s\n", rc
 
 
 def build() -> Path:
@@ -57,14 +74,20 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.2f} s, "
-           f"rc {res.returncode}\n{res.stdout}{res.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = find_nvcc()
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
+    log, rc = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(src)]
+                    for src, o in zip(SOURCES, objs)])
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    if not rc:
+        link_log, rc = _run([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)]])
+        log += link_log
+    for o in objs:
+        o.unlink(missing_ok=True)
     (out.parent / "build.log").write_text(log)
-    if res.returncode:
+    if rc:
         raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
     return out
@@ -82,6 +105,26 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_soft_coverage_bwd.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                           f32, f32, i32, vp]
     lib.trt_soft_coverage_bwd.restype = i32
+    lib.trt_hard_k1.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, f32,
+                                f32, i32, i32, vp]
+    lib.trt_hard_k1.restype = i32
+    lib.trt_topk_select.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                    f32, f32, f32, i32, vp]
+    lib.trt_topk_select.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(fn_name: str, *args, device) -> None:
+    """Call entry point fn_name with args, then the device index and torch's
+    current stream on it; raise if the launch was refused (the entry
+    points return cudaGetLastError())."""
+    import torch
+
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, fn_name)(*args, device.index, stream)
+    if rc:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} "
+                           f"({lib.trt_error_string(rc).decode()})")

@@ -60,6 +60,27 @@ class PerspectiveCamera:
             R=R, t=t, image_size=(int(image_size[0]), int(image_size[1])),
         )
 
+    def K(self) -> torch.Tensor:
+        """(B, 3, 3) pinhole matrices."""
+        B = self.fx.shape[0]
+        K = torch.zeros((B, 3, 3), dtype=torch.float32, device=self.fx.device)
+        K[:, 0, 0] = self.fx
+        K[:, 1, 1] = self.fy
+        K[:, 0, 2] = self.cx
+        K[:, 1, 2] = self.cy
+        K[:, 2, 2] = 1.0
+        return K
+
+    def replace_pose(self, R, t) -> "PerspectiveCamera":
+        """The same intrinsics with extrinsics (R, t); (3, 3) / (3,) inputs
+        gain a batch dim, and they keep their autograd history."""
+        return dataclasses.replace(self, R=_as_batched(R, 2, self.fx.device),
+                                   t=_as_batched(t, 1, self.fx.device))
+
+    def camera_center_world(self) -> torch.Tensor:
+        """(B, 3) camera origin in world coordinates: -R^T t."""
+        return -torch.einsum("bji,bj->bi", self.R, self.t)
+
     @property
     def ndc_scale(self) -> float:
         """Pixels per raster unit: the shorter image side spans [-1, 1]."""

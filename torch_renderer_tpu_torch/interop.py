@@ -1,7 +1,9 @@
 """Carry the JAX package's state into the port.
 
 Every function takes numpy arrays (``np.asarray`` of the JAX dataclass
-fields), so this module needs neither JAX nor the JAX package.
+fields) or plain values, so this module needs neither JAX nor the JAX
+package. Carried across: meshes, cameras, FacePlanes, FaceRasterData,
+RasterizationSettings, pose parameters, PointLights and Materials.
 """
 
 from __future__ import annotations
@@ -10,7 +12,9 @@ import numpy as np
 import torch
 
 from .cameras.perspective import PerspectiveCamera
-from .rasterize.geometry import FacePlanes
+from .rasterize.geometry import FacePlanes, FaceRasterData
+from .rasterize.raster import RasterizationSettings
+from .shading.lights import Materials, PointLights
 from .structures.meshes import Meshes
 
 
@@ -44,3 +48,41 @@ def face_planes_from_arrays(x0, y0, x1, y1, x2, y2, z0, z1, z2, valid,
     planes = [_tensor(a, np.float32, device)
               for a in (x0, y0, x1, y1, x2, y2, z0, z1, z2)]
     return FacePlanes(*planes, valid=_tensor(valid, np.bool_, device))
+
+
+def face_raster_data_from_arrays(q, z, invz, area2, abc, zden, valid,
+                                 device=None) -> FaceRasterData:
+    """The seven arrays of a FaceRasterData, in field order ->
+    FaceRasterData."""
+    f = [_tensor(a, np.float32, device) for a in (q, z, invz, area2, abc,
+                                                  zden)]
+    return FaceRasterData(*f, valid=_tensor(valid, np.bool_, device))
+
+
+def raster_settings_from_fields(**fields) -> RasterizationSettings:
+    """RasterizationSettings from the fields of the JAX package's settings
+    (``dataclasses.asdict(settings)``): both carry the same fields."""
+    fields["image_size"] = tuple(int(v) for v in fields["image_size"])
+    if fields.get("occupancy_split") is not None:
+        fields["occupancy_split"] = tuple(fields["occupancy_split"])
+    return RasterizationSettings(**fields)
+
+
+def pose_params_from_arrays(t, quat, device=None) -> dict:
+    """Pose parameters {t: (B, 3), quat: (B, 4)} as the fitters take them."""
+    return {"t": _tensor(t, np.float32, device),
+            "quat": _tensor(quat, np.float32, device)}
+
+
+def point_lights_from_arrays(location, ambient_color, diffuse_color,
+                             specular_color, device=None) -> PointLights:
+    """The four (B|1, 3) arrays of PointLights, in field order."""
+    return PointLights(*(_tensor(a, np.float32, device) for a in (
+        location, ambient_color, diffuse_color, specular_color)))
+
+
+def materials_from_arrays(ambient_color, diffuse_color, specular_color,
+                          shininess, device=None) -> Materials:
+    """The arrays of Materials, in field order."""
+    return Materials(*(_tensor(a, np.float32, device) for a in (
+        ambient_color, diffuse_color, specular_color, shininess)))

@@ -1,9 +1,11 @@
-"""Active-tile rank binning for the soft-silhouette path (PyTorch counterpart
-of the soft-path subset of ``torch_renderer_tpu.rasterize.binning``).
+"""Active-tile rank binning for the soft-silhouette and hard-raster paths
+(PyTorch counterpart of the binning in
+``torch_renderer_tpu.rasterize.binning`` that those paths use).
 
 The image is cut into square pixel tiles. A face is a candidate of every tile
-its screen bbox, padded by sqrt(SOFT_CUTOFF * sigma), overlaps. The rules
-match the JAX package exactly:
+its screen bbox, padded by sqrt(SOFT_CUTOFF * sigma) for the soft path and by
+sqrt(blur_radius) for the hard path, overlaps. The rules match the JAX
+package exactly:
 
   * a tile's candidate slots hold its overlapping faces in ascending face id;
   * faces beyond a tile's ``faces_per_tile`` slots are dropped;
@@ -95,7 +97,11 @@ def tile_grid(image_size, tile: int, device=None):
 
 
 def _bbox_min_max(fp, pad_radius: float):
-    """Padded screen bboxes (B, F, 2) from geometry.FacePlanes."""
+    """Padded screen bboxes (B, F, 2) from geometry.FacePlanes or
+    FaceRasterData (told apart by its corner tensor ``q``)."""
+    if hasattr(fp, "q"):
+        q = fp.q.detach()
+        return q.amin(2) - pad_radius, q.amax(2) + pad_radius
     fminx = torch.minimum(torch.minimum(fp.x0, fp.x1), fp.x2) - pad_radius
     fmaxx = torch.maximum(torch.maximum(fp.x0, fp.x1), fp.x2) + pad_radius
     fminy = torch.minimum(torch.minimum(fp.y0, fp.y1), fp.y2) - pad_radius
@@ -212,12 +218,59 @@ def slot_faces(bins: ActiveBins, per_tile: int) -> torch.Tensor:
 
 def scatter_active(values: torch.Tensor, bins: ActiveBins) -> torch.Tensor:
     """(B, A, P) active-slot values -> (B, T, P) full tile grid; tiles with
-    no active slot receive exactly 0. A gather through the tile rank, so its
-    backward has one source per element."""
-    B, A, P = values.shape
-    padded = torch.cat([values, values.new_zeros((B, 1, P))], dim=1)
+    no active slot receive exactly 0."""
+    return scatter_active_bg(values, bins, 0.0)
+
+
+def scatter_active_bg(values: torch.Tensor, bins: ActiveBins,
+                      bg) -> torch.Tensor:
+    """(B, A, ...) active-slot values -> (B, T, ...) full tile grid; tiles
+    with no active slot (empty, or beyond the budget) receive ``bg``, a
+    scalar or a tensor broadcastable to the trailing dims. A gather through
+    the tile rank from the values plus one background row, so every output
+    is an exact copy and its backward has one source per element."""
+    B, A = values.shape[:2]
+    trail = tuple(values.shape[2:])
+    bg_row = torch.as_tensor(bg, dtype=values.dtype, device=values.device)
+    padded = torch.cat([values, bg_row.expand((B, 1) + trail)], dim=1)
     idx = bins.rank.clamp(max=A)                            # (B, T)
-    return padded.gather(1, idx[..., None].expand(-1, -1, P))
+    T = idx.shape[1]
+    idx = idx.reshape((B, T) + (1,) * len(trail)).expand((B, T) + trail)
+    return padded.gather(1, idx)
+
+
+def face_channel_planes(fd, znear: float = 1e-5) -> torch.Tensor:
+    """(B, F, 12) per-face channels of the hard raster, in slab order
+    qx0 qy0 qx1 qy1 qx2 qy2 z0 z1 z2 invz0 invz1 invz2, from FacePlanes
+    (invz = 1/clip(z, znear), znear fixed at its default as in the JAX
+    package's channel sources) or FaceRasterData (its own invz)."""
+    if hasattr(fd, "q"):
+        return torch.cat([fd.q.flatten(2), fd.z, fd.invz], dim=-1)
+    z = torch.stack([fd.z0, fd.z1, fd.z2], dim=-1)
+    return torch.cat([
+        torch.stack([fd.x0, fd.y0, fd.x1, fd.y1, fd.x2, fd.y2], dim=-1),
+        z, 1.0 / z.clamp_min(znear)], dim=-1)
+
+
+def tile_channel_slabs(planes: torch.Tensor, bins: ActiveBins,
+                       per_tile: int):
+    """The hard kernels' inputs, gathered from (B, F, 12) face channels:
+
+    slab (B, A, per_tile, 13) float32: each active tile's candidates in
+        ascending face id, channels as in face_channel_planes plus the
+        global face id (exact in float32 below 2^24 faces);
+    count (B, A) int32: candidates per tile, capped at per_tile (faces
+        beyond it are dropped);
+    table (B, A, per_tile) int64: the face id of each slot (0 at slots
+        beyond the count, which are never read)."""
+    table = slot_faces(bins, per_tile)
+    B, A, K = table.shape
+    F = planes.shape[1]
+    fid = torch.arange(F, dtype=planes.dtype, device=planes.device)
+    ch = torch.cat([planes, fid.expand(B, F)[..., None]], dim=-1)
+    slab = ch.gather(1, table.reshape(B, A * K, 1).expand(B, A * K, 13))
+    count = bins.count.clamp(max=per_tile).to(torch.int32)
+    return slab.reshape(B, A, K, 13), count, table
 
 
 def untile_image(per_tile: torch.Tensor, image_size, tile: int, n_tiles_hw):

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._build import launch
 from .binning import (
     ActiveBins,
     bin_faces_active,
@@ -167,18 +168,6 @@ def _check_inputs(q, count, tile: int, g=None):
         raise ValueError("the CUDA kernels take contiguous tensors")
 
 
-def _launch(fn_name: str, *args, device: torch.device):
-    from .._build import load_kernels
-
-    lib = load_kernels()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, device.index, stream)
-    if rc:
-        raise RuntimeError(
-            f"{fn_name} launch failed: CUDA error {rc} "
-            f"({lib.trt_error_string(rc).decode()})")
-
-
 def soft_coverage_fwd(q, count, tile: int, inv_s: float,
                       inv_sigma: float) -> torch.Tensor:
     """S (B, A, tile^2) = per-pixel coverage sums of each active tile's
@@ -191,7 +180,7 @@ def soft_coverage_fwd(q, count, tile: int, inv_s: float,
     if B * A * K == 0:
         return q.new_zeros((B, A, tile * tile))
     S = q.new_empty((B, A, tile * tile))      # the kernel writes every pixel
-    _launch("trt_soft_coverage_fwd", q.data_ptr(), count.data_ptr(),
+    launch("trt_soft_coverage_fwd", q.data_ptr(), count.data_ptr(),
             S.data_ptr(), B, A, K, tile, inv_s, inv_sigma, device=q.device)
     FWD_LAUNCHES += 1
     return S
@@ -210,7 +199,7 @@ def soft_coverage_bwd(q, count, g, tile: int, inv_s: float,
         return torch.zeros_like(q)
     B, A, K, _ = q.shape
     dq = torch.empty_like(q)                  # the kernel writes every slot
-    _launch("trt_soft_coverage_bwd", q.data_ptr(), count.data_ptr(),
+    launch("trt_soft_coverage_bwd", q.data_ptr(), count.data_ptr(),
             g.data_ptr(), dq.data_ptr(), B, A, K, tile, inv_s, inv_sigma,
             device=q.device)
     BWD_LAUNCHES += 1

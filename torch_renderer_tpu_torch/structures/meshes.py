@@ -9,13 +9,14 @@ Padding invariants:
   * faces rows >= num_faces[b] are (0, 0, 0): they reference a real vertex so
     gathers stay in bounds, and the face mask excludes them everywhere.
 
-Faces are int64 (torch's index dtype). Textures are not ported yet.
+Faces are int64 (torch's index dtype). Textures are not ported yet:
+``textures`` is always None, which shading reads as white texels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ class Meshes:
     faces: torch.Tensor      # (B, F, 3) int64, zero-padded
     num_verts: torch.Tensor  # (B,) int64
     num_faces: torch.Tensor  # (B,) int64
+    textures: Optional[object] = None
 
     # -- constructors ------------------------------------------------------
     @staticmethod
@@ -100,5 +102,53 @@ class Meshes:
         return dataclasses.replace(self, verts=new_verts)
 
     def to(self, device) -> "Meshes":
-        return Meshes(*(getattr(self, f.name).to(device)
-                        for f in dataclasses.fields(self)))
+        return dataclasses.replace(
+            self, verts=self.verts.to(device), faces=self.faces.to(device),
+            num_verts=self.num_verts.to(device),
+            num_faces=self.num_faces.to(device))
+
+    # -- geometry -----------------------------------------------------------
+    def face_verts(self) -> torch.Tensor:
+        """Per-face corner positions (B, F, 3, 3), by indexed gather."""
+        B, F, _ = self.faces.shape
+        idx = self.faces.reshape(B, F * 3, 1).expand(B, F * 3, 3)
+        return self.verts.gather(1, idx).reshape(B, F, 3, 3)
+
+    def _face_cross(self) -> torch.Tensor:
+        fv = self.face_verts()
+        return torch.linalg.cross(fv[..., 1, :] - fv[..., 0, :],
+                                  fv[..., 2, :] - fv[..., 0, :])
+
+    def face_normals(self, normalize: bool = True) -> torch.Tensor:
+        """(B, F, 3) face normals (zero for padded faces)."""
+        n = self._face_cross()
+        if normalize:
+            n = n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp_min(1e-12)
+        return n * self.face_mask()[..., None]
+
+    def face_areas(self) -> torch.Tensor:
+        """(B, F) triangle areas (zero for padded faces)."""
+        return 0.5 * torch.linalg.norm(self._face_cross(), dim=-1) \
+            * self.face_mask()
+
+    def vertex_normals(self) -> torch.Tensor:
+        """(B, V, 3) area-weighted vertex normals: each face's unnormalized
+        normal is scatter-added at its three corners."""
+        fn = self._face_cross() * self.face_mask()[..., None]   # (B, F, 3)
+        B, F, _ = self.faces.shape
+        idx = self.faces.transpose(1, 2).reshape(B, 3 * F, 1).expand(
+            B, 3 * F, 3)                                         # corner-major
+        vn = torch.zeros_like(self.verts).scatter_add(1, idx, fn.repeat(1, 3, 1))
+        vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp_min(1e-12)
+        return vn * self.vert_mask()[..., None]
+
+    def center_and_scale_to_unit_sphere(self):
+        """Normalize each mesh to fit the unit sphere: returns
+        (meshes, center (B, 3), scale (B,))."""
+        m = self.vert_mask()[..., None]
+        nv = self.num_verts.to(self.verts.dtype).clamp_min(1)[:, None]
+        center = (self.verts * m).sum(1) / nv
+        centered = (self.verts - center[:, None, :]) * m
+        scale = torch.linalg.norm(centered, dim=-1).amax(1).clamp_min(1e-12)
+        out = dataclasses.replace(self, verts=centered / scale[:, None, None])
+        return out, center, scale
