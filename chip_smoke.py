@@ -22,11 +22,36 @@ Drives, through the port's public entry points:
      start, and per iteration exactly one topk_select launch (fragments),
      or one hard_k1, soft_coverage_fwd and soft_coverage_bwd launch
      (pallas).
+  D. the texture-sampling kernels against their plain versions at the joint
+     fit's shapes: one 256x256x3 map shared by 2 views (batch stride 0),
+     32768 points per view at u, v uniform in [0, 1] from a seeded
+     generator. Forward within 1e-6; d_wy and d_wx within 1e-5 of their
+     largest; d_maps within 1e-5 of its largest (float32 atomics sum a
+     texel in an order that changes from run to run). grid_sample
+     (bilinear, border, align_corners) computes the same function and is
+     timed beside them as the library yardstick, forward and backward.
+  E. the joint shape + UV-texture fit at the app's defaults: 128x128, a
+     level-4 icosphere (5120 faces) with sphere UVs fitted to the same
+     sphere scaled by (1, 0.7, 0.9) with the app's striped 128x128 texture,
+     15 views, 2 per step, K=8, shade_k 2, a 256x256x3 texture map, budgets
+     auto-sized at 1.5x (budget checks off), 500 iterations. Every loss
+     finite; the mean silhouette and RGB MSE of the last 20 steps below
+     0.7x those of the first 20; max |deform| < 0.5 and the chamfer
+     distance to the target (2000 points each, fixed generator) below 0.5x
+     its start (the JAX package's tests/test_deform_color.py gates); per
+     iteration exactly one texsample_fwd, texsample_bwd and topk_select
+     launch and no other. Then topk_select at the fit's K=8 shapes against
+     its plain version, and a torch.profiler window of 20 iterations
+     (device busy share, kernels per iteration).
 
 Every kernel time and every plain time is taken with CUDA events; the fits
-are timed by CUDA events and by host wall time. Any failure raises (exit
-code 1). The second-to-last line is a JSON record of the kernels; the last
-line is {"ok": true, "device": {...}}.
+are timed by CUDA events and by host wall time. Each kernel's bound is the
+larger of its bytes (inputs read once, outputs written once, live
+candidates only) at 3.35 TB/s and its operations at the float32 peak of 67
+TFLOP/s (NVIDIA's H100 SXM data sheet), counted per (pixel, candidate) pair
+or per point as the OPS constants below say. Any failure raises (exit code
+1). The second-to-last line is a JSON record of the kernels; the last line
+is {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -57,6 +82,47 @@ TIE_TOL = 1e-6       # selection-depth gap that counts as a tie
 TIE_SHARE = 1e-3     # most covered pixels whose winners may differ by a tie
 VALUE_TOL = 1e-5
 
+TEX_SIZE = 256
+TEX_POINTS = 128 * 128 * 2   # pixels x shade_k slots of one joint-fit view
+JOINT_IMAGE = 128
+JOINT_LEVEL = 4              # 5120 faces
+JOINT_ITERS = 500
+PROFILE_ITERS = 20
+
+# The card's peaks (H100 SXM data sheet, 700 W): bytes/s and float32 op/s.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations per (pixel, candidate) pair, read off the kernels' arithmetic
+# (an exp or log1p counts as one): the soft pair's three clamped edge
+# distances, inside test and softplus (forward) or sigmoid and tied-edge
+# gradient (backward); hard_k1's inside-only priority at blur 0; top-K's
+# priority with the blur band's edge distances.
+OPS_SOFT_FWD = 80
+OPS_SOFT_BWD = 100
+OPS_HARD_K1 = 35
+OPS_TOPK = 80
+
+
+def ops_tex_fwd(C: int) -> int:
+    """Operations per point of the texture forward: the two complements,
+    then 6 products and 3 sums per channel."""
+    return 2 + 9 * C
+
+
+def ops_tex_bwd(C: int) -> int:
+    """Per point: 2 complements and 4 tap weights; per channel 7 each for
+    d_wy and d_wx and 4 products and 4 atomic adds for d_maps."""
+    return 6 + 22 * C
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take (ms) and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -80,20 +146,59 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, name: str, reps: int = TIMING_REPS):
+    """Mean device time per call of fn() of the kernels whose name holds
+    `name`, by torch.profiler: the kernel alone, where time_ms also sees
+    the host's launch cost when that is the longer. None if the profiler
+    records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:      # the profiler is optional here
+        print(f"device_ms({name}): not measured ({e})", flush=True)
+        return None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = [e.time_range.end - e.time_range.start for e in events
+          if name in e.name]
+    if not us:
+        print(f"device_ms({name}): no such kernel among "
+              f"{sorted({e.name for e in events})}", flush=True)
+        return None
+    return sum(us) / 1e3 / reps
+
+
 def reset_counts() -> None:
+    from torch_renderer_tpu_torch.ops import cuda_texsample
     from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_soft
 
     cuda_soft.FWD_LAUNCHES = cuda_soft.BWD_LAUNCHES = 0
     cuda_hard.HARD_LAUNCHES = cuda_hard.TOPK_LAUNCHES = 0
+    cuda_texsample.FWD_LAUNCHES = cuda_texsample.BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    from torch_renderer_tpu_torch.ops import cuda_texsample
     from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_soft
 
     return {"soft_coverage_fwd": cuda_soft.FWD_LAUNCHES,
             "soft_coverage_bwd": cuda_soft.BWD_LAUNCHES,
             "hard_k1": cuda_hard.HARD_LAUNCHES,
-            "topk_select": cuda_hard.TOPK_LAUNCHES}
+            "topk_select": cuda_hard.TOPK_LAUNCHES,
+            "texsample_fwd": cuda_texsample.FWD_LAUNCHES,
+            "texsample_bwd": cuda_texsample.BWD_LAUNCHES}
+
+
+def only(counts: dict, **want) -> dict:
+    """counts with every kernel not in want expected at 0."""
+    return {k: want.get(k, 0) for k in counts}
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +277,13 @@ def soft_phase(device, card: str) -> list:
             q, count, g, tile, inv_s, inv_sigma)),
         "bwd_plain": time_ms(lambda: cuda_soft.soft_coverage_bwd_reference(
             q, count, g, tile, inv_s, inv_sigma)),
+        "fwd_device": device_ms(lambda: cuda_soft.soft_coverage_fwd(
+            q, count, tile, inv_s, inv_sigma), "soft_coverage_fwd_kernel"),
+        "bwd_device": device_ms(lambda: cuda_soft.soft_coverage_bwd(
+            q, count, g, tile, inv_s, inv_sigma), "soft_coverage_bwd_kernel"),
     }
     print(f"[soft] kernel times at the bench shape ({card}): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()),
+          + ", ".join(f"{k} {v} ms" for k, v in times.items()),
           flush=True)
 
     # step 0 against the dense oracle
@@ -227,8 +336,7 @@ def soft_phase(device, card: str) -> list:
     print(f"[soft] main path: {run} steps, launches {counts}", flush=True)
     if not bool(finite) or not bool(torch.isfinite(v).all()):
         raise AssertionError("non-finite gradient in the timed steps")
-    if counts != {"soft_coverage_fwd": run, "soft_coverage_bwd": run,
-                  "hard_k1": 0, "topk_select": 0}:
+    if counts != only(counts, soft_coverage_fwd=run, soft_coverage_bwd=run):
         raise AssertionError(f"expected {run} launches of each soft kernel "
                              f"and none other, got {counts}")
     print(f"[soft] main path: {B * 1000.0 / step_ms:.1f} img/s "
@@ -236,18 +344,33 @@ def soft_phase(device, card: str) -> list:
           f"steps; host wall {wall_s * 1000.0 / STEPS:.4f} ms/step) on "
           f"{card}", flush=True)
 
+    live = int(count.sum())
+    Bq, Aq, Kq, _ = q.shape
+    tp = tile * tile
+    b_fwd = bound(live * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4,
+                  live * tp * OPS_SOFT_FWD)
+    b_bwd = bound(live * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4
+                  + Bq * Aq * Kq * 24, live * tp * OPS_SOFT_BWD)
+    print(f"[soft] bounds ({live} live candidates x {tp} pixels): fwd "
+          f"{b_fwd}, bwd {b_bwd}", flush=True)
     source = "torch_renderer_tpu_torch/csrc/soft_coverage.cu"
     return [
         {"name": "soft_coverage_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:572",
          "also_replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:132",
          "launches": counts["soft_coverage_fwd"], "max_abs_err": fwd_err,
-         "ms": times["fwd"], "plain_ms": times["fwd_plain"]},
+         "ms": times["fwd"], "device_ms": times["fwd_device"],
+         "plain_ms": times["fwd_plain"],
+         "bound_ms": b_fwd["bound_ms"], "bound_by": b_fwd["bound_by"],
+         "library_ms": None},
         {"name": "soft_coverage_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:597",
          "also_replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:161",
          "launches": counts["soft_coverage_bwd"], "max_abs_err": bwd_err,
-         "ms": times["bwd"], "plain_ms": times["bwd_plain"]},
+         "ms": times["bwd"], "device_ms": times["bwd_device"],
+         "plain_ms": times["bwd_plain"],
+         "bound_ms": b_bwd["bound_ms"], "bound_by": b_bwd["bound_by"],
+         "library_ms": None},
     ]
 
 
@@ -316,6 +439,17 @@ def _winner_check(name, lane_k, lane_p, prio) -> float:
     return max_gap
 
 
+def hard_bound(slab, count, rows: int, ops_per_pair: int,
+               tile: int) -> dict:
+    """Bound of a hard kernel: the live slab rows (52 bytes each), count,
+    origin and rows x tile^2 outputs of 4 bytes per tile; ops per live
+    (pixel, candidate) pair."""
+    B, A = count.shape
+    live, tp = int(count.sum()), tile * tile
+    return bound(live * 52 + B * A * 12 + B * A * rows * tp * 4,
+                 live * tp * ops_per_pair)
+
+
 def hard_phase(device, card: str) -> dict:
     from torch_renderer_tpu_torch.cameras.perspective import (
         PerspectiveCamera,
@@ -353,8 +487,11 @@ def hard_phase(device, card: str) -> dict:
     out["hard_k1"] = {
         "max_abs_err": max(err, gap),
         "ms": time_ms(lambda: cuda_hard.hard_k1(*args)),
+        "device_ms": device_ms(lambda: cuda_hard.hard_k1(*args),
+                               "hard_k1_kernel"),
         "plain_ms": time_ms(lambda: cuda_hard.hard_k1_reference(*args)),
-        "shape": list(slab.shape)}
+        "shape": list(slab.shape),
+        **hard_bound(slab, count, 8, OPS_HARD_K1, st.bin_size)}
 
     # topk_select at the fragments route's K=4 / blur, and at K=50
     for Kf, blur in ((4, POSE_BLUR), (50, 1e-4)):
@@ -372,12 +509,18 @@ def hard_phase(device, card: str) -> dict:
         out[f"topk_select_k{Kf}"] = {
             "max_abs_err": gap,
             "ms": time_ms(lambda: cuda_hard.topk_select(*args)),
+            "device_ms": device_ms(lambda: cuda_hard.topk_select(*args),
+                                   "topk_select_kernel"),
             "plain_ms": time_ms(
                 lambda: cuda_hard.topk_select_reference(*args)),
-            "shape": list(slab.shape)}
+            "shape": list(slab.shape),
+            **hard_bound(slab, count, Kf, OPS_TOPK, st.bin_size)}
     for name, r in out.items():
         print(f"[hard] {name} at {r['shape']} ({card}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms", flush=True)
+              f"{r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
+              f"{r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} B, "
+              f"{r['ops']} op)", flush=True)
     autotune.clear_cache()   # the fits below resolve their own budgets
     return out
 
@@ -472,6 +615,279 @@ def pose_fit_phase(device, card: str, route: str,
             "err": [err0, err1]}
 
 
+# ---------------------------------------------------------------------------
+# D. texture-sampling kernels at the joint fit's shapes
+# ---------------------------------------------------------------------------
+
+def texture_phase(device, card: str) -> dict:
+    import torch.nn.functional as F
+
+    from torch_renderer_tpu_torch.ops import cuda_texsample as ts
+    from torch_renderer_tpu_torch.structures.textures import (
+        bilinear_corners,
+    )
+
+    B, T, C, P = 2, TEX_SIZE, 3, TEX_POINTS
+    gen = torch.Generator(device=device).manual_seed(3)
+    tmap = torch.rand((T, T, C), generator=gen, device=device)
+    maps = tmap[None].expand(B, T, T, C)       # one map, batch stride 0
+    uv = torch.rand((B, P, 2), generator=gen, device=device)
+    y0, x0, wy, wx = (a.contiguous() for a in bilinear_corners(uv, T, T))
+    g = torch.randn((B, P, C), generator=gen, device=device)
+    args = (maps, y0, x0, wy, wx)
+
+    out_k = ts.texsample_fwd(*args)
+    out_p = ts.texsample_fwd_reference(*args)
+    grads_k = ts.texsample_bwd(*args, g)
+    grads_p = ts.texsample_bwd_reference(*args, g)
+    torch.cuda.synchronize()
+    fwd_err = float((out_k - out_p).abs().max())
+    print(f"[tex] texsample_fwd vs plain at maps {tuple(maps.shape)} "
+          f"(batch stride 0), P {P}: max|d| {fwd_err:.3e} (tol 1e-6)",
+          flush=True)
+    if not fwd_err <= 1e-6:
+        raise AssertionError("texsample_fwd disagrees with its plain version")
+    bwd_err = 0.0
+    for name, a, b in zip(("d_maps", "d_wy", "d_wx"), grads_k, grads_p):
+        err = float((a - b).abs().max())
+        tol = 1e-5 * float(b.abs().max())
+        print(f"[tex] texsample_bwd {name} vs plain: max|d| {err:.3e} "
+              f"(tol {tol:.3e} = 1e-5 x max {float(b.abs().max()):.3e})",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"texsample_bwd {name} disagrees with its "
+                                 "plain version")
+        bwd_err = max(bwd_err, err)
+
+    # the library yardstick: grid_sample computes the same function for
+    # u, v in [0, 1] (x = u (W - 1), y = (1 - v)(H - 1))
+    inp = tmap.permute(2, 0, 1)[None].expand(B, C, T, T).contiguous()
+    grid = torch.stack([2.0 * uv[..., 0] - 1.0, 1.0 - 2.0 * uv[..., 1]],
+                       dim=-1)[:, None]                    # (B, 1, P, 2)
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    lib = F.grid_sample(inp, grid, **kw)[:, :, 0].transpose(1, 2)
+    lib_err = float((lib - out_p).abs().max())
+    print(f"[tex] grid_sample vs plain: max|d| {lib_err:.3e} (tol 1e-4: "
+          "its weights round from 2u - 1)", flush=True)
+    if not lib_err <= 1e-4:
+        raise AssertionError("grid_sample does not compute the same function")
+    inp_r = inp.clone().requires_grad_(True)
+    grid_r = grid.clone().requires_grad_(True)
+    lib_out = F.grid_sample(inp_r, grid_r, **kw)
+    g_lib = g.transpose(1, 2)[:, :, None].contiguous()    # (B, C, 1, P)
+
+    times = {
+        "fwd": time_ms(lambda: ts.texsample_fwd(*args)),
+        "fwd_plain": time_ms(lambda: ts.texsample_fwd_reference(*args)),
+        "fwd_library": time_ms(lambda: F.grid_sample(inp, grid, **kw)),
+        "bwd": time_ms(lambda: ts.texsample_bwd(*args, g)),
+        "bwd_plain": time_ms(lambda: ts.texsample_bwd_reference(*args, g)),
+        "bwd_library": time_ms(lambda: torch.autograd.grad(
+            lib_out, (inp_r, grid_r), g_lib, retain_graph=True)),
+        "fwd_device": device_ms(lambda: ts.texsample_fwd(*args),
+                                "texsample_fwd_kernel"),
+        "bwd_device": device_ms(lambda: ts.texsample_bwd(*args, g),
+                                "texsample_bwd_kernel"),
+        "fwd_library_device": device_ms(
+            lambda: F.grid_sample(inp, grid, **kw), "grid_sampler"),
+        "bwd_library_device": device_ms(lambda: torch.autograd.grad(
+            lib_out, (inp_r, grid_r), g_lib, retain_graph=True),
+            "grid_sampler"),
+    }
+    b_fwd = bound(T * T * C * 4 + B * P * 16 + B * P * C * 4,
+                  B * P * ops_tex_fwd(C))
+    b_bwd = bound(T * T * C * 4 + B * P * 16 + B * P * C * 4
+                  + B * T * T * C * 4 + B * P * 8, B * P * ops_tex_bwd(C))
+    print(f"[tex] times ({card}): " + ", ".join(
+        f"{k} {v} ms" for k, v in times.items())
+        + f"; bounds fwd {b_fwd}, bwd {b_bwd}", flush=True)
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times,
+            "bound_fwd": b_fwd, "bound_bwd": b_bwd}
+
+
+# ---------------------------------------------------------------------------
+# E. the joint shape + UV-texture fit at the app's defaults
+# ---------------------------------------------------------------------------
+
+def _busy_share(fn, iters: int) -> dict:
+    """Device busy time (union of device events) and kernels per iteration
+    over fn(), which runs `iters` iterations, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # drop only the optimizer's annotation span; kernel names may hold '#'
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Optimizer.", "ProfilerStep")))
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"kernels_per_iter": len(spans) / iters,
+            "busy_ms_per_iter": busy_us / 1e3 / iters,
+            "wall_ms_per_iter": wall_ms / iters,
+            "busy_share": busy_us / 1e3 / wall_ms}
+
+
+def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
+    from torch_renderer_tpu_torch.apps._common import pinhole_K
+    from torch_renderer_tpu_torch.apps.joint_shape_texture import (
+        striped_target,
+    )
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.ops.knn_chamfer import chamfer_distance
+    from torch_renderer_tpu_torch.ops.sample_points import (
+        sample_points_from_meshes,
+    )
+    from torch_renderer_tpu_torch.opt.deform_color import (
+        JointFitConfig,
+        JointShapeTextureFitter,
+    )
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        count_active_tiles,
+        count_overflow,
+        set_budget_check_default,
+    )
+    from torch_renderer_tpu_torch.rasterize.geometry import (
+        setup_face_planes,
+        setup_faces,
+    )
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+    from torch_renderer_tpu_torch.structures.textures import (
+        sphere_uv_mapping,
+    )
+
+    set_budget_check_default("off")
+    size = (JOINT_IMAGE, JOINT_IMAGE)
+    verts, faces = icosphere(JOINT_LEVEL)
+    src = Meshes.from_single(verts, faces, device=device)
+    uvs = torch.as_tensor(sphere_uv_mapping(verts), device=device)
+    tgt = striped_target(verts, faces, uvs, device)
+    fitter = JointShapeTextureFitter(pinhole_K(size), size,
+                                     JointFitConfig(n_steps=iters),
+                                     device=device)
+    t0 = time.perf_counter()
+    ds = fitter.make_dataset(tgt)
+    torch.cuda.synchronize()
+    print(f"[joint] dataset: {ds['rgb'].shape[0]} views in "
+          f"{time.perf_counter() - t0:.2f} s, settings "
+          f"{fitter.renderer.settings}", flush=True)
+
+    reset_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t_start = time.perf_counter()
+    start.record()
+    params, hist = fitter.fit(src, uvs, ds, torch.Generator().manual_seed(0))
+    stop.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_start
+    counts = read_counts()
+    events_s = start.elapsed_time(stop) / 1000.0
+
+    h = {k: v.cpu().numpy() for k, v in hist.items()}
+    sil, rgb = h["sil_mse"], h["rgb_mse"]
+    sil0, sil1 = float(sil[:20].mean()), float(sil[-20:].mean())
+    rgb0, rgb1 = float(rgb[:20].mean()), float(rgb[-20:].mean())
+    max_deform = float(params["deform"].abs().max())
+
+    def cham(mesh):
+        gen = torch.Generator(device=device).manual_seed(7)
+        a = sample_points_from_meshes(mesh, 2000, gen)
+        b = sample_points_from_meshes(tgt, 2000, gen)
+        return float(chamfer_distance(a, b)[0])
+
+    final = src.offset_verts(params["deform"])
+    c0, c1 = cham(src), cham(final)
+    print(f"[joint] sil MSE {sil0:.5f} -> {sil1:.5f}; rgb MSE {rgb0:.5f} -> "
+          f"{rgb1:.5f} (means of the first / last 20 steps); max|deform| "
+          f"{max_deform:.4f}; chamfer {c0:.6f} -> {c1:.6f}; launches "
+          f"{counts}", flush=True)
+    print(f"[joint] {iters} iters: {iters / events_s:.1f} it/s by CUDA "
+          f"events ({events_s * 1000.0 / iters:.4f} ms/iter), "
+          f"{iters / wall_s:.1f} it/s by host wall time "
+          f"({wall_s * 1000.0 / iters:.4f} ms/iter) on {card}", flush=True)
+
+    # the budgets sized at set-up against the fitted mesh's footprint
+    st = fitter.renderer.settings
+    with torch.no_grad():
+        fd = setup_faces(final.extend(ds["R"].shape[0]),
+                         fitter.renderer.camera_with_pose(ds["R"], ds["t"]))
+        pad = math.sqrt(st.blur_radius)
+        mx = int(count_overflow(fd, size, st.bin_size, 0, pad)[0])
+        act = int(count_active_tiles(fd, size, st.bin_size, pad))
+    print(f"[joint] fitted footprint: max faces per bin {mx} (budget "
+          f"{st.max_faces_per_bin}), active tiles {act} (budget "
+          f"{st.active_tiles})", flush=True)
+
+    if not all(np.isfinite(v).all() for v in h.values()) \
+            or sil.shape != (iters,):
+        raise AssertionError("joint fit: a loss is not finite")
+    if not (sil1 < 0.7 * sil0 and rgb1 < 0.7 * rgb0):
+        raise AssertionError("joint fit: the silhouette or RGB MSE did not "
+                             "fall below 0.7x its start")
+    if not max_deform < 0.5:
+        raise AssertionError(f"joint fit: vertex offsets exploded "
+                             f"({max_deform})")
+    if not c1 < 0.5 * c0:
+        raise AssertionError(f"joint fit: chamfer {c0} -> {c1} did not fall "
+                             "below 0.5x its start")
+    want = only(counts, texsample_fwd=iters, texsample_bwd=iters,
+                topk_select=iters)
+    if counts != want:
+        raise AssertionError(f"joint fit: expected launches {want}, got "
+                             f"{counts}")
+
+    # topk_select at the fit's shapes: 2 views of the fitted mesh, K=8
+    with torch.no_grad():
+        cam = fitter.renderer.camera_with_pose(ds["R"][:2], ds["t"][:2])
+        inp = cuda_hard.binned_inputs(setup_face_planes(final.extend(2), cam),
+                                      st)
+    targs = (inp.slab, inp.count, inp.origin, st.faces_per_pixel,
+             st.bin_size, inp.inv_s, st.blur_radius, st.znear)
+    l_k = cuda_hard.topk_select(*targs)
+    l_p = cuda_hard.topk_select_reference(*targs)
+    torch.cuda.synchronize()
+    prio = cuda_hard._priority(inp.slab, inp.count, inp.origin, *targs[4:8])
+    gap = _winner_check("topk_select K=8 (joint fit)", l_k, l_p, prio)
+    topk = {"max_abs_err": gap, "shape": list(inp.slab.shape),
+            "ms": time_ms(lambda: cuda_hard.topk_select(*targs)),
+            "device_ms": device_ms(lambda: cuda_hard.topk_select(*targs),
+                                   "topk_select_kernel"),
+            "plain_ms": time_ms(
+                lambda: cuda_hard.topk_select_reference(*targs)),
+            **hard_bound(inp.slab, inp.count, st.faces_per_pixel, OPS_TOPK,
+                         st.bin_size)}
+    print(f"[joint] topk_select K=8 at {topk['shape']} ({card}): kernel "
+          f"{topk['ms']:.4f} ms (device {topk['device_ms']} ms), plain "
+          f"{topk['plain_ms']:.4f} ms, bound "
+          f"{topk['bound_ms']:.6f} ms ({topk['bound_by']})", flush=True)
+
+    try:
+        prof = _busy_share(lambda: fitter.fit(
+            src, uvs, ds, torch.Generator().manual_seed(1),
+            n_steps=PROFILE_ITERS, params0=params), PROFILE_ITERS)
+        print(f"[joint] profile over {PROFILE_ITERS} iterations ({card}): "
+              f"{prof}", flush=True)
+    except RuntimeError as e:   # the profiler is optional here
+        prof = None
+        print(f"[joint] profile: not measured ({e})", flush=True)
+    return {"counts": counts, "it_s_events": iters / events_s,
+            "it_s_wall": iters / wall_s, "sil": [sil0, sil1],
+            "rgb": [rgb0, rgb1], "chamfer": [c0, c1],
+            "max_deform": max_deform, "topk": topk, "profile": prof}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -499,26 +915,62 @@ def main() -> None:
     hard = hard_phase(device, card)
     fits = {route: pose_fit_phase(device, card, route)
             for route in ("fragments", "pallas")}
+    tex = texture_phase(device, card)
+    joint = joint_fit_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
-    k4, k50 = hard["topk_select_k4"], hard["topk_select_k50"]
+    h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
+                                     "topk_select_k50"))
     kernels += [
         {"name": "hard_k1", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:157",
          "also_replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:611",
          "launches": fits["pallas"]["counts"]["hard_k1"],
-         "max_abs_err": hard["hard_k1"]["max_abs_err"],
-         "ms": hard["hard_k1"]["ms"], "plain_ms": hard["hard_k1"]["plain_ms"]},
+         "max_abs_err": h1["max_abs_err"], "ms": h1["ms"],
+         "device_ms": h1["device_ms"], "plain_ms": h1["plain_ms"], "bound_ms": h1["bound_ms"],
+         "bound_by": h1["bound_by"], "library_ms": None},
         {"name": "topk_select", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:237",
-         "launches": fits["fragments"]["counts"]["topk_select"],
-         "max_abs_err": max(k4["max_abs_err"], k50["max_abs_err"]),
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "k50_ms": k50["ms"], "k50_plain_ms": k50["plain_ms"]},
+         "launches": joint["counts"]["topk_select"],
+         "launches_pose_fit": fits["fragments"]["counts"]["topk_select"],
+         "max_abs_err": max(k4["max_abs_err"], k50["max_abs_err"],
+                            joint["topk"]["max_abs_err"]),
+         "ms": joint["topk"]["ms"], "device_ms": joint["topk"]["device_ms"],
+         "plain_ms": joint["topk"]["plain_ms"],
+         "bound_ms": joint["topk"]["bound_ms"],
+         "bound_by": joint["topk"]["bound_by"], "library_ms": None,
+         "k4_ms": k4["ms"], "k4_device_ms": k4["device_ms"],
+         "k4_plain_ms": k4["plain_ms"],
+         "k4_bound_ms": k4["bound_ms"],
+         "k50_ms": k50["ms"], "k50_device_ms": k50["device_ms"],
+         "k50_plain_ms": k50["plain_ms"],
+         "k50_bound_ms": k50["bound_ms"]},
+    ]
+    source = "torch_renderer_tpu_torch/csrc/texsample.cu"
+    t = tex["times"]
+    kernels += [
+        {"name": "texsample_fwd", "route": "cuda", "source": source,
+         "replaces": "torch_renderer_tpu/ops/pallas_texsample.py:81",
+         "launches": joint["counts"]["texsample_fwd"],
+         "max_abs_err": tex["fwd_err"], "ms": t["fwd"],
+         "device_ms": t["fwd_device"], "plain_ms": t["fwd_plain"], "bound_ms": tex["bound_fwd"]["bound_ms"],
+         "bound_by": tex["bound_fwd"]["bound_by"],
+         "library_ms": t["fwd_library"],
+         "library_device_ms": t["fwd_library_device"]},
+        {"name": "texsample_bwd", "route": "cuda", "source": source,
+         "replaces": "torch_renderer_tpu/ops/pallas_texsample.py:100",
+         "launches": joint["counts"]["texsample_bwd"],
+         "max_abs_err": tex["bwd_err"], "ms": t["bwd"],
+         "device_ms": t["bwd_device"], "plain_ms": t["bwd_plain"], "bound_ms": tex["bound_bwd"]["bound_ms"],
+         "bound_by": tex["bound_bwd"]["bound_by"],
+         "library_ms": t["bwd_library"],
+         "library_device_ms": t["bwd_library_device"]},
     ]
     print(f"pose fit it/s ({card}): " + ", ".join(
         f"{r} {f['it_s_events']:.1f} (events) / {f['it_s_wall']:.1f} (wall)"
         for r, f in fits.items()), flush=True)
+    print(f"joint fit it/s ({card}): {joint['it_s_events']:.1f} (events) / "
+          f"{joint['it_s_wall']:.1f} (wall)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

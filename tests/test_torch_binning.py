@@ -40,7 +40,8 @@ def planes():
     t = np.array([[0.0, 0.0, 3.0], [0.15, -0.1, 2.6]], np.float32)
     jfp = setup_face_planes(meshes, PerspectiveCamera.from_K(
         K, (IMG, IMG), R=R, t=t))
-    return jfp, face_planes_from_arrays(*map(np.asarray, jfp))
+    return jfp, face_planes_from_arrays(*map(np.asarray, jfp),
+                                        device="cpu")
 
 
 def test_tile_grid_matches_jax():

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels (soft coverage, hard raster) against their
-plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``: without a card
+"""The hand-written CUDA kernels (soft coverage, hard raster, bilinear
+texture sampling) against their plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``: without a card
 every test here skips (the decision is made in a fixture, never at import).
 
 Tolerances: soft forward sums within 1e-4 + 1e-5 * max|S| (float32 sums in
@@ -7,7 +7,11 @@ another order); soft backward within 1e-3 of max|dq| (another order and
 form of the pixel sums). Hard winners equal, or differing only at
 selection-depth ties within 1e-6 on under 0.1% of pixels; hard values within
 1e-5 where the winners agree (the kernels repeat the plain arithmetic op
-for op, so they are expected to be equal).
+for op, so they are expected to be equal). Texture sampling: the forward
+within 1e-6 (the same operations, so expected equal); d_wy and d_wx within
+1e-5 of their largest (a channel sum in another order); d_maps within 1e-5
+of its largest (float32 atomics add a texel's terms in an order that
+changes from run to run).
 """
 
 import numpy as np
@@ -205,3 +209,78 @@ def test_binned_raster_matches_cpu(device):
         torch.testing.assert_close(z_g[same], z_c[same], rtol=0, atol=1e-5)
         torch.testing.assert_close(g_g, g_c, rtol=0,
                                    atol=1e-3 * float(g_c.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Texture-sampling kernels (csrc/texsample.cu)
+# ---------------------------------------------------------------------------
+
+def _tex_inputs(seed, B, Hm, Wm, C, P, device, shared):
+    rng = np.random.default_rng(seed)
+    maps = torch.tensor(rng.uniform(size=(1 if shared else B, Hm, Wm, C)),
+                        dtype=torch.float32, device=device)
+    if shared:
+        maps = maps.expand(B, -1, -1, -1)       # batch stride 0
+    y0 = rng.integers(-1, Hm, size=(B, P))      # includes clamped corners
+    x0 = rng.integers(-1, Wm, size=(B, P))
+    as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa
+    return (maps, as_t(y0, torch.int32), as_t(x0, torch.int32),
+            as_t(rng.uniform(size=(B, P)), torch.float32),
+            as_t(rng.uniform(size=(B, P)), torch.float32),
+            as_t(rng.normal(size=(B, P, C)), torch.float32))
+
+
+@pytest.mark.parametrize("B,Hm,Wm,C,P,shared", [
+    (2, 256, 256, 3, 32768, True), (2, 256, 256, 3, 32768, False),
+    (3, 20, 100, 4, 257, False), (1, 2, 2, 1, 5, True),
+])
+def test_texsample_matches_plain(device, B, Hm, Wm, C, P, shared):
+    from torch_renderer_tpu_torch.ops import cuda_texsample as ts
+
+    maps, y0, x0, wy, wx, g = _tex_inputs(0, B, Hm, Wm, C, P, device, shared)
+    before = (ts.FWD_LAUNCHES, ts.BWD_LAUNCHES)
+    out = ts.texsample_fwd(maps, y0, x0, wy, wx)
+    d_maps, d_wy, d_wx = ts.texsample_bwd(maps, y0, x0, wy, wx, g)
+    torch.cuda.synchronize()
+    assert (ts.FWD_LAUNCHES, ts.BWD_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = ts.texsample_fwd_reference(maps, y0, x0, wy, wx)
+    r_maps, r_wy, r_wx = ts.texsample_bwd_reference(maps, y0, x0, wy, wx, g)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    for got, want in ((d_wy, r_wy), (d_wx, r_wx), (d_maps, r_maps)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_textured_sample_matches_cpu(device):
+    """TexturesUV.sample and its gradients to the shared map and to uv on
+    the card against the same call on the CPU (plain versions)."""
+    from torch_renderer_tpu_torch.structures.textures import TexturesUV
+
+    rng = np.random.default_rng(1)
+    base = rng.uniform(size=(64, 48, 3)).astype(np.float32)
+    uv = rng.uniform(-0.1, 1.1, size=(2, 30, 20, 2)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", device):
+        m = torch.tensor(base, device=dev, requires_grad=True)
+        u = torch.tensor(uv, device=dev, requires_grad=True)
+        tex = TexturesUV(m[None].expand(2, -1, -1, -1),
+                         torch.zeros((2, 1, 3), dtype=torch.int64,
+                                     device=dev),
+                         torch.zeros((2, 3, 2), device=dev))
+        s = tex.sample(u)
+        (s * s).sum().backward()
+        out[str(dev)] = (s.detach().cpu(), m.grad.cpu(), u.grad.cpu())
+    for a, b in zip(out[str(device)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+def test_texsample_rejects_strided_maps(device):
+    from torch_renderer_tpu_torch.ops import cuda_texsample as ts
+
+    maps, y0, x0, wy, wx, _ = _tex_inputs(2, 2, 8, 8, 3, 10, device, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.texsample_fwd(maps.transpose(1, 2), y0, x0, wy, wx)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.texsample_fwd(maps, y0.t().contiguous().t(), x0, wy, wx)

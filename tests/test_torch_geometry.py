@@ -39,8 +39,9 @@ def _both(pose):
     t = POSES[pose]
     jm = Meshes.from_single(verts, faces).extend(B)
     jc = PerspectiveCamera.from_K(_intrinsics(), (IMG, IMG), R=R, t=t)
-    pm = port.Meshes.from_single(verts, faces).extend(B)
-    pc = port.PerspectiveCamera.from_K(_intrinsics(), (IMG, IMG), R=R, t=t)
+    pm = port.Meshes.from_single(verts, faces, device="cpu").extend(B)
+    pc = port.PerspectiveCamera.from_K(_intrinsics(), (IMG, IMG), R=R, t=t,
+                                       device="cpu")
     return jm, jc, pm, pc
 
 
@@ -50,7 +51,7 @@ def test_meshes_match_jax():
     faces = [rng.integers(0, len(v), size=(m, 3)).astype(np.int32)
              for v, m in zip(verts, (4, 7))]
     jm = Meshes.from_lists(verts, faces).extend(3)
-    pm = port.Meshes.from_lists(verts, faces).extend(3)
+    pm = port.Meshes.from_lists(verts, faces, device="cpu").extend(3)
     assert pm.batch_size == jm.batch_size == 6
     assert pm.max_faces == jm.max_faces and pm.max_verts == jm.max_verts
     for name in ("verts", "faces", "num_verts", "num_faces"):
@@ -77,7 +78,7 @@ def test_interop_roundtrip():
     for name in ("verts", "faces", "num_verts", "num_faces"):
         assert torch.equal(getattr(m2, name), getattr(pm, name))
     c2 = camera_from_arrays(jc.fx, jc.fy, jc.cx, jc.cy, jc.R, jc.t,
-                            jc.image_size).to("cpu")
+                            jc.image_size, device="cpu").to("cpu")
     assert c2.image_size == pc.image_size == (IMG, IMG)
     for name in ("fx", "fy", "cx", "cy", "R", "t"):
         assert torch.equal(getattr(c2, name), getattr(pc, name))

@@ -95,12 +95,12 @@ def test_losses_and_pose_params_match_jax():
         _np(ppose.iou(torch.from_numpy(m1), torch.from_numpy(m2))),
         _np(jpose.iou(jnp.asarray(m1), jnp.asarray(m2))), atol=1e-6)
     R, t = jlook.look_at_view_transform(2.7, 15.0, 40.0)
-    pp = ppose.pose_params_from_Rt(_np(R)[0], _np(t)[0])
+    pp = ppose.pose_params_from_Rt(_np(R)[0], _np(t)[0], "cpu")
     jp = jpose.pose_params_from_Rt(_np(R)[0], _np(t)[0])
     for k in ("t", "quat"):
         np.testing.assert_allclose(_np(pp[k]), _np(jp[k]), atol=1e-6)
     R2, t2 = ppose.pose_params_to_Rt(interop.pose_params_from_arrays(
-        jp["t"], jp["quat"]))
+        jp["t"], jp["quat"], device="cpu"))
     np.testing.assert_allclose(_np(R2), _np(R), atol=1e-5)
     np.testing.assert_allclose(_np(t2), _np(t), atol=1e-6)
 
@@ -119,7 +119,7 @@ def _scene():
     verts, faces = icosphere(2)
     jm, _, _ = Meshes.from_single(verts, faces).center_and_scale_to_unit_sphere()
     pm = interop.meshes_from_arrays(jm.verts, jm.faces, jm.num_verts,
-                                    jm.num_faces)
+                                    jm.num_faces, device="cpu")
     K = app.pinhole_K((IMG, IMG))
     R, t = jlook.look_at_view_transform(2.7, 15.0, 40.0)
     return jm, pm, K, _np(R)[0], _np(t)[0]
@@ -132,7 +132,7 @@ def test_fitter_loss_and_gradient_match_jax(route):
     jf = jpose.CameraPoseFitter(K, (IMG, IMG), cfg, silhouette_impl=route,
                                 bin_size=0)
     pf = ppose.CameraPoseFitter(K, (IMG, IMG), ppose.PoseFitConfig(
-        use_rgb=True), silhouette_impl=route)
+        use_rgb=True), silhouette_impl=route, device="cpu")
     jrefs = jf.make_references(jm, R, t)
     prefs = pf.make_references(pm, R, t)
     for k in ("depth", "sil", "mask", "rgb"):
@@ -148,7 +148,7 @@ def test_fitter_loss_and_gradient_match_jax(route):
         jp, jm, jrefs)
     pp = {k: v.clone().requires_grad_(True)
           for k, v in interop.pose_params_from_arrays(
-              jp["t"], jp["quat"]).items()}
+              jp["t"], jp["quat"], device="cpu").items()}
     pl, pmet = pf.loss(pp, pm, prefs)
     pl.backward()
     assert abs(pl.item() - float(jl)) <= 1e-4
@@ -168,10 +168,11 @@ def test_port_fit_converges(route):
     _, pm, K, R, t = _scene()
     fitter = ppose.DepthPoseFitter(
         K, (IMG, IMG), ppose.PoseFitConfig(lr=5e-3, use_rgb=False),
-        silhouette_impl=route)
+        silhouette_impl=route, device="cpu")
     refs = fitter.make_references(pm, R, t)
     t0 = t + np.float32([0.12, -0.08, 0.15])
-    params, hist = fitter.fit(pm, refs, ppose.pose_params_from_Rt(R, t0),
+    params, hist = fitter.fit(pm, refs,
+                              ppose.pose_params_from_Rt(R, t0, "cpu"),
                               n_steps=40)
     losses = _np(hist["loss"])
     assert losses.shape == (40,) and np.isfinite(losses).all()
@@ -193,20 +194,22 @@ def test_object_pose_compose_matches_jax():
     obj[:3, 3] = rng.normal(size=3) * 0.1
     K = app.pinhole_K((IMG, IMG))
     jf = jpose.ObjectPoseFitter(K, (IMG, IMG), ext)
-    pf = ppose.ObjectPoseFitter(K, (IMG, IMG), ext)
+    pf = ppose.ObjectPoseFitter(K, (IMG, IMG), ext, device="cpu")
     jc = jf.compose(jf.params_from_object_pose(obj))
-    pc = pf.compose(pf.params_from_object_pose(obj))
+    pc = pf.compose(pf.params_from_object_pose(obj, "cpu"))
     for k in ("t", "quat"):
         np.testing.assert_allclose(_np(pc[k]), _np(jc[k]), atol=1e-6)
     np.testing.assert_allclose(
-        _np(pf.object_pose(pf.params_from_object_pose(obj))), obj, atol=1e-6)
+        _np(pf.object_pose(pf.params_from_object_pose(obj, "cpu"))), obj,
+        atol=1e-6)
 
 
 @pytest.mark.parametrize("extra", [[], ["--silhouette-impl", "pallas",
                                         "--sil-layout", "packed"]])
 def test_app_runs(extra, capsys):
     losses, ious, err0, err1 = app.main(
-        ["--iters", "3", "--image-size", "48", "--check-budgets", "off"]
+        ["--device", "cpu", "--iters", "3", "--image-size", "48",
+         "--check-budgets", "off"]
         + extra)
     out = capsys.readouterr().out
     assert "translation error" in out and "iters/sec" in out

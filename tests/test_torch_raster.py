@@ -52,7 +52,8 @@ def _scene(batch=2, level=2):
 
 def _carry_fd(fd):
     return interop.face_raster_data_from_arrays(
-        *(np.asarray(getattr(fd, f.name)) for f in dataclasses.fields(fd)))
+        *(np.asarray(getattr(fd, f.name)) for f in dataclasses.fields(fd)),
+        device="cpu")
 
 
 def _carry_settings(st):
@@ -146,9 +147,10 @@ def test_binned_gradients_match_jax():
     meshes, cam = _scene(batch=1, level=1)
     w = np.cos(np.arange(H * W, dtype=np.float32)).reshape(1, H, W, 1)
     pm = interop.meshes_from_arrays(meshes.verts, meshes.faces,
-                                    meshes.num_verts, meshes.num_faces)
+                                    meshes.num_verts, meshes.num_faces,
+                                    device="cpu")
     pc = interop.camera_from_arrays(cam.fx, cam.fy, cam.cx, cam.cy, cam.R,
-                                    cam.t, cam.image_size)
+                                    cam.t, cam.image_size, device="cpu")
     for K in (1, 4):
         st = RasterizationSettings((H, W), blur_radius=1e-4,
                                    faces_per_pixel=K, bin_size=16,
@@ -182,9 +184,10 @@ def test_autotune_matches_jax():
     package, at the default margin and at the pose fitters' 2.0."""
     meshes, cam = _scene()
     pm = interop.meshes_from_arrays(meshes.verts, meshes.faces,
-                                    meshes.num_verts, meshes.num_faces)
+                                    meshes.num_verts, meshes.num_faces,
+                                    device="cpu")
     pc = interop.camera_from_arrays(cam.fx, cam.fy, cam.cx, cam.cy, cam.R,
-                                    cam.t, cam.image_size)
+                                    cam.t, cam.image_size, device="cpu")
     for blur, K, margin in ((0.0, 1, None), (9.21e-4, 4, 2.0)):
         st = RasterizationSettings((H, W), blur_radius=blur,
                                    faces_per_pixel=K)
@@ -203,7 +206,7 @@ def test_autotune_matches_jax():
         _carry_settings(small), fd=interop.face_raster_data_from_arrays(
             *(np.zeros((1, 80) + s, np.float32) for s in
               ((3, 2), (3,), (3,), (), (3, 3), (3,))),
-            np.ones((1, 80), bool))).bin_size == 0
+            np.ones((1, 80), bool), device="cpu")).bin_size == 0
     autotune.clear_cache()
     jautotune.clear_cache()
 

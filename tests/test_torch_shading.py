@@ -87,7 +87,7 @@ def _carry_lights(lights):
     if isinstance(lights, PointLights):
         return interop.point_lights_from_arrays(
             *(np.asarray(getattr(lights, f.name))
-              for f in dataclasses.fields(lights)))
+              for f in dataclasses.fields(lights)), device="cpu")
     return plights.DirectionalLights(*(
         torch.from_numpy(np.array(getattr(lights, f.name)))
         for f in dataclasses.fields(lights)))
@@ -95,7 +95,8 @@ def _carry_lights(lights):
 
 def _carry_materials(m):
     return interop.materials_from_arrays(
-        *(np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)))
+        *(np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)),
+        device="cpu")
 
 
 @pytest.mark.parametrize("lights", [
@@ -121,7 +122,7 @@ def _scene():
     verts, faces = icosphere(2)
     jm, _, _ = Meshes.from_single(verts, faces).center_and_scale_to_unit_sphere()
     pm = interop.meshes_from_arrays(jm.verts, jm.faces, jm.num_verts,
-                                    jm.num_faces)
+                                    jm.num_faces, device="cpu")
     f = 0.9 * IMG
     K = np.array([[f, 0, IMG / 2], [0, f, IMG / 2], [0, 0, 1]], np.float32)
     R, t = look_at_view_transform(2.7, 15.0, 40.0)
@@ -136,7 +137,7 @@ def _renderers(K, config, **jax_kw):
                       **CONFIGS[config], **jax_kw)
     pr = prenderer.MeshRenderer(K, (IMG, IMG), lights=_carry_lights(lights),
                                 materials=_carry_materials(mats),
-                                **CONFIGS[config])
+                                **CONFIGS[config], device="cpu")
     return jr, pr
 
 
@@ -171,7 +172,7 @@ def test_render_gradients_match_jax():
     rng = np.random.default_rng(2)
     w = rng.uniform(size=(3, 1, IMG, IMG)).astype(np.float32)
     params = {"t": t[None] + np.float32([0.02, -0.01, 0.03]),
-              "quat": ppose.pose_params_from_Rt(R, t)["quat"].numpy()}
+              "quat": ppose.pose_params_from_Rt(R, t, "cpu")["quat"].numpy()}
 
     Rj, tj = pose_params_to_Rt({k: jnp.asarray(v) for k, v in params.items()})
     jf = jr.render(jm, Rj, tj).fragments
@@ -212,3 +213,59 @@ def test_render_gradients_match_jax():
         assert np.abs(want).max() > 0
         np.testing.assert_allclose(got.numpy(), want,
                                    atol=2e-3 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# Entry points default to the card
+# ---------------------------------------------------------------------------
+
+def _entry_points():
+    from torch_renderer_tpu_torch.cameras.perspective import PerspectiveCamera
+    from torch_renderer_tpu_torch.opt import deform_color as pdc
+    from torch_renderer_tpu_torch.structures.meshes import Meshes as PMeshes
+    from torch_renderer_tpu_torch.structures.pointclouds import Pointclouds
+
+    verts, faces = icosphere(0)
+    K = np.eye(3, dtype=np.float32)
+    return {
+        "MeshRenderer": lambda: prenderer.MeshRenderer(K, (8, 8)),
+        "SilhouetteRender": lambda: prenderer.SilhouetteRender(K, (8, 8)),
+        "CameraPoseFitter": lambda: ppose.CameraPoseFitter(K, (8, 8)),
+        "Meshes.from_single": lambda: PMeshes.from_single(verts, faces),
+        "PerspectiveCamera.from_K": lambda: PerspectiveCamera.from_K(
+            K, (8, 8)),
+        "pose_params_from_Rt": lambda: ppose.pose_params_from_Rt(
+            np.eye(3), np.zeros(3)),
+        "meshes_from_arrays": lambda: interop.meshes_from_arrays(
+            verts[None], faces[None], [len(verts)], [len(faces)]),
+        "PointLights.make": lambda: plights.PointLights.make(),
+        "JointShapeTextureFitter": lambda: pdc.JointShapeTextureFitter(
+            K, (8, 8)),
+        "textures_uv_from_arrays": lambda: interop.textures_uv_from_arrays(
+            np.zeros((1, 4, 4, 3)), faces[None], np.zeros((1, 12, 2))),
+        "joint_params_from_arrays": lambda: interop.joint_params_from_arrays(
+            np.zeros((12, 3)), np.zeros((4, 4, 3))),
+        "Pointclouds.from_lists": lambda: Pointclouds.from_lists([verts]),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_without_card_raises(name, monkeypatch):
+    """With no CUDA device and no device=, an entry point raises and says
+    how to ask for the CPU; it never falls back to the CPU quietly."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_entry_point_follows_tensor_inputs(monkeypatch):
+    """Given tensors, an entry point follows their device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    K = torch.eye(3)
+    r = prenderer.MeshRenderer(K, (8, 8))
+    assert r.device == K.device
+    p = ppose.pose_params_from_Rt(torch.eye(3), torch.zeros(3))
+    assert p["quat"].device == K.device
+    cpu = prenderer.MeshRenderer(np.eye(3, dtype=np.float32), (8, 8),
+                                 device="cpu")
+    assert cpu.device.type == "cpu" and cpu.lights.location.device.type == "cpu"

@@ -45,10 +45,12 @@ def scene():
     verts, faces = icosphere(1)
     jm = Meshes.from_single(verts, faces).extend(B)
     jc = PerspectiveCamera.from_K(K_INTR, (IMG, IMG), R=R, t=T_POSES)
-    pm = port.Meshes.from_single(verts, faces).extend(B)
-    pc = port.PerspectiveCamera.from_K(K_INTR, (IMG, IMG), R=R, t=T_POSES)
+    pm = port.Meshes.from_single(verts, faces, device="cpu").extend(B)
+    pc = port.PerspectiveCamera.from_K(K_INTR, (IMG, IMG), R=R, t=T_POSES,
+                                       device="cpu")
     jfp = setup_face_planes(jm, jc)
-    return jm, jc, pm, pc, jfp, face_planes_from_arrays(*map(np.asarray, jfp))
+    return jm, jc, pm, pc, jfp, face_planes_from_arrays(
+        *map(np.asarray, jfp), device="cpu")
 
 
 def _route_kwargs(layout, active, group_lanes, fpt):

@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Two slices are ported:
+Three slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning and the soft-coverage CUDA
@@ -8,16 +8,37 @@ Two slices are ported:
   * the camera pose fit: look-at poses and quaternions, the top-K mesh
     rasterizer (the K=1 and top-K hard-raster CUDA kernels for binned
     settings, plain torch for dense ones), Phong shading and blending, the
-    mesh renderers and the pose fitters.
+    mesh renderers and the pose fitters;
+  * shape fitting and texture: TexturesVertex / TexturesUV (the bilinear
+    texture-sampling CUDA kernel pair), the mesh regularizers, surface
+    sampling and the chamfer distance, the joint shape + UV-texture fit,
+    the chamfer deformation and vertex-color fits, and OBJ / MTL / PNG IO.
 
-The CUDA kernels are built on first use, never at import. The JAX package
-``torch_renderer_tpu`` stays the reference; this package does not import it
-or JAX.
+Entry points that build tensors from host data put them on the card unless
+given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
+on first use, never at import. The JAX package ``torch_renderer_tpu`` stays
+the reference; this package does not import it or JAX.
 """
 
 from .cameras.look_at import look_at_view_transform
 from .cameras.perspective import PerspectiveCamera
 from .ops.icosphere import icosphere
+from .io.obj import load_obj, load_objs_as_meshes, save_obj
+from .ops.knn_chamfer import chamfer_distance, knn_points
+from .ops.mesh_losses import (
+    build_topology,
+    mesh_edge_loss,
+    mesh_laplacian_smoothing,
+    mesh_normal_consistency,
+)
+from .ops.sample_points import sample_points_from_meshes
+from .opt.deform import (
+    ColorFitConfig,
+    DeformConfig,
+    MeshDeformer,
+    VertexColorFitter,
+)
+from .opt.deform_color import JointFitConfig, JointShapeTextureFitter
 from .opt.pose_fit import (
     CameraPoseFitter,
     DepthPoseFitter,
@@ -55,38 +76,64 @@ from .renderer import (
 from .shading.blending import BlendParams
 from .shading.lights import DirectionalLights, Materials, PointLights
 from .structures.meshes import Meshes
+from .structures.pointclouds import Pointclouds
+from .structures.textures import (
+    TexturesUV,
+    TexturesVertex,
+    sphere_uv_mapping,
+)
 
 __all__ = [
     "BlendParams",
     "CameraPoseFitter",
+    "ColorFitConfig",
     "ColorRender",
+    "DeformConfig",
     "DepthPoseFitter",
     "DepthRender",
     "DirectionalLights",
     "FacePlanes",
     "FaceRasterData",
     "Fragments",
+    "JointFitConfig",
+    "JointShapeTextureFitter",
     "Materials",
+    "MeshDeformer",
     "MeshRenderer",
     "Meshes",
     "ObjectPoseFitter",
     "PerspectiveCamera",
     "PointLights",
+    "Pointclouds",
     "PoseFitConfig",
     "RasterizationSettings",
     "RenderOutputs",
     "SilhouetteRender",
     "SoftKernelConfig",
+    "TexturesUV",
+    "TexturesVertex",
+    "VertexColorFitter",
+    "build_topology",
+    "chamfer_distance",
     "icosphere",
+    "knn_points",
+    "load_obj",
+    "load_objs_as_meshes",
     "look_at_view_transform",
+    "mesh_edge_loss",
+    "mesh_laplacian_smoothing",
+    "mesh_normal_consistency",
     "pose_params_from_Rt",
     "pose_params_to_Rt",
     "rasterize_face_data",
     "rasterize_meshes",
+    "sample_points_from_meshes",
+    "save_obj",
     "setup_face_planes",
     "setup_faces",
     "soft_silhouette_cuda",
     "soft_silhouette_fd",
     "soft_silhouette_streaming",
+    "sphere_uv_mapping",
     "suggest_soft_config",
 ]

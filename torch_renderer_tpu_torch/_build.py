@@ -111,6 +111,13 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_topk_select.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     f32, f32, f32, i32, vp]
     lib.trt_topk_select.restype = i32
+    i64 = ctypes.c_int64
+    lib.trt_texsample_fwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, i32, i32,
+                                      i32, i32, i32, i32, vp]
+    lib.trt_texsample_fwd.restype = i32
+    lib.trt_texsample_bwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
+                                      i32, i32, i32, i32, i32, i32, vp]
+    lib.trt_texsample_bwd.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,10 +8,11 @@ camera translation by perturb_t * N(0, 1) from the seed, and fits the
 7-DoF camera with Adam; prints the loss, IoU and translation error at the
 start and end, and iterations per second.
 
-  python -m torch_renderer_tpu_torch.apps.camera_pose_optimizer --device cuda
-  python -m torch_renderer_tpu_torch.apps.camera_pose_optimizer --iters 100
+  python -m torch_renderer_tpu_torch.apps.camera_pose_optimizer
+  python -m torch_renderer_tpu_torch.apps.camera_pose_optimizer --device cpu --iters 100
 
---device cuda raises when no CUDA device is present (there is no fallback).
+The default --device cuda raises when no CUDA device is present (there is
+no fallback); pass --device cpu to run on the CPU.
 """
 
 from __future__ import annotations
@@ -22,32 +23,12 @@ import time
 import numpy as np
 import torch
 
-
-def pinhole_K(image_size, focal_scale: float = 0.9) -> np.ndarray:
-    H, W = image_size
-    f = focal_scale * min(H, W)
-    return np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]],
-                    np.float32)
-
-
-def load_scene_mesh(args, level: int = 3, normalize: bool = True):
-    """Meshes (B=1) of a generated icosphere on args.device."""
-    from ..ops.icosphere import icosphere
-    from ..structures.meshes import Meshes
-
-    if args.obj:
-        raise NotImplementedError(
-            "--obj needs io/obj, which is not ported yet (ROADMAP Queue 1, "
-            "slice 3)")
-    meshes = Meshes.from_single(*icosphere(level), device=args.device)
-    if normalize:
-        meshes, _, _ = meshes.center_and_scale_to_unit_sphere()
-    return meshes
+from ._common import load_scene_mesh, pinhole_K
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--device", default="cpu",
+    p.add_argument("--device", default="cuda",
                    help="torch device: cpu, cuda or cuda:N")
     p.add_argument("--obj", type=str, default=None, help="input OBJ mesh path")
     p.add_argument("--seed", type=int, default=0)

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 
 def _as_batched(x, last_dims: int, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
@@ -44,8 +46,9 @@ class PerspectiveCamera:
     @staticmethod
     def from_K(K, image_size: Tuple[int, int], R=None, t=None,
                device=None) -> "PerspectiveCamera":
-        """Build from a 3x3 (or (B, 3, 3)) pinhole matrix K."""
-        K = _as_batched(K, 2, device)
+        """Build from a 3x3 (or (B, 3, 3)) pinhole matrix K, on ``device``
+        (default: K's device when K is a tensor, else the card)."""
+        K = _as_batched(K, 2, resolve_device(device, like=K))
         B = K.shape[0]
         if R is None:
             R = torch.eye(3, device=K.device).expand(B, 3, 3)

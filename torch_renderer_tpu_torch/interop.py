@@ -2,8 +2,12 @@
 
 Every function takes numpy arrays (``np.asarray`` of the JAX dataclass
 fields) or plain values, so this module needs neither JAX nor the JAX
-package. Carried across: meshes, cameras, FacePlanes, FaceRasterData,
-RasterizationSettings, pose parameters, PointLights and Materials.
+package. Carried across: meshes (with their textures), TexturesUV,
+TexturesVertex, cameras, FacePlanes, FaceRasterData, RasterizationSettings,
+pose parameters, joint shape + texture parameters, PointLights and
+Materials.
+Each converter builds on ``device`` (default: the card, see
+_device.resolve_device).
 """
 
 from __future__ import annotations
@@ -11,25 +15,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .cameras.perspective import PerspectiveCamera
 from .rasterize.geometry import FacePlanes, FaceRasterData
 from .rasterize.raster import RasterizationSettings
 from .shading.lights import Materials, PointLights
 from .structures.meshes import Meshes
+from .structures.textures import TexturesUV, TexturesVertex
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
     # a copy: arrays viewed from another framework are often read-only
-    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(
+        resolve_device(device))
 
 
-def meshes_from_arrays(verts, faces, num_verts, num_faces,
+def meshes_from_arrays(verts, faces, num_verts, num_faces, textures=None,
                        device=None) -> Meshes:
-    """Padded (B, V, 3) verts, (B, F, 3) faces and (B,) counts -> Meshes."""
+    """Padded (B, V, 3) verts, (B, F, 3) faces and (B,) counts -> Meshes;
+    textures (a TexturesUV or TexturesVertex of this package) is moved to
+    the same device."""
+    device = resolve_device(device)
     return Meshes(verts=_tensor(verts, np.float32, device),
                   faces=_tensor(faces, np.int64, device),
                   num_verts=_tensor(num_verts, np.int64, device),
-                  num_faces=_tensor(num_faces, np.int64, device))
+                  num_faces=_tensor(num_faces, np.int64, device),
+                  textures=None if textures is None else textures.to(device))
+
+
+def textures_uv_from_arrays(maps, faces_uvs, verts_uvs,
+                            device=None) -> TexturesUV:
+    """(B, Hm, Wm, C) maps, (B, F, 3) faces_uvs, (B, VT, 2) verts_uvs ->
+    TexturesUV."""
+    return TexturesUV(maps=_tensor(maps, np.float32, device),
+                      faces_uvs=_tensor(faces_uvs, np.int64, device),
+                      verts_uvs=_tensor(verts_uvs, np.float32, device))
+
+
+def textures_vertex_from_arrays(verts_features,
+                                device=None) -> TexturesVertex:
+    """(B, V, C) per-vertex features -> TexturesVertex."""
+    return TexturesVertex(_tensor(verts_features, np.float32, device))
+
+
+def joint_params_from_arrays(deform, texture_map, device=None) -> dict:
+    """Joint-fit parameters {deform: (V, 3), texture_map: (T, T, 3)} as
+    JointShapeTextureFitter takes them."""
+    return {"deform": _tensor(deform, np.float32, device),
+            "texture_map": _tensor(texture_map, np.float32, device)}
 
 
 def camera_from_arrays(fx, fy, cx, cy, R, t, image_size,

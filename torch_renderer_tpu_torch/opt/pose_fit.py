@@ -21,7 +21,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..renderer import MeshRenderer
+from .history import MetricHistory
 from ..structures.meshes import Meshes
 from ..transforms.so3 import (
     matrix_to_quaternion,
@@ -83,7 +85,10 @@ class PoseFitConfig:
 
 
 def pose_params_from_Rt(R, t, device=None) -> Dict[str, torch.Tensor]:
-    """7-DoF parameters {t: (B, 3), quat: (B, 4)} from OpenCV (R, t)."""
+    """7-DoF parameters {t: (B, 3), quat: (B, 4)} from OpenCV (R, t), on
+    ``device`` (default: R's device when R is a tensor, else the card)."""
+    device = resolve_device(device, like=R)
+
     def tensor(x):
         if not isinstance(x, torch.Tensor):
             x = np.array(x, dtype=np.float32)
@@ -238,17 +243,14 @@ class CameraPoseFitter:
                   for k, v in params0.items()}
         self.prepare(meshes, params)
         opt = torch.optim.Adam(list(params.values()), lr=cfg.lr)
-        keys, rows = None, []
+        history = MetricHistory()
         for _ in range(n):
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(params, meshes, refs)
             total.backward()
             opt.step()
-            keys = keys or sorted(metrics)
-            rows.append(torch.stack([metrics[k].detach() for k in keys]))
-        hist = torch.stack(rows, dim=1) if rows else None
-        history = {k: hist[i] for i, k in enumerate(keys or ())}
-        return {k: v.detach() for k, v in params.items()}, history
+            history.add(metrics)
+        return {k: v.detach() for k, v in params.items()}, history.result()
 
 
 class DepthPoseFitter(CameraPoseFitter):
@@ -264,7 +266,10 @@ class DepthPoseFitter(CameraPoseFitter):
     @staticmethod
     def references_from_recorded(depth, device=None) -> Dict[str,
                                                               torch.Tensor]:
-        """References from a recorded depth image (B, H, W) or (H, W)."""
+        """References from a recorded depth image (B, H, W) or (H, W), on
+        ``device`` (default: depth's device when it is a tensor, else the
+        card)."""
+        device = resolve_device(device, like=depth)
         depth = torch.as_tensor(np.array(depth, dtype=np.float32)
                                 if not isinstance(depth, torch.Tensor)
                                 else depth, dtype=torch.float32,

@@ -86,7 +86,10 @@ def _priority(slab, count, origin, tile: int, inv_s: float, blur: float,
               znear: float) -> torch.Tensor:
     """Selection z (B, A, tile^2, Fmax) of every (pixel, slot) pair where
     the slot's face covers the pixel, INF elsewhere; the kernels' selection
-    arithmetic, operation for operation."""
+    arithmetic, operation for operation. Slots at or beyond the largest
+    count are never live, so only the first max(count) slots are
+    evaluated (at least one, so every reduction has an operand)."""
+    slab = slab[:, :, :max(1, int(count.max()))]
     px, py = pixel_xy(origin, tile, inv_s)
     px, py = px[..., None], py[..., None]                     # (B, A, P, 1)
     ch = [slab[..., None, :, c] for c in range(SLAB_CHANNELS)]  # (B, A, 1, F)

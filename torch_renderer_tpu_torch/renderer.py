@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._device import resolve_device
 from .cameras.perspective import PerspectiveCamera, _as_batched
 from .rasterize.fragments import Fragments
 from .rasterize.raster import RasterizationSettings, rasterize_meshes
@@ -37,12 +38,14 @@ class RenderOutputs:
 
 class DifferentiableRenderer:
     """Base: OpenCV pinhole K ((3, 3) or (B, 3, 3)) and an (H, W) tuple,
-    on ``device`` (the CPU by default)."""
+    on ``device``: by default K's device when K is a tensor, else the
+    current CUDA device (RuntimeError without one; pass device="cpu" for
+    the CPU)."""
 
     def __init__(self, K, image_size: Tuple[int, int], device=None):
         if not isinstance(image_size, tuple):
             raise ValueError("image_size must be a tuple, e.g. (720, 1280)")
-        K_t = _as_batched(K, 2, device)
+        K_t = _as_batched(K, 2, resolve_device(device, like=K))
         if K_t.shape[-2:] != (3, 3) or K_t.ndim != 3:
             raise ValueError(f"K must be (3, 3) or (B, 3, 3), got "
                              f"{tuple(torch.as_tensor(K).shape)}")
@@ -67,7 +70,12 @@ class MeshRenderer(DifferentiableRenderer):
     bin_size follows pytorch3d's contract (None = auto, 0 = dense, k > 0 =
     explicit; see RasterizationSettings). shade_k shades only the nearest
     shade_k fragment slots for RGB. The background is (0, 0, 0), unlike
-    BlendParams' default."""
+    BlendParams' default.
+
+    recon_points is accepted and does nothing: in the JAX package it makes
+    the bin-local shading branch rebuild world positions from camera rays,
+    and the port shades by global interpolation only (as the JAX package's
+    CPU path, which never takes that branch, does)."""
 
     def __init__(
         self, K, image_size: Tuple[int, int], blur_radius: float = 0.0,
@@ -81,10 +89,12 @@ class MeshRenderer(DifferentiableRenderer):
         group_lanes: Optional[int] = None,
         occupancy_split: Optional[Tuple[int, int]] = None,
         select_impl: str = "auto", untile_impl: str = "xla",
-        check_budgets: Optional[str] = None, device=None,
+        recon_points: bool = False, check_budgets: Optional[str] = None,
+        device=None,
     ):
         super().__init__(K, image_size, device)
         self.shade_k = shade_k
+        self.recon_points = recon_points
         self.settings = RasterizationSettings(
             image_size=self._image_size, blur_radius=blur_radius,
             faces_per_pixel=faces_per_pixel, pixel_chunk=pixel_chunk,

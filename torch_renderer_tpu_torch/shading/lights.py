@@ -1,6 +1,7 @@
 """Light and material models with pytorch3d's defaults (PyTorch counterpart
 of ``torch_renderer_tpu.shading.lights``). Colors and locations are (B|1, 3)
-tensors that broadcast over the batch."""
+tensors that broadcast over the batch. ``make`` builds on ``device``
+(default: the card, see _device.resolve_device)."""
 
 from __future__ import annotations
 
@@ -8,8 +9,10 @@ import dataclasses
 
 import torch
 
+from .._device import resolve_device
 
-def _c3(x, device=None) -> torch.Tensor:
+
+def _c3(x, device) -> torch.Tensor:
     a = torch.as_tensor(x, dtype=torch.float32, device=device)
     return a[None] if a.ndim == 1 else a
 
@@ -44,6 +47,7 @@ class PointLights(_Tensors):
     def make(location=((0.0, 0.0, -3.0),), ambient=((0.5,) * 3,),
              diffuse=((0.3,) * 3,), specular=((0.2,) * 3,),
              device=None) -> "PointLights":
+        device = resolve_device(device)
         return PointLights(*(_c3(a, device)
                              for a in (location, ambient, diffuse, specular)))
 
@@ -65,6 +69,7 @@ class DirectionalLights(_Tensors):
     def make(direction=((0.0, 1.0, 0.0),), ambient=((0.5,) * 3,),
              diffuse=((0.3,) * 3,), specular=((0.2,) * 3,),
              device=None) -> "DirectionalLights":
+        device = resolve_device(device)
         return DirectionalLights(*(_c3(a, device) for a in (
             direction, ambient, diffuse, specular)))
 
@@ -85,6 +90,7 @@ class Materials(_Tensors):
     def make(ambient=((1.0,) * 3,), diffuse=((1.0,) * 3,),
              specular=((1.0,) * 3,), shininess=64.0,
              device=None) -> "Materials":
+        device = resolve_device(device)
         return Materials(
             _c3(ambient, device), _c3(diffuse, device),
             _c3(specular, device),

@@ -4,9 +4,11 @@ interpolate world positions and normals per fragment, evaluate Phong
 lighting, sample texels, then blend (softmax or hard).
 
 Interpolation is global: one indexed gather of the winners' corners over
-all faces. The JAX package's bin-local branch is a TPU gather workaround and
-is not carried over. Textures are not ported yet: a mesh without textures
-shades with white texels, and any other texture raises.
+all faces, on the shade_k-cut fragments. The JAX package's bin-local branch
+is a TPU gather workaround and is not carried over. Texels come from a
+TexturesVertex (interpolated vertex features), a TexturesUV (interpolated
+UVs, then the bilinear sampling kernels of ops/cuda_texsample.py) or, for a
+mesh without textures, white.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from ..cameras.perspective import PerspectiveCamera
 from ..rasterize.fragments import Fragments, interpolate_face_attributes
 from ..structures.meshes import Meshes
+from ..structures.textures import TexturesUV, TexturesVertex
 from .blending import BlendParams, hard_rgb_blend, softmax_rgb_blend
 from .lights import DirectionalLights, Materials, PointLights
 
@@ -26,14 +29,23 @@ Lights = Union[PointLights, DirectionalLights]
 
 
 def sample_textures(meshes: Meshes, fragments: Fragments) -> torch.Tensor:
-    """Per-fragment texel colors (B, H, W, K, 3): ones for an untextured
+    """Per-fragment texel colors (B, H, W, K, C): barycentric interpolation
+    of per-vertex features (TexturesVertex), or of per-corner UVs followed
+    by a bilinear map lookup (TexturesUV); ones (C = 3) for an untextured
     mesh."""
-    if meshes.textures is not None:
-        raise NotImplementedError(
-            "textured meshes are not ported yet (TexturesVertex / "
-            "TexturesUV: ROADMAP Queue 1, slice 3)")
-    return torch.ones(fragments.pix_to_face.shape + (3,),
-                      dtype=torch.float32, device=fragments.zbuf.device)
+    tex = meshes.textures
+    if tex is None:
+        return torch.ones(fragments.pix_to_face.shape + (3,),
+                          dtype=torch.float32, device=fragments.zbuf.device)
+    if isinstance(tex, TexturesVertex):
+        return interpolate_face_attributes(
+            fragments.pix_to_face, fragments.bary,
+            tex.face_features(meshes.faces))
+    if isinstance(tex, TexturesUV):
+        uv = interpolate_face_attributes(fragments.pix_to_face,
+                                         fragments.bary, tex.face_uvs())
+        return tex.sample(uv)
+    raise TypeError(f"unsupported textures type {type(tex)!r}")
 
 
 def phong_lighting(points: torch.Tensor, normals: torch.Tensor,

@@ -9,17 +9,23 @@ Padding invariants:
   * faces rows >= num_faces[b] are (0, 0, 0): they reference a real vertex so
     gathers stay in bounds, and the face mask excludes them everywhere.
 
-Faces are int64 (torch's index dtype). Textures are not ported yet:
-``textures`` is always None, which shading reads as white texels.
+Faces are int64 (torch's index dtype). ``textures`` is a TexturesVertex,
+a TexturesUV or None (white texels in shading); extend, to, update_padded
+and offset_verts carry it along.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from .._device import resolve_device
+from .textures import TexturesUV, TexturesVertex
+
+Textures = Union[TexturesVertex, TexturesUV]
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
@@ -34,13 +40,17 @@ class Meshes:
     faces: torch.Tensor      # (B, F, 3) int64, zero-padded
     num_verts: torch.Tensor  # (B,) int64
     num_faces: torch.Tensor  # (B,) int64
-    textures: Optional[object] = None
+    textures: Optional[Textures] = None
 
     # -- constructors ------------------------------------------------------
     @staticmethod
     def from_lists(verts_list: Sequence, faces_list: Sequence,
-                   device=None) -> "Meshes":
-        """Build a padded batch from ragged per-mesh (Vi, 3)/(Fi, 3) arrays."""
+                   device=None, textures: Optional[Textures] = None
+                   ) -> "Meshes":
+        """Build a padded batch from ragged per-mesh (Vi, 3)/(Fi, 3) arrays
+        on ``device`` (default: the card, see _device.resolve_device), with
+        optional textures (moved to that device)."""
+        device = resolve_device(device)
         verts_np = [np.asarray(v, np.float32) for v in verts_list]
         faces_np = [np.asarray(f, np.int64) for f in faces_list]
         V = max(v.shape[0] for v in verts_np)
@@ -54,11 +64,14 @@ class Meshes:
                                    dtype=torch.int64, device=device),
             num_faces=torch.tensor([f.shape[0] for f in faces_np],
                                    dtype=torch.int64, device=device),
+            textures=None if textures is None else textures.to(device),
         )
 
     @staticmethod
-    def from_single(verts, faces, device=None) -> "Meshes":
-        return Meshes.from_lists([verts], [faces], device=device)
+    def from_single(verts, faces, device=None,
+                    textures: Optional[Textures] = None) -> "Meshes":
+        return Meshes.from_lists([verts], [faces], device=device,
+                                 textures=textures)
 
     # -- basic properties ---------------------------------------------------
     @property
@@ -96,7 +109,17 @@ class Meshes:
 
         return Meshes(verts=rep(self.verts), faces=rep(self.faces),
                       num_verts=rep(self.num_verts),
-                      num_faces=rep(self.num_faces))
+                      num_faces=rep(self.num_faces),
+                      textures=None if self.textures is None
+                      else self.textures.extend(n))
+
+    def offset_verts(self, deform: torch.Tensor) -> "Meshes":
+        """New mesh with verts + deform ((B, V, 3) or (V, 3)); padded
+        vertices stay zero (pytorch3d's offset_verts)."""
+        if deform.ndim == 2:
+            deform = deform[None]
+        return dataclasses.replace(
+            self, verts=self.verts + deform * self.vert_mask()[..., None])
 
     def update_padded(self, new_verts: torch.Tensor) -> "Meshes":
         return dataclasses.replace(self, verts=new_verts)
@@ -105,7 +128,19 @@ class Meshes:
         return dataclasses.replace(
             self, verts=self.verts.to(device), faces=self.faces.to(device),
             num_verts=self.num_verts.to(device),
-            num_faces=self.num_faces.to(device))
+            num_faces=self.num_faces.to(device),
+            textures=None if self.textures is None
+            else self.textures.to(device))
+
+    def detach_to_lists(self) -> List:
+        """Host-side ragged (verts (Vi, 3), faces (Fi, 3)) numpy pairs, one
+        per mesh (for IO)."""
+        nv = self.num_verts.cpu().numpy()
+        nf = self.num_faces.cpu().numpy()
+        verts = self.verts.detach().cpu().numpy()
+        faces = self.faces.cpu().numpy()
+        return [(verts[b, :nv[b]], faces[b, :nf[b]])
+                for b in range(self.batch_size)]
 
     # -- geometry -----------------------------------------------------------
     def face_verts(self) -> torch.Tensor:
