@@ -43,6 +43,25 @@ Drives, through the port's public entry points:
      launch and no other. Then topk_select at the fit's K=8 shapes against
      its plain version, and a torch.profiler window of 20 iterations
      (device busy share, kernels per iteration).
+  F. the point stack at the JAX package's point bench scene
+     (scripts/bench_points.py): B=4 clouds of 20000 points (0.8 * N(0, 1)
+     from numpy seed 0, uniform [0, 1) RGB), 256x256, f = 0.8 * 256, R = I,
+     t = (0, 0, 2.5), radius 0.01, K=8, tile 16, budgets from
+     suggest_points_per_bin (margin 1.3) and suggest_active_tiles_points,
+     the sphere renderer's sized against its NDC selection radii.
+     points_select against its plain version on the scene's uniform-radius
+     slab and on the sphere renderer's per-point-radius slab: winners
+     identical. The binned alpha fragments against the dense path on the
+     card: point ids identical except on pixels where some point's d^2 lies
+     within 1e-6 of r^2 (the two paths compute d^2 in other forms), on at
+     most 0.1% of covered pixels; zbuf and dists2 within 1e-6 where the ids
+     agree. Then 20 forward renders and 20 grad steps (the gradient of
+     sum(render^2) with respect to the points) of each renderer: alpha
+     auto-resolved, alpha with explicit budgets and active tiles, norm,
+     Pulsar splat, Pulsar sphere with active tiles, depth. Every output and
+     gradient finite; each render launches points_select exactly once, a
+     grad step no more, and no other kernel runs. A 20-step profile of the
+     alpha grad step, and the peak device memory.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -58,6 +77,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -101,6 +121,17 @@ OPS_SOFT_FWD = 80
 OPS_SOFT_BWD = 100
 OPS_HARD_K1 = 35
 OPS_TOPK = 80
+# points_select per (pixel, live candidate) pair: two differences, two
+# squares, a sum and two compares (the insertion of the few covering
+# candidates is not counted).
+OPS_POINTS = 7
+
+POINTS_B = 4
+POINTS_N = 20000
+POINTS_IMAGE = 256
+POINTS_RADIUS = 0.01
+POINTS_STEPS = 20
+POINTS_MISS = 1e-6   # d^2 within this of r^2: a pixel on a splat's rim
 
 
 def ops_tex_fwd(C: int) -> int:
@@ -177,23 +208,33 @@ def device_ms(fn, name: str, reps: int = TIMING_REPS):
 
 def reset_counts() -> None:
     from torch_renderer_tpu_torch.ops import cuda_texsample
-    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_soft
+    from torch_renderer_tpu_torch.rasterize import (
+        cuda_hard,
+        cuda_points,
+        cuda_soft,
+    )
 
     cuda_soft.FWD_LAUNCHES = cuda_soft.BWD_LAUNCHES = 0
     cuda_hard.HARD_LAUNCHES = cuda_hard.TOPK_LAUNCHES = 0
     cuda_texsample.FWD_LAUNCHES = cuda_texsample.BWD_LAUNCHES = 0
+    cuda_points.POINTS_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from torch_renderer_tpu_torch.ops import cuda_texsample
-    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_soft
+    from torch_renderer_tpu_torch.rasterize import (
+        cuda_hard,
+        cuda_points,
+        cuda_soft,
+    )
 
     return {"soft_coverage_fwd": cuda_soft.FWD_LAUNCHES,
             "soft_coverage_bwd": cuda_soft.BWD_LAUNCHES,
             "hard_k1": cuda_hard.HARD_LAUNCHES,
             "topk_select": cuda_hard.TOPK_LAUNCHES,
             "texsample_fwd": cuda_texsample.FWD_LAUNCHES,
-            "texsample_bwd": cuda_texsample.BWD_LAUNCHES}
+            "texsample_bwd": cuda_texsample.BWD_LAUNCHES,
+            "points_select": cuda_points.POINTS_LAUNCHES}
 
 
 def only(counts: dict, **want) -> dict:
@@ -357,7 +398,8 @@ def soft_phase(device, card: str) -> list:
     return [
         {"name": "soft_coverage_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:572",
-         "also_replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:132",
+         "also_replaces": ["torch_renderer_tpu/rasterize/pallas_soft.py:132",
+                           "torch_renderer_tpu/rasterize/pallas_soft.py:342"],
          "launches": counts["soft_coverage_fwd"], "max_abs_err": fwd_err,
          "ms": times["fwd"], "device_ms": times["fwd_device"],
          "plain_ms": times["fwd_plain"],
@@ -365,7 +407,8 @@ def soft_phase(device, card: str) -> list:
          "library_ms": None},
         {"name": "soft_coverage_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:597",
-         "also_replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:161",
+         "also_replaces": ["torch_renderer_tpu/rasterize/pallas_soft.py:161",
+                           "torch_renderer_tpu/rasterize/pallas_soft.py:362"],
          "launches": counts["soft_coverage_bwd"], "max_abs_err": bwd_err,
          "ms": times["bwd"], "device_ms": times["bwd_device"],
          "plain_ms": times["bwd_plain"],
@@ -709,9 +752,10 @@ def texture_phase(device, card: str) -> dict:
 # E. the joint shape + UV-texture fit at the app's defaults
 # ---------------------------------------------------------------------------
 
-def _busy_share(fn, iters: int) -> dict:
+def _busy_share(fn, iters: int, top: int = 0) -> dict:
     """Device busy time (union of device events) and kernels per iteration
-    over fn(), which runs `iters` iterations, by torch.profiler."""
+    over fn(), which runs `iters` iterations, by torch.profiler; with top,
+    also the `top` kernel names with the most device time per iteration."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -723,19 +767,26 @@ def _busy_share(fn, iters: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # drop only the optimizer's annotation span; kernel names may hold '#'
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith(("Optimizer.", "ProfilerStep")))
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return {"kernels_per_iter": len(spans) / iters,
-            "busy_ms_per_iter": busy_us / 1e3 / iters,
-            "wall_ms_per_iter": wall_ms / iters,
-            "busy_share": busy_us / 1e3 / wall_ms}
+    out = {"kernels_per_iter": len(spans) / iters,
+           "busy_ms_per_iter": busy_us / 1e3 / iters,
+           "wall_ms_per_iter": wall_ms / iters,
+           "busy_share": busy_us / 1e3 / wall_ms}
+    if top:
+        per_name: dict = {}
+        for e in events:
+            per_name[e.name[:70]] = per_name.get(e.name[:70], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / iters
+        out["top_ms_per_iter"] = dict(sorted(
+            per_name.items(), key=lambda kv: -kv[1])[:top])
+    return out
 
 
 def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
@@ -888,6 +939,265 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
             "max_deform": max_deform, "topk": topk, "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# F. the point stack at the point bench scene
+# ---------------------------------------------------------------------------
+
+def points_scene(device):
+    """scripts/bench_points.py's scene: the cloud, K, R, t and the budgets
+    it sizes (alpha and sphere)."""
+    from torch_renderer_tpu_torch.rasterize.points import (
+        PointsRasterizationSettings,
+        suggest_active_tiles_points,
+        suggest_points_per_bin,
+    )
+    from torch_renderer_tpu_torch.renderer import (
+        AlphaPointRender,
+        PulsarRenderer,
+    )
+    from torch_renderer_tpu_torch.structures.pointclouds import Pointclouds
+
+    B, N, S = POINTS_B, POINTS_N, POINTS_IMAGE
+    rng = np.random.default_rng(0)
+    pts = rng.standard_normal((B, N, 3)).astype(np.float32) * 0.8
+    feats = rng.uniform(0.0, 1.0, (B, N, 3)).astype(np.float32)
+    cloud = Pointclouds.from_padded(pts, features=feats, device=device)
+    f = 0.8 * S
+    K = np.array([[f, 0, S / 2.0], [0, f, S / 2.0], [0, 0, 1.0]], np.float32)
+    R = torch.eye(3, device=device).expand(B, 3, 3)
+    t = torch.tensor([[0.0, 0.0, 2.5]], device=device).expand(B, 3)
+    probe = PointsRasterizationSettings((S, S), radius=POINTS_RADIUS,
+                                        bin_size=16)
+    cam = AlphaPointRender(K, (S, S), device=device).camera_with_pose(R, t)
+    sph = PulsarRenderer(K, (S, S), radius=POINTS_RADIUS, bin_size=16,
+                         device=device)
+    cam_s = sph.camera_with_pose(R, t)
+    with torch.no_grad():
+        _, _, r_ndc = sph._selection_radii(cloud, cam_s)
+    budgets = {
+        "mpb": suggest_points_per_bin(cloud, cam, probe),
+        "mpb_sphere": suggest_points_per_bin(cloud, cam_s, probe,
+                                             radius=r_ndc),
+        "act": suggest_active_tiles_points(cloud, cam, probe),
+        "act_sphere": suggest_active_tiles_points(cloud, cam_s, probe,
+                                                  radius=r_ndc),
+    }
+    return cloud, K, R, t, budgets
+
+
+def _rim_share(frags_b, frags_d, cloud, cam, radius: float) -> dict:
+    """Pixels whose point ids differ between the binned and dense
+    fragments, and whether each lies on a splat's rim: some valid point's
+    d^2 (direct form) within POINTS_MISS of r^2."""
+    from torch_renderer_tpu_torch.rasterize.points import (
+        project_points_screen,
+    )
+    from torch_renderer_tpu_torch.rasterize.soft import pixel_coords_raster
+
+    diff = (frags_b.idx != frags_d.idx).any(-1)               # (B, H, W)
+    covered = int((frags_d.idx[..., 0] >= 0).sum())
+    b_i, y_i, x_i = torch.nonzero(diff, as_tuple=True)
+    H, W = cam.image_size
+    q, _, valid = project_points_screen(cloud, cam, 1e-5)
+    pix = pixel_coords_raster((H, W), q.device)[y_i * W + x_i]  # (n, 2)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=q.device)
+    on_rim = torch.zeros_like(b_i, dtype=torch.bool)
+    for b in range(q.shape[0]):
+        sel = b_i == b
+        if bool(sel.any()):
+            d = pix[sel][:, None, :] - q[b][None]
+            d2 = (d * d).sum(-1)
+            rim = ((d2 - r2).abs() <= POINTS_MISS) & valid[b][None]
+            on_rim[sel] = rim.any(-1)
+    n = int(diff.sum())
+    return {"differ": n, "covered": covered,
+            "off_rim": n - int(on_rim.sum()),
+            "share": n / max(covered, 1)}
+
+
+def points_phase(device, card: str) -> dict:
+    from torch_renderer_tpu_torch.rasterize import autotune, cuda_points
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        set_budget_check_default,
+    )
+    from torch_renderer_tpu_torch.rasterize.points import (
+        PointsRasterizationSettings,
+        project_points_screen,
+        rasterize_points,
+    )
+    from torch_renderer_tpu_torch.renderer import (
+        AlphaPointRender,
+        DepthPointRender,
+        NormPointRender,
+        PulsarPointRender,
+        PulsarRenderer,
+    )
+
+    set_budget_check_default("off")
+    autotune.clear_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cloud, K, R, t, bud = points_scene(device)
+    S, rad = POINTS_IMAGE, POINTS_RADIUS
+    print(f"[points] scene: B={POINTS_B} x {POINTS_N} points, {S}^2, "
+          f"radius {rad}, K=8; budgets {bud}", flush=True)
+    bkw = dict(radius=rad, bin_size=16, max_points_per_bin=bud["mpb"])
+    auto = AlphaPointRender(K, (S, S), radius=rad, device=device)
+    st_auto = auto.prepare(cloud, R, t)
+    print(f"[points] alpha auto-resolved: {st_auto}", flush=True)
+    renderers = {
+        "alpha_auto": auto,
+        "alpha_explicit_act": AlphaPointRender(
+            K, (S, S), active_tiles=bud["act"], device=device, **bkw),
+        "norm": NormPointRender(K, (S, S), device=device, **bkw),
+        "pulsar_splat": PulsarPointRender(K, (S, S), device=device, **bkw),
+        "pulsar_sphere_act": PulsarRenderer(
+            K, (S, S), radius=rad, bin_size=16,
+            max_points_per_bin=bud["mpb_sphere"],
+            active_tiles=bud["act_sphere"], device=device),
+        "depth": DepthPointRender(K, (S, S), device=device, **bkw),
+    }
+
+    # the kernel against its plain version on the scene's two slabs
+    sph = renderers["pulsar_sphere_act"]
+    cam = auto.camera_with_pose(R, t)
+    cam_s = sph.camera_with_pose(R, t)
+    slabs = {}
+    with torch.no_grad():
+        q, z, valid = project_points_screen(cloud, cam, st_auto.znear)
+        slabs["uniform"] = (cuda_points.binned_point_inputs(
+            q, z, valid, torch.full_like(z, rad * rad), st_auto,
+            uniform_r2=rad * rad), st_auto)
+        _, _, r_ndc = sph._selection_radii(cloud, cam_s)
+        q, z, valid = project_points_screen(cloud, cam_s, sph.settings.znear)
+        slabs["per_point"] = (cuda_points.binned_point_inputs(
+            q, z, valid, r_ndc * r_ndc, sph.settings), sph.settings)
+    kern = {}
+    for name, (inp, st) in slabs.items():
+        args = (inp.slab, inp.count, inp.origin, inp.offs,
+                st.points_per_pixel, st.znear, inp.r2)
+        lane_k = cuda_points.points_select(*args)
+        lane_p = cuda_points.points_select_reference(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(lane_k, lane_p))
+        live = int(inp.count.sum())
+        B_, A_, P_, C_ = inp.slab.shape
+        tp = inp.offs.shape[0]
+        Kp = st.points_per_pixel
+        b = bound(live * (16 if inp.r2 is None else 12) + B_ * A_ * 12
+                  + tp * 8 + B_ * A_ * Kp * tp * 4, live * tp * OPS_POINTS)
+        kern[name] = {
+            "max_abs_err": 0.0 if same else float("inf"),
+            "shape": list(inp.slab.shape), "live": live,
+            "max_per_tile": int(inp.count.max()),
+            "covered_px": int((lane_k[:, :, 0] >= 0).sum()),
+            "ms": time_ms(lambda: cuda_points.points_select(*args)),
+            "device_ms": device_ms(lambda: cuda_points.points_select(*args),
+                                   "points_select_kernel"),
+            "plain_ms": time_ms(
+                lambda: cuda_points.points_select_reference(*args)),
+            **b}
+        print(f"[points] points_select {name} r^2 at slab "
+              f"{kern[name]['shape']} ({live} live candidates, max {kern[name]['max_per_tile']} "
+              f"per tile): winners identical to plain: {same}; kernel "
+              f"{kern[name]['ms']:.4f} ms (device {kern[name]['device_ms']} "
+              f"ms), plain {kern[name]['plain_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.6f} ms ({b['bound_by']}: {b['bytes']} B, "
+              f"{b['ops']} op) on {card}", flush=True)
+        if not same:
+            raise AssertionError(f"points_select ({name} r^2) disagrees with "
+                                 "its plain version")
+
+    # binned alpha fragments against the dense path on the card
+    with torch.no_grad():
+        fb = rasterize_points(cloud, cam, st_auto)
+        fd = rasterize_points(cloud, cam, PointsRasterizationSettings(
+            (S, S), radius=rad, bin_size=0))
+    rim = _rim_share(fb, fd, cloud, cam, rad)
+    same = fb.idx == fd.idx
+    z_err = float((fb.zbuf - fd.zbuf).abs()[same].max())
+    d_err = float((fb.dists2 - fd.dists2).abs()[same].max())
+    print(f"[points] binned vs dense alpha fragments: {rim['differ']} of "
+          f"{rim['covered']} covered pixels differ in an id "
+          f"({rim['share']:.2e}), {rim['off_rim']} of them off a splat rim; "
+          f"max|dzbuf| {z_err:.3e}, max|ddists2| {d_err:.3e} where the ids "
+          "agree (tol 1e-6)", flush=True)
+    if rim["off_rim"] or rim["share"] > TIE_SHARE:
+        raise AssertionError("binned point ids disagree with the dense path "
+                             "beyond rim pixels")
+    if not (z_err <= 1e-6 and d_err <= 1e-6):
+        raise AssertionError("binned point values disagree with the dense "
+                             "path")
+    del fd
+
+    # 20 renders and 20 grad steps of each renderer
+    def grad_step(r):
+        x = cloud.points.detach().requires_grad_(True)
+        img = r.render(dataclasses.replace(cloud, points=x), R, t)
+        (g,) = torch.autograd.grad((img * img).sum(), x)
+        return img, g
+
+    runs = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    for name, r in renderers.items():
+        img, g = grad_step(r)                 # warm-up, resolution
+        torch.cuda.synchronize()
+        finite = torch.ones((), dtype=torch.bool, device=device)
+        before = read_counts()["points_select"]
+        start = torch.cuda.Event(enable_timing=True)
+        mid = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(POINTS_STEPS):
+            img = r.render(cloud, R, t)
+            finite &= torch.isfinite(img).all()
+        mid.record()
+        torch.cuda.synchronize()
+        n_fwd = read_counts()["points_select"] - before
+        for _ in range(POINTS_STEPS):
+            img, g = grad_step(r)
+            finite &= torch.isfinite(img).all() & torch.isfinite(g).all()
+        stop.record()
+        torch.cuda.synchronize()
+        n_all = read_counts()["points_select"] - before
+        runs[name] = {
+            "fwd_ms": start.elapsed_time(mid) / POINTS_STEPS,
+            "grad_ms": mid.elapsed_time(stop) / POINTS_STEPS,
+            "launches_fwd": n_fwd, "launches_grad": n_all - n_fwd,
+            "shape": list(img.shape)}
+        print(f"[points] {name}: forward {runs[name]['fwd_ms']:.4f} ms, "
+              f"grad step {runs[name]['grad_ms']:.4f} ms (CUDA events over "
+              f"{POINTS_STEPS}), out {runs[name]['shape']}, launches "
+              f"{n_fwd} + {n_all - n_fwd} on {card}", flush=True)
+        if not bool(finite):
+            raise AssertionError(f"{name}: a non-finite output or gradient")
+        if n_fwd != POINTS_STEPS or n_all != 2 * POINTS_STEPS:
+            raise AssertionError(f"{name}: expected one points_select launch "
+                                 f"per render and grad step, got {n_fwd} "
+                                 f"and {n_all - n_fwd}")
+    counts = read_counts()
+    want = only(counts, points_select=len(renderers) * (2 * POINTS_STEPS + 1))
+    if counts != want:
+        raise AssertionError(f"points: expected launches {want}, got "
+                             f"{counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[points] main path launches {counts}; peak device memory "
+          f"{peak_gb:.3f} GiB", flush=True)
+
+    try:
+        prof = _busy_share(lambda: [grad_step(auto)
+                                    for _ in range(PROFILE_ITERS)],
+                           PROFILE_ITERS, top=8)
+        print(f"[points] alpha grad-step profile over {PROFILE_ITERS} steps "
+              f"({card}): {prof}", flush=True)
+    except RuntimeError as e:   # the profiler is optional here
+        prof = None
+        print(f"[points] profile: not measured ({e})", flush=True)
+    set_budget_check_default(None)
+    return {"counts": counts, "kernel": kern, "runs": runs, "rim": rim,
+            "budgets": bud, "peak_gb": peak_gb, "profile": prof}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -917,6 +1227,7 @@ def main() -> None:
             for route in ("fragments", "pallas")}
     tex = texture_phase(device, card)
     joint = joint_fit_phase(device, card)
+    pts = points_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -966,6 +1277,22 @@ def main() -> None:
          "library_ms": t["bwd_library"],
          "library_device_ms": t["bwd_library_device"]},
     ]
+    ku, kp = pts["kernel"]["uniform"], pts["kernel"]["per_point"]
+    kernels.append(
+        {"name": "points_select", "route": "cuda",
+         "source": "torch_renderer_tpu_torch/csrc/points_select.cu",
+         "replaces": "torch_renderer_tpu/rasterize/pallas_points.py:62",
+         "launches": pts["counts"]["points_select"],
+         "max_abs_err": max(ku["max_abs_err"], kp["max_abs_err"]),
+         "ms": ku["ms"], "device_ms": ku["device_ms"],
+         "plain_ms": ku["plain_ms"], "bound_ms": ku["bound_ms"],
+         "bound_by": ku["bound_by"], "library_ms": None,
+         "per_point_ms": kp["ms"], "per_point_device_ms": kp["device_ms"],
+         "per_point_plain_ms": kp["plain_ms"],
+         "per_point_bound_ms": kp["bound_ms"]})
+    print(f"point renders ({card}): " + ", ".join(
+        f"{n} fwd {r['fwd_ms']:.3f} / grad {r['grad_ms']:.3f} ms"
+        for n, r in pts["runs"].items()), flush=True)
     print(f"pose fit it/s ({card}): " + ", ".join(
         f"{r} {f['it_s_events']:.1f} (events) / {f['it_s_wall']:.1f} (wall)"
         for r, f in fits.items()), flush=True)

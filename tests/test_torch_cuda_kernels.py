@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (soft coverage, hard raster, bilinear
-texture sampling) against their plain PyTorch versions, on an NVIDIA GPU. Marked ``cuda``: without a card
-every test here skips (the decision is made in a fixture, never at import).
+texture sampling, point selection) against their plain PyTorch versions,
+on an NVIDIA GPU. Marked ``cuda``: without a card every test here skips
+(the decision is made in a fixture, never at import).
 
 Tolerances: soft forward sums within 1e-4 + 1e-5 * max|S| (float32 sums in
 another order); soft backward within 1e-3 of max|dq| (another order and
@@ -11,7 +12,11 @@ for op, so they are expected to be equal). Texture sampling: the forward
 within 1e-6 (the same operations, so expected equal); d_wy and d_wx within
 1e-5 of their largest (a channel sum in another order); d_maps within 1e-5
 of its largest (float32 atomics add a texel's terms in an order that
-changes from run to run).
+changes from run to run). Point selection: winners equal (the kernel
+repeats the plain coverage arithmetic op for op); end to end on the card
+against the CPU, point ids differ on under 0.1% of pixels (the projection
+rounds otherwise on the card, which can move a splat's rim) and values
+agree within 1e-6 where they are the same.
 """
 
 import numpy as np
@@ -284,3 +289,97 @@ def test_texsample_rejects_strided_maps(device):
         ts.texsample_fwd(maps.transpose(1, 2), y0, x0, wy, wx)
     with pytest.raises(ValueError, match="contiguous"):
         ts.texsample_fwd(maps, y0.t().contiguous().t(), x0, wy, wx)
+
+
+# ---------------------------------------------------------------------------
+# Point-selection kernel (csrc/points_select.cu)
+# ---------------------------------------------------------------------------
+
+def _point_slabs(seed, B, A, P, tile, device, per_point):
+    """Random candidates around tiles at random origins: centres spread
+    past the tile, z from 9 levels in [1, 3] (depth ties), r^2 uniform or
+    per point, slot ids last; one full tile, one empty tile and one point
+    at znear."""
+    from torch_renderer_tpu_torch.rasterize.binning import tile_pixel_coords
+
+    rng = np.random.default_rng(seed)
+    span = tile / 16
+    C = 5 if per_point else 4
+    slab = np.zeros((B, A, P, C), np.float32)
+    slab[..., :2] = rng.uniform(-0.2 * span, 1.2 * span, (B, A, P, 2))
+    slab[..., 2] = rng.choice(np.linspace(1.0, 3.0, 9), (B, A, P))
+    if per_point:
+        slab[..., 3] = rng.uniform(0.0, (0.3 * span) ** 2, (B, A, P))
+    slab[..., -1] = np.arange(P)
+    slab[0, 0, 3, 2] = 0.0
+    count = rng.integers(0, P + 1, (B, A))
+    count[0, 0] = P
+    count[-1, -1] = 0
+    origin = rng.uniform(-1.0, 1.0, (B, A, 2))
+    as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa
+    return (as_t(slab, torch.float32), as_t(count, torch.int32),
+            as_t(origin, torch.float32),
+            tile_pixel_coords((32, 32), tile, device),
+            None if per_point else float((0.3 * span) ** 2))
+
+
+# P=600 streams three shared-memory chunks; tile 32 runs four blocks of 256
+# pixels per tile; K=32 keeps more winners than most pixels have.
+@pytest.mark.parametrize("K", [1, 8, 32])
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("per_point", [False, True])
+def test_points_select_matches_plain(device, K, tile, per_point):
+    """Winner slots equal the plain version's exactly: the kernel repeats
+    its coverage arithmetic op for op and its (z, slot) order."""
+    from torch_renderer_tpu_torch.rasterize import cuda_points
+
+    slab, count, origin, offs, r2 = _point_slabs(K + tile, 2, 5, 600, tile,
+                                                 device, per_point)
+    args = (slab, count, origin, offs, K, 1e-5, r2)
+    before = cuda_points.POINTS_LAUNCHES
+    lane = cuda_points.points_select(*args)
+    torch.cuda.synchronize()
+    assert cuda_points.POINTS_LAUNCHES == before + 1
+    ref = cuda_points.points_select_reference(*args)
+    assert lane.shape == ref.shape == (2, 5, K, tile * tile)
+    assert torch.equal(lane, ref)
+    assert bool((lane[-1, -1] == -1).all()) and bool((lane[0, 0] != 3).all())
+    assert int((lane[0, 0, 0] >= 0).sum()) > 0
+
+
+def test_binned_points_match_cpu(device):
+    """rasterize_points (binned, with features riding the gather, and with
+    per-point radii) and the point gradient on the card against the same
+    calls on the CPU (plain version)."""
+    import torch_renderer_tpu_torch as trt
+
+    rng = np.random.default_rng(0)
+    pts = rng.normal(0, 0.4, (2, 3000, 3)).astype(np.float32)
+    pts[..., 2] += 2.5
+    radii = rng.uniform(0.01, 0.05, (2, 3000)).astype(np.float32)
+    K = np.array([[51.2, 0, 32], [0, 51.2, 32], [0, 0, 1]], np.float32)
+    st = trt.PointsRasterizationSettings((64, 64), radius=0.03,
+                                         points_per_pixel=8, bin_size=16,
+                                         max_points_per_bin=512)
+    for radius in (None, radii):
+        out = {}
+        for dev in ("cpu", device):
+            x = torch.tensor(pts, device=dev, requires_grad=True)
+            cam = trt.PerspectiveCamera.from_K(K, (64, 64), device=dev)
+            r = None if radius is None else torch.tensor(radius, device=dev)
+            fr = trt.rasterize_points(trt.Pointclouds.from_padded(x), cam, st,
+                                      radius=r, extra=x[..., 2:3] * 2.0)
+            m = fr.mask
+            loss = (torch.where(m, fr.zbuf + fr.dists2, 0.0).sum()
+                    + fr.features.sum())
+            (g,) = torch.autograd.grad(loss, x)
+            out[str(dev)] = (fr.idx.cpu(), fr.zbuf.detach().cpu(),
+                             fr.dists2.detach().cpu(), g.cpu())
+        (i_c, z_c, d_c, g_c), (i_g, z_g, d_g, g_g) = (out["cpu"],
+                                                      out[str(device)])
+        same = i_c == i_g
+        assert float((~same).any(-1).float().mean()) < 1e-3
+        torch.testing.assert_close(z_g[same], z_c[same], rtol=0, atol=1e-6)
+        torch.testing.assert_close(d_g[same], d_c[same], rtol=0, atol=1e-6)
+        torch.testing.assert_close(g_g, g_c, rtol=0,
+                                   atol=1e-3 * float(g_c.abs().max()))

@@ -1,7 +1,7 @@
 """The soft-silhouette slice end to end: the bench's chained render + grad
 step through the port against the same step written with the JAX package,
 on the CPU at a small size; plus the port's import boundary and the
-layouts it does not carry.
+occupancy split it does not carry.
 
 The step is bench.py's: v <- v - 1e-6 * d sum(alpha) / dv, with the budgets
 sized once by suggest_soft_config(layout="packed"). Tolerance: each step's
@@ -107,7 +107,8 @@ def test_import_pulls_in_no_jax():
             "'ops.cuda_texsample', 'ops.mesh_losses', 'ops.sample_points', "
             "'ops.knn_chamfer', 'opt.deform_color', 'opt.deform', "
             "'io.obj', 'apps._common', 'apps.joint_shape_texture', "
-            "'apps.deform_from_pcd', '_device'}\n"
+            "'apps.deform_from_pcd', '_device', 'rasterize.points', "
+            "'rasterize.cuda_points', 'shading.compositing'}\n"
             "assert {'torch_renderer_tpu_torch.' + m for m in new} <= "
             "set(mods), sorted(mods)\n"
             "for m in mods: importlib.import_module(m)\n"
@@ -129,9 +130,10 @@ def test_sources_do_not_import_jax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(layout="sublane"), "sublane"),
-    (dict(layout="packed", active_tiles=4, hi_tiles=8), "hi_tiles"),
-    (dict(layout="lane", hi_tiles=8), "hi_tiles"),
+    pytest.param(dict(layout="packed", active_tiles=4, hi_tiles=8),
+                 "hi_tiles", id="kwargs1-hi_tiles"),
+    pytest.param(dict(layout="lane", hi_tiles=8), "hi_tiles",
+                 id="kwargs2-hi_tiles"),
 ])
 def test_unported_layouts_raise(kwargs, match):
     verts, faces, K, R, t = _scene()

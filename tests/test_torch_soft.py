@@ -217,3 +217,41 @@ def test_suggest_soft_config_matches_jax(scene, layout):
     got = port.suggest_soft_config(pfp, (IMG, IMG), sigma=SIGMA,
                                    layout=layout)
     assert got.kwargs() == want.kwargs()
+
+
+def test_sublane_layout_matches_jax(scene):
+    """layout="sublane" runs the lane route over every tile with the face
+    budget rounded up to 8, which is what the JAX sublane kernels compute
+    (tests/test_rank_binning.py::test_sublane_layout_matches_lane_layout).
+    Against JAX's sublane kernels in interpret mode: values within 2e-5
+    (measured 1.4e-5 here), vertex gradients within 5e-5 of their largest
+    (measured 1.5e-5; the port's product-form backward rounds otherwise
+    than the JAX moment form, and its lane route is 1.7e-5 off)."""
+    jm, jc, pm, pc, jfp, pfp = scene
+    kw = dict(sigma=SIGMA, faces_per_tile=80, layout="sublane")
+    want = np.asarray(pallas_soft.soft_silhouette_pallas_fd(
+        jfp, (IMG, IMG), **kw))
+    got = cuda_soft.soft_silhouette_fd(pfp, (IMG, IMG), **kw)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    # the same route as lane at the rounded budget; the budgets and the
+    # occupancy split of the other layouts are not read
+    for fpt in (20, 80):
+        lane = cuda_soft.soft_silhouette_fd(pfp, (IMG, IMG), sigma=SIGMA,
+                                            faces_per_tile=-(-fpt // 8) * 8)
+        sub = cuda_soft.soft_silhouette_fd(
+            pfp, (IMG, IMG), sigma=SIGMA, faces_per_tile=fpt,
+            layout="sublane", active_tiles=4, hi_tiles=8,
+            check_budgets="warn")
+        assert torch.equal(sub, lane)
+
+    def jloss(v):
+        fp = setup_face_planes(jm.update_padded(v), jc)
+        return jnp.sum(pallas_soft.soft_silhouette_pallas_fd(
+            fp, (IMG, IMG), **kw))
+
+    gwant = np.asarray(jax.jit(jax.grad(jloss))(jm.verts))
+    v = pm.verts.clone().requires_grad_(True)
+    fp = port.setup_face_planes(pm.update_padded(v), pc)
+    cuda_soft.soft_silhouette_fd(fp, (IMG, IMG), **kw).sum().backward()
+    np.testing.assert_allclose(v.grad.numpy(), gwant, rtol=0,
+                               atol=5e-5 * np.abs(gwant).max())

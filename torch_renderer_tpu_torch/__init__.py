@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Three slices are ported:
+Four slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning and the soft-coverage CUDA
@@ -12,7 +12,11 @@ Three slices are ported:
   * shape fitting and texture: TexturesVertex / TexturesUV (the bilinear
     texture-sampling CUDA kernel pair), the mesh regularizers, surface
     sampling and the chamfer distance, the joint shape + UV-texture fit,
-    the chamfer deformation and vertex-color fits, and OBJ / MTL / PNG IO.
+    the chamfer deformation and vertex-color fits, and OBJ / MTL / PNG IO;
+  * the point stack: point clouds with features, point-splat
+    rasterization (the point-selection CUDA kernel for binned settings,
+    plain torch for dense ones), the compositors and the five point
+    renderers (alpha, norm, Pulsar splat, Pulsar sphere, depth).
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
@@ -60,6 +64,11 @@ from .rasterize.geometry import (
     setup_face_planes,
     setup_faces,
 )
+from .rasterize.points import (
+    PointFragments,
+    PointsRasterizationSettings,
+    rasterize_points,
+)
 from .rasterize.raster import (
     RasterizationSettings,
     rasterize_face_data,
@@ -67,9 +76,15 @@ from .rasterize.raster import (
 )
 from .rasterize.soft import soft_silhouette_streaming
 from .renderer import (
+    AlphaPointRender,
     ColorRender,
+    DepthPointRender,
     DepthRender,
     MeshRenderer,
+    NormPointRender,
+    PointsRenderer,
+    PulsarPointRender,
+    PulsarRenderer,
     RenderOutputs,
     SilhouetteRender,
 )
@@ -84,11 +99,13 @@ from .structures.textures import (
 )
 
 __all__ = [
+    "AlphaPointRender",
     "BlendParams",
     "CameraPoseFitter",
     "ColorFitConfig",
     "ColorRender",
     "DeformConfig",
+    "DepthPointRender",
     "DepthPoseFitter",
     "DepthRender",
     "DirectionalLights",
@@ -101,11 +118,17 @@ __all__ = [
     "MeshDeformer",
     "MeshRenderer",
     "Meshes",
+    "NormPointRender",
     "ObjectPoseFitter",
     "PerspectiveCamera",
+    "PointFragments",
     "PointLights",
     "Pointclouds",
+    "PointsRasterizationSettings",
+    "PointsRenderer",
     "PoseFitConfig",
+    "PulsarPointRender",
+    "PulsarRenderer",
     "RasterizationSettings",
     "RenderOutputs",
     "SilhouetteRender",
@@ -127,6 +150,7 @@ __all__ = [
     "pose_params_to_Rt",
     "rasterize_face_data",
     "rasterize_meshes",
+    "rasterize_points",
     "sample_points_from_meshes",
     "save_obj",
     "setup_face_planes",

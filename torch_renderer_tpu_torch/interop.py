@@ -3,9 +3,9 @@
 Every function takes numpy arrays (``np.asarray`` of the JAX dataclass
 fields) or plain values, so this module needs neither JAX nor the JAX
 package. Carried across: meshes (with their textures), TexturesUV,
-TexturesVertex, cameras, FacePlanes, FaceRasterData, RasterizationSettings,
-pose parameters, joint shape + texture parameters, PointLights and
-Materials.
+TexturesVertex, point clouds, cameras, FacePlanes, FaceRasterData,
+RasterizationSettings, pose parameters, joint shape + texture parameters,
+PointLights and Materials.
 Each converter builds on ``device`` (default: the card, see
 _device.resolve_device).
 """
@@ -21,6 +21,7 @@ from .rasterize.geometry import FacePlanes, FaceRasterData
 from .rasterize.raster import RasterizationSettings
 from .shading.lights import Materials, PointLights
 from .structures.meshes import Meshes
+from .structures.pointclouds import Pointclouds
 from .structures.textures import TexturesUV, TexturesVertex
 
 
@@ -41,6 +42,17 @@ def meshes_from_arrays(verts, faces, num_verts, num_faces, textures=None,
                   num_verts=_tensor(num_verts, np.int64, device),
                   num_faces=_tensor(num_faces, np.int64, device),
                   textures=None if textures is None else textures.to(device))
+
+
+def pointclouds_from_arrays(points, num_points, features=None,
+                            device=None) -> Pointclouds:
+    """Padded (B, P, 3) points, (B,) counts and optional (B, P, C) features
+    -> Pointclouds."""
+    return Pointclouds(
+        points=_tensor(points, np.float32, device),
+        num_points=_tensor(num_points, np.int64, device),
+        features=None if features is None
+        else _tensor(features, np.float32, device))
 
 
 def textures_uv_from_arrays(maps, faces_uvs, verts_uvs,

@@ -1,11 +1,11 @@
-"""Active-tile rank binning for the soft-silhouette and hard-raster paths
-(PyTorch counterpart of the binning in
+"""Active-tile rank binning for the soft-silhouette, hard-raster and point
+paths (PyTorch counterpart of the binning in
 ``torch_renderer_tpu.rasterize.binning`` that those paths use).
 
 The image is cut into square pixel tiles. A face is a candidate of every tile
 its screen bbox, padded by sqrt(SOFT_CUTOFF * sigma) for the soft path and by
-sqrt(blur_radius) for the hard path, overlaps. The rules match the JAX
-package exactly:
+sqrt(blur_radius) for the hard path, overlaps; a point, of every tile its
+radius-expanded bbox overlaps. The rules match the JAX package exactly:
 
   * a tile's candidate slots hold its overlapping faces in ascending face id;
   * faces beyond a tile's ``faces_per_tile`` slots are dropped;
@@ -254,23 +254,35 @@ def face_channel_planes(fd, znear: float = 1e-5) -> torch.Tensor:
 
 def tile_channel_slabs(planes: torch.Tensor, bins: ActiveBins,
                        per_tile: int):
-    """The hard kernels' inputs, gathered from (B, F, 12) face channels:
+    """The binned kernels' inputs, gathered from (B, N, C) per-item
+    channels (the hard path's 12 face channels, the point path's x, y, z
+    and r^2):
 
-    slab (B, A, per_tile, 13) float32: each active tile's candidates in
-        ascending face id, channels as in face_channel_planes plus the
-        global face id (exact in float32 below 2^24 faces);
-    count (B, A) int32: candidates per tile, capped at per_tile (faces
+    slab (B, A, per_tile, C + 1) float32: each active tile's candidates in
+        ascending item id, the C channels plus the global item id (exact
+        in float32 below 2^24 items);
+    count (B, A) int32: candidates per tile, capped at per_tile (items
         beyond it are dropped);
-    table (B, A, per_tile) int64: the face id of each slot (0 at slots
+    table (B, A, per_tile) int64: the item id of each slot (0 at slots
         beyond the count, which are never read)."""
     table = slot_faces(bins, per_tile)
     B, A, K = table.shape
-    F = planes.shape[1]
-    fid = torch.arange(F, dtype=planes.dtype, device=planes.device)
-    ch = torch.cat([planes, fid.expand(B, F)[..., None]], dim=-1)
-    slab = ch.gather(1, table.reshape(B, A * K, 1).expand(B, A * K, 13))
+    N, C = planes.shape[1], planes.shape[2] + 1
+    fid = torch.arange(N, dtype=planes.dtype, device=planes.device)
+    ch = torch.cat([planes, fid.expand(B, N)[..., None]], dim=-1)
+    slab = ch.gather(1, table.reshape(B, A * K, 1).expand(B, A * K, C))
     count = bins.count.clamp(max=per_tile).to(torch.int32)
-    return slab.reshape(B, A, K, 13), count, table
+    return slab.reshape(B, A, K, C), count, table
+
+
+def tile_pixel_coords(image_size, tile: int, device=None) -> torch.Tensor:
+    """Local pixel offsets within a tile, raster units: (tile^2, 2) x, y in
+    row-major pixel order (added to a tile's origin)."""
+    H, W = image_size
+    d = torch.arange(tile, dtype=torch.float32, device=device) / (
+        min(H, W) / 2.0)
+    yy, xx = torch.meshgrid(d, d, indexing="ij")
+    return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
 
 
 def untile_image(per_tile: torch.Tensor, image_size, tile: int, n_tiles_hw):
@@ -298,6 +310,36 @@ def group_counts(bins: ActiveBins, per_tile: int) -> torch.Tensor:
     B, A = capped.shape
     capped = torch.cat([capped, capped.new_zeros((B, (-A) % _GROUP))], dim=1)
     return capped.reshape(B, -1, _GROUP).sum(-1)
+
+
+def _bbox_tile_counts(bbox_min, bbox_max, valid, image_size, tile: int,
+                      chunk: int = 8192) -> torch.Tensor:
+    """(B, T) overlapping items per tile, summed over chunks of the item
+    axis so a large cloud never builds a (B, T, N) table."""
+    counts = None
+    for n0 in range(0, valid.shape[-1], chunk):
+        ov, _ = _overlap(bbox_min[:, n0:n0 + chunk],
+                         bbox_max[:, n0:n0 + chunk],
+                         valid[:, n0:n0 + chunk], image_size, tile)
+        c = ov.sum(-1)
+        counts = c if counts is None else counts + c
+    return counts
+
+
+def count_bbox_overflow(bbox_min, bbox_max, valid, image_size,
+                        tile: int) -> int:
+    """Max candidate count over tiles for bbox binning (sizing helper for
+    the point budget; reads the count back to the host)."""
+    return int(_bbox_tile_counts(bbox_min, bbox_max, valid, image_size,
+                                 tile).max())
+
+
+def count_bbox_active_tiles(bbox_min, bbox_max, valid, image_size,
+                            tile: int) -> int:
+    """Max over the batch of the non-empty tile count for bbox binning
+    (sizing helper for active_tiles; reads it back to the host)."""
+    counts = _bbox_tile_counts(bbox_min, bbox_max, valid, image_size, tile)
+    return int((counts > 0).sum(-1).max())
 
 
 def suggest_active_tiles_fd(fp, image_size, tile: int, pad_radius: float,

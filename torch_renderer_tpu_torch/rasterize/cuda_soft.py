@@ -15,11 +15,11 @@ package's hand-derived backward does. Translating corners by the tile origin
 keeps the float32 arithmetic on small numbers and does not change the
 gradient with respect to the corners.
 
-Both of the JAX package's layouts ("lane", "packed") run the one kernel
-pair here. For every kernel the module keeps its plain PyTorch version
-(``soft_coverage_fwd_reference``, ``soft_coverage_bwd_reference``): a
-wrapper uses it for a tensor on the CPU, launches the kernel for a CUDA
-tensor, and raises for anything else.
+All three of the JAX package's layouts ("lane", "packed", "sublane") run
+the one kernel pair here. For every kernel the module keeps its plain
+PyTorch version (``soft_coverage_fwd_reference``,
+``soft_coverage_bwd_reference``): a wrapper uses it for a tensor on the
+CPU, launches the kernel for a CUDA tensor, and raises for anything else.
 """
 
 from __future__ import annotations
@@ -279,23 +279,22 @@ def soft_silhouette_fd(
     ``active_tiles`` are dropped; size both with suggest_soft_config().
     ``active_tiles=None`` gives every tile a slot, so none is dropped.
 
-    layout: "lane" and "packed" both run the one kernel pair; "packed"
-    requires active_tiles, as in the JAX package. ``group_lanes`` is the
-    JAX packed layout's per-group lane budget: it is checked by
-    check_budgets but drops nothing here. ``lo_lanes`` only matters with
-    ``hi_tiles``. The "sublane" layout and the occupancy split
-    (``hi_tiles``) are not ported.
+    layout: "lane", "packed" and "sublane" all run the one kernel pair.
+    "packed" requires active_tiles, as in the JAX package. ``group_lanes``
+    is the JAX packed layout's per-group lane budget: it is checked by
+    check_budgets but drops nothing here. "sublane" computes what the JAX
+    package's sublane layout computes: every tile binned (active_tiles,
+    group_lanes, hi_tiles and check_budgets are not read) with the face
+    budget rounded up to a multiple of 8. ``lo_lanes`` only matters with
+    ``hi_tiles``, the packed layout's occupancy split, which is not ported:
+    it drops a tail tile's candidates beyond lo_lanes, another result.
     """
-    if layout == "sublane":
-        raise NotImplementedError(
-            "layout='sublane' is not ported (ROADMAP Queue 2: sublane soft "
-            "coverage, pallas_soft.py _fwd_kernel_t/_bwd_kernel_t)")
-    if hi_tiles is not None:
-        raise NotImplementedError(
-            "hi_tiles (the occupancy split) is not ported (ROADMAP Queue 2: "
-            "sublane soft coverage and the packed layout's split)")
-    if layout not in ("lane", "packed"):
+    if layout not in ("lane", "packed", "sublane"):
         raise ValueError(f"unknown layout {layout!r}")
+    if hi_tiles is not None and layout != "sublane":
+        raise NotImplementedError(
+            "hi_tiles (the packed layout's occupancy split) is not ported "
+            "(ROADMAP Queue 2: the occupancy split)")
     if layout == "packed" and active_tiles is None:
         raise ValueError(
             "layout='packed' requires active_tiles (the pack groups follow "
@@ -304,10 +303,15 @@ def soft_silhouette_fd(
     H, W = image_size
     T = (-(-H // tile)) * (-(-W // tile))
     K = min(faces_per_tile, fp.num_faces)
+    if layout == "sublane":
+        K += (-K) % 8            # the JAX sublane kernels' 8-face granule
+        active_tiles = None
     pad = math.sqrt(SOFT_CUTOFF * sigma)
     bins = bin_faces_active(fp, image_size, tile, pad,
                             T if active_tiles is None else active_tiles)
-    _budget_checks(bins, active_tiles, K, layout, group_lanes, check_budgets)
+    if layout != "sublane":
+        _budget_checks(bins, active_tiles, K, layout, group_lanes,
+                       check_budgets)
 
     q, count = tile_slabs(fp, bins, K)
     inv_s = 1.0 / (min(H, W) / 2.0)
