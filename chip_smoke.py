@@ -5,8 +5,10 @@ Drives, through the port's public entry points:
   A. the soft-silhouette render + backward at the bench's full scale (B=8,
      256x256, a level-3 icosphere of 1280 faces, sigma=1e-4): each soft
      kernel against its plain PyTorch version, step 0's alpha against the
-     dense streaming oracle, and 100 chained render + grad steps
-     (v <- v - 1e-6 * grad) that must launch each kernel once a step;
+     dense streaming oracle, the tile-gather pair against its plain
+     versions at the step's corner slab, and 100 chained render + grad steps
+     (v <- v - 1e-6 * grad) that must launch each soft kernel and each
+     gather kernel once a step;
   B. the hard-raster kernels against their plain versions at the camera
      pose fit's shapes (B=1, 128x128, the level-3 icosphere normalized to
      the unit sphere at look_at(2.7, 15, 40), tile 16, budgets from
@@ -19,9 +21,11 @@ Drives, through the port's public entry points:
      seed 0, budget checks off), through the default fragments route
      (K=4) and the silhouette_impl="pallas" route (soft kernels + K=1).
      Every loss finite, the loss and the translation error below 0.1x their
-     start, and per iteration exactly one topk_select launch (fragments),
-     or one hard_k1, soft_coverage_fwd and soft_coverage_bwd launch
-     (pallas).
+     start, and per iteration exactly one topk_select and one
+     gather_tiles_fwd launch (fragments), or one hard_k1, soft_coverage_fwd,
+     soft_coverage_bwd and gather_tiles_bwd launch and two gather_tiles_fwd
+     launches (pallas); either route also four untile_scatter launches, one
+     per fragment field of its mesh raster.
   D. the texture-sampling kernels against their plain versions at the joint
      fit's shapes: one 256x256x3 map shared by 2 views (batch stride 0),
      32768 points per view at u, v uniform in [0, 1] from a seeded
@@ -39,8 +43,8 @@ Drives, through the port's public entry points:
      0.7x those of the first 20; max |deform| < 0.5 and the chamfer
      distance to the target (2000 points each, fixed generator) below 0.5x
      its start (the JAX package's tests/test_deform_color.py gates); per
-     iteration exactly one texsample_fwd, texsample_bwd and topk_select
-     launch and no other. Then topk_select at the fit's K=8 shapes against
+     iteration exactly one texsample_fwd, texsample_bwd, topk_select and
+     gather_tiles_fwd launch, four untile_scatter launches and no other. Then topk_select at the fit's K=8 shapes against
      its plain version, and a torch.profiler window of 20 iterations
      (device busy share, kernels per iteration).
   F. the point stack at the JAX package's point bench scene
@@ -59,16 +63,37 @@ Drives, through the port's public entry points:
      sum(render^2) with respect to the points) of each renderer: alpha
      auto-resolved, alpha with explicit budgets and active tiles, norm,
      Pulsar splat, Pulsar sphere with active tiles, depth. Every output and
-     gradient finite; each render launches points_select exactly once, a
-     grad step no more, and no other kernel runs. A 20-step profile of the
-     alpha grad step, and the peak device memory.
+     gradient finite; each render launches points_select and
+     gather_tiles_fwd exactly once, a grad step no more, and no other kernel
+     runs. A 20-step profile of the alpha grad step, and the peak device
+     memory.
+  G. the batched multi-view depth render: apps/batch_render_bench.main() at
+     its defaults (120 look-at views of a normalized level-3 icosphere at
+     1280x720, calls of 12 views, f = 0.9 * 720, bin 32, auto budgets,
+     select_impl "affine", --check-budgets warn), which must launch per call
+     exactly one hard_k1, one gather_tiles_fwd and four untile_scatter (one
+     per fragment field) and nothing else. On one 12-view call: the
+     launches of that call, the call through the untile kernel against the
+     same call ending with the kernel's plain version, bit for bit (depth,
+     silhouette and the four fields), gather_tiles_fwd against its plain
+     version on the call's (12, A, Fmax, 13) slab and untile_scatter on each
+     of its four fields (equal), the call timed with either epilogue in
+     turns, a 20-call profile and the peak device memory; and the untile
+     backward (K=4 blur fragments and the silhouette's vertex gradient at
+     96^2, bin 16), the kernel's wrapper against the plain epilogue
+     differentiated by autograd: fragments equal, gradients within 1e-5 of
+     the largest (float32 atomics downstream sum in a run-varying order).
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
 larger of its bytes (inputs read once, outputs written once, live
 candidates only) at 3.35 TB/s and its operations at the float32 peak of 67
 TFLOP/s (NVIDIA's H100 SXM data sheet), counted per (pixel, candidate) pair
-or per point as the OPS constants below say. Any failure raises (exit code
+or per point as the OPS constants below say; the gather pair and the untile
+kernel are copies, bound by bytes alone. A library yardstick is one PyTorch
+call computing the same function where there is one: grid_sample for the
+texture pair, Tensor.gather plus the mask and scatter_add_ for the gather
+pair. Any failure raises (exit code
 1). The second-to-last line is a JSON record of the kernels; the last line
 is {"ok": true, "device": {...}}.
 
@@ -77,6 +102,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -209,23 +235,29 @@ def device_ms(fn, name: str, reps: int = TIMING_REPS):
 def reset_counts() -> None:
     from torch_renderer_tpu_torch.ops import cuda_texsample
     from torch_renderer_tpu_torch.rasterize import (
+        cuda_gather,
         cuda_hard,
         cuda_points,
         cuda_soft,
+        cuda_untile,
     )
 
     cuda_soft.FWD_LAUNCHES = cuda_soft.BWD_LAUNCHES = 0
     cuda_hard.HARD_LAUNCHES = cuda_hard.TOPK_LAUNCHES = 0
     cuda_texsample.FWD_LAUNCHES = cuda_texsample.BWD_LAUNCHES = 0
     cuda_points.POINTS_LAUNCHES = 0
+    cuda_gather.GATHER_FWD_LAUNCHES = cuda_gather.GATHER_BWD_LAUNCHES = 0
+    cuda_untile.UNTILE_LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from torch_renderer_tpu_torch.ops import cuda_texsample
     from torch_renderer_tpu_torch.rasterize import (
+        cuda_gather,
         cuda_hard,
         cuda_points,
         cuda_soft,
+        cuda_untile,
     )
 
     return {"soft_coverage_fwd": cuda_soft.FWD_LAUNCHES,
@@ -234,12 +266,106 @@ def read_counts() -> dict:
             "topk_select": cuda_hard.TOPK_LAUNCHES,
             "texsample_fwd": cuda_texsample.FWD_LAUNCHES,
             "texsample_bwd": cuda_texsample.BWD_LAUNCHES,
-            "points_select": cuda_points.POINTS_LAUNCHES}
+            "points_select": cuda_points.POINTS_LAUNCHES,
+            "gather_tiles_fwd": cuda_gather.GATHER_FWD_LAUNCHES,
+            "gather_tiles_bwd": cuda_gather.GATHER_BWD_LAUNCHES,
+            "untile_scatter": cuda_untile.UNTILE_LAUNCHES}
 
 
 def only(counts: dict, **want) -> dict:
     """counts with every kernel not in want expected at 0."""
     return {k: want.get(k, 0) for k in counts}
+
+
+@contextlib.contextmanager
+def plain_epilogue():
+    """End the binned mesh raster with the untile kernel's plain version
+    (differentiated by autograd) in place of the kernel's wrapper: the
+    yardstick the kernel's epilogue is held against."""
+    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_untile
+
+    saved = cuda_hard.untile_scatter
+    cuda_hard.untile_scatter = cuda_untile.untile_scatter_reference
+    try:
+        yield
+    finally:
+        cuda_hard.untile_scatter = saved
+
+
+# ---------------------------------------------------------------------------
+# The tile-gather pair against its plain version (phases A and G)
+# ---------------------------------------------------------------------------
+
+def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
+    """gather_tiles_fwd (and with bwd, gather_tiles_bwd on a random
+    cotangent) against the plain versions at these inputs: the forward must
+    be equal (a copy), the backward within 1e-6 of the largest table
+    gradient (float32 atomics add a row's terms in an order that changes
+    from run to run). Times by events and by the profiler; the library
+    yardsticks are one Tensor.gather plus the mask (forward) and one
+    scatter_add_ (backward) on precomputed indices."""
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    B, T, S = idx.shape
+    F, C = table.shape[1], table.shape[2]
+    live = (idx >= 0) & (idx < F)
+    n_live = int(live.sum())
+    # the table rows this data needs: each distinct live id of each batch
+    n_rows = int(torch.unique(
+        (torch.arange(B, device=idx.device)[:, None, None] * F + idx)[live]
+    ).numel())
+    ids = torch.where(live, idx, 0).long().reshape(B, T * S, 1).expand(
+        B, T * S, C)
+    mask = live.reshape(B, T * S, 1)
+    out_k = cg.gather_tiles_fwd(idx, table)
+    out_p = cg.gather_tiles_reference(idx, table)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out_k, out_p))
+    print(f"[gather] {tag}: gather_tiles_fwd at idx {tuple(idx.shape)} "
+          f"{idx.dtype}, table {tuple(table.shape)} ({n_live} live slots, "
+          f"{n_rows} distinct rows): "
+          f"equal to plain: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"gather_tiles_fwd ({tag}) disagrees with its "
+                             "plain version")
+    isz = idx.element_size()
+    rec = {"shape": [B, T, S, C], "live": n_live, "rows": n_rows,
+           "max_abs_err": 0.0,
+           "ms": time_ms(lambda: cg.gather_tiles_fwd(idx, table)),
+           "device_ms": device_ms(lambda: cg.gather_tiles_fwd(idx, table),
+                                  "gather_fwd_kernel"),
+           "plain_ms": time_ms(lambda: cg.gather_tiles_reference(idx, table)),
+           "library_ms": time_ms(lambda: torch.where(
+               mask, table.gather(1, ids), 0.0)),
+           **bound(B * T * S * isz + n_rows * C * 4 + B * T * S * C * 4, 0)}
+    if bwd:
+        gen = torch.Generator(device=idx.device).manual_seed(5)
+        g = torch.randn((B, T, S, C), generator=gen, device=idx.device)
+        d_k = cg.gather_tiles_bwd(idx, g, F)
+        d_p = cg.gather_tiles_bwd_reference(idx, g, F)
+        torch.cuda.synchronize()
+        err = float((d_k - d_p).abs().max())
+        tol = 1e-6 * float(d_p.abs().max())
+        print(f"[gather] {tag}: gather_tiles_bwd vs plain: max|d| {err:.3e} "
+              f"(tol {tol:.3e} = 1e-6 x max {float(d_p.abs().max()):.3e})",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"gather_tiles_bwd ({tag}) disagrees with "
+                                 "its plain version")
+        g_live = torch.where(mask, g.reshape(B, T * S, C), 0.0)
+        rec["bwd"] = {
+            "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: cg.gather_tiles_bwd(idx, g, F)),
+            "device_ms": device_ms(lambda: cg.gather_tiles_bwd(idx, g, F),
+                                   "gather_bwd_kernel"),
+            "plain_ms": time_ms(
+                lambda: cg.gather_tiles_bwd_reference(idx, g, F)),
+            "library_ms": time_ms(lambda: torch.zeros_like(table).scatter_add_(
+                1, ids, g_live)),
+            # the kernel reads g only at live slots
+            **bound(B * T * S * isz + n_live * C * 4 + B * F * C * 4, 0)}
+    print(f"[gather] {tag} ({card}): {rec}", flush=True)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -262,10 +388,13 @@ def bench_scene(device):
     return meshes, cam
 
 
-def soft_phase(device, card: str) -> list:
+def soft_phase(device, card: str):
     import torch_renderer_tpu_torch as trt
     from torch_renderer_tpu_torch.rasterize import cuda_soft
-    from torch_renderer_tpu_torch.rasterize.binning import bin_faces_active
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        bin_faces_active,
+        slot_faces,
+    )
     from torch_renderer_tpu_torch.rasterize.soft import SOFT_CUTOFF
 
     meshes, cam = bench_scene(device)
@@ -327,6 +456,12 @@ def soft_phase(device, card: str) -> list:
           + ", ".join(f"{k} {v} ms" for k, v in times.items()),
           flush=True)
 
+    # the slab gather pair at the bench slab (the step's corner gather)
+    idx = slot_faces(bins, q.shape[2], empty=-1)
+    corners = torch.stack([fp0.x0, fp0.y0, fp0.x1, fp0.y1, fp0.x2, fp0.y2],
+                          dim=-1).contiguous()
+    gather = gather_check("soft bench slab", idx, corners, card, bwd=True)
+
     # step 0 against the dense oracle
     with torch.no_grad():
         alpha0 = trt.soft_silhouette_fd(fp0, (IMAGE, IMAGE), sigma=SIGMA,
@@ -377,9 +512,10 @@ def soft_phase(device, card: str) -> list:
     print(f"[soft] main path: {run} steps, launches {counts}", flush=True)
     if not bool(finite) or not bool(torch.isfinite(v).all()):
         raise AssertionError("non-finite gradient in the timed steps")
-    if counts != only(counts, soft_coverage_fwd=run, soft_coverage_bwd=run):
-        raise AssertionError(f"expected {run} launches of each soft kernel "
-                             f"and none other, got {counts}")
+    if counts != only(counts, soft_coverage_fwd=run, soft_coverage_bwd=run,
+                      gather_tiles_fwd=run, gather_tiles_bwd=run):
+        raise AssertionError(f"expected {run} launches of each soft and "
+                             f"gather kernel and none other, got {counts}")
     print(f"[soft] main path: {B * 1000.0 / step_ms:.1f} img/s "
           f"({step_ms:.4f} ms per step of B={B}, CUDA events over {STEPS} "
           f"steps; host wall {wall_s * 1000.0 / STEPS:.4f} ms/step) on "
@@ -395,7 +531,8 @@ def soft_phase(device, card: str) -> list:
     print(f"[soft] bounds ({live} live candidates x {tp} pixels): fwd "
           f"{b_fwd}, bwd {b_bwd}", flush=True)
     source = "torch_renderer_tpu_torch/csrc/soft_coverage.cu"
-    return [
+    gather["launches_bwd"] = counts["gather_tiles_bwd"]
+    return gather, [
         {"name": "soft_coverage_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:572",
          "also_replaces": ["torch_renderer_tpu/rasterize/pallas_soft.py:132",
@@ -645,9 +782,12 @@ def pose_fit_phase(device, card: str, route: str,
     if not err1 < 0.1 * err0:
         raise AssertionError(f"{route}: the translation error did not fall "
                              "below 0.1x its start")
-    want = ({"topk_select": iters} if route == "fragments" else
+    want = ({"topk_select": iters, "gather_tiles_fwd": iters,
+             "untile_scatter": 4 * iters}
+            if route == "fragments" else
             {"hard_k1": iters, "soft_coverage_fwd": iters,
-             "soft_coverage_bwd": iters})
+             "soft_coverage_bwd": iters, "gather_tiles_fwd": 2 * iters,
+             "gather_tiles_bwd": iters, "untile_scatter": 4 * iters})
     want = {k: want.get(k, 0) for k in counts}
     if counts != want:
         raise AssertionError(f"{route}: expected launches {want}, got "
@@ -894,7 +1034,8 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
         raise AssertionError(f"joint fit: chamfer {c0} -> {c1} did not fall "
                              "below 0.5x its start")
     want = only(counts, texsample_fwd=iters, texsample_bwd=iters,
-                topk_select=iters)
+                topk_select=iters, gather_tiles_fwd=iters,
+                untile_scatter=4 * iters)
     if counts != want:
         raise AssertionError(f"joint fit: expected launches {want}, got "
                              f"{counts}")
@@ -1176,7 +1317,8 @@ def points_phase(device, card: str) -> dict:
                                  f"per render and grad step, got {n_fwd} "
                                  f"and {n_all - n_fwd}")
     counts = read_counts()
-    want = only(counts, points_select=len(renderers) * (2 * POINTS_STEPS + 1))
+    n_render = len(renderers) * (2 * POINTS_STEPS + 1)
+    want = only(counts, points_select=n_render, gather_tiles_fwd=n_render)
     if counts != want:
         raise AssertionError(f"points: expected launches {want}, got "
                              f"{counts}")
@@ -1196,6 +1338,232 @@ def points_phase(device, card: str) -> dict:
     set_budget_check_default(None)
     return {"counts": counts, "kernel": kern, "runs": runs, "rim": rim,
             "budgets": bud, "peak_gb": peak_gb, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# G. the batched multi-view depth render (apps/batch_render_bench)
+# ---------------------------------------------------------------------------
+
+BATCH_SIZE = (720, 1280)
+BATCH_VIEWS = 120
+BATCH_CHUNK = 12
+BATCH_TILE = 32
+
+
+def _batch_chunk(device, app: dict):
+    """One call's inputs at the app's defaults: the first 12 of its 120
+    views of the normalized level-3 icosphere, and the app's settings with
+    the budgets it sized."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.apps._common import pinhole_K
+
+    meshes = trt.Meshes.from_single(*trt.icosphere(LEVEL), device=device)
+    meshes, _, _ = meshes.center_and_scale_to_unit_sphere()
+    azims = np.linspace(0.0, 360.0, BATCH_VIEWS, endpoint=False)
+    R, t = trt.look_at_view_transform(
+        2.7, 15.0, torch.from_numpy(azims[:BATCH_CHUNK].astype(np.float32)))
+    act = app["active_tiles"]
+    kw = dict(pixel_chunk=1048576, bin_size=BATCH_TILE,
+              max_faces_per_bin=app["max_faces_per_bin"],
+              active_tiles=None if act < 0 else act,
+              select_impl="affine", device=device)
+    return (meshes.extend(BATCH_CHUNK), R.to(device), t.to(device),
+            pinhole_K(BATCH_SIZE), kw)
+
+
+def _untile_backward_check(device) -> dict:
+    """K=4 blur fragments and the soft silhouette's vertex gradient through
+    the untile kernel's wrapper (its backward in plain torch) against the
+    plain epilogue differentiated by autograd, at 96^2, bin 16: fragments
+    equal, gradients within 1e-5 of the largest. The untile backward is
+    exact; the gradient's scatter-adds downstream (the winners' corner
+    gather) sum in float32 atomics whose order changes from run to run, so
+    the plain epilogue runs twice to show that spread."""
+    import torch_renderer_tpu_torch as trt
+
+    S = 96
+    f = 0.8 * S
+    K = np.array([[f, 0, S / 2], [0, f, S / 2], [0, 0, 1]], np.float32)
+    m = trt.Meshes.from_single(*trt.icosphere(2), device=device)
+    R, t = trt.look_at_view_transform(3.0, 25.0, 40.0)
+    R, t = R.to(device), t.to(device)
+    r = trt.MeshRenderer(K, (S, S), blur_radius=POSE_BLUR, faces_per_pixel=4,
+                         bin_size=16, max_faces_per_bin=128, device=device)
+
+    def run():
+        v = m.verts.clone().requires_grad_(True)
+        o = r.render(m.update_padded(v), R, t)
+        (g,) = torch.autograd.grad((o.silhouette ** 2).sum(), v)
+        return o.fragments, g
+
+    with plain_epilogue():
+        fa, ga = run()
+    fb, gb = run()
+    with plain_epilogue():
+        _, ga2 = run()
+    same = all(torch.equal(getattr(fa, n), getattr(fb, n))
+               for n in ("pix_to_face", "zbuf", "bary", "dists"))
+    err = float((ga - gb).abs().max())
+    spread = float((ga - ga2).abs().max())
+    tol = 1e-5 * float(ga.abs().max())
+    print(f"[batch] untile backward at {S}^2, K=4, blur {POSE_BLUR:.3e}, "
+          f"bin 16: fragments equal: {same}; silhouette vertex gradient "
+          f"kernel vs plain max|d| {err:.3e}, plain vs plain {spread:.3e} (tol "
+          f"{tol:.3e} = 1e-5 x max|g| {float(ga.abs().max()):.3e})",
+          flush=True)
+    if not same or not err <= tol or not bool(torch.isfinite(gb).all()):
+        raise AssertionError("the untile epilogue disagrees with its plain "
+                             "version in the K=4 fragments or their gradient")
+    return {"err": err, "spread": spread, "tol": tol}
+
+
+def batch_phase(device, card: str) -> dict:
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.apps import batch_render_bench
+    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_untile
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        set_budget_check_default,
+        slot_faces,
+    )
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+
+    H, W = BATCH_SIZE
+    # the app at its defaults; every count it launches is this run's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    app = batch_render_bench.main([])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_app = torch.cuda.max_memory_allocated() / 2**30
+    calls = app["calls"]
+    print(f"[batch] app at its defaults ({BATCH_VIEWS} views of {W}x{H}, "
+          f"chunks of {BATCH_CHUNK}, bin {BATCH_TILE}, --check-budgets warn):"
+          f" max_faces_per_bin {app['max_faces_per_bin']}, active_tiles "
+          f"{app['active_tiles']}; "
+          f"{app['images_per_s']:.1f} depth images/s batched, "
+          f"{app['serial_images_per_s']:.1f} images/s serial single-view "
+          f"(host clock over synchronized calls); {calls} render calls, "
+          f"{wall_s:.1f} s in all; launches {counts}; peak device memory "
+          f"{peak_app:.3f} GiB; {card}", flush=True)
+    want = only(counts, hard_k1=calls, gather_tiles_fwd=calls,
+                untile_scatter=4 * calls)
+    if counts != want:
+        raise AssertionError(f"batch render: expected launches {want}, got "
+                             f"{counts}")
+    if not (0.05 < app["coverage"] < 0.9 and 1.5 < app["depth_max"] < 3.0):
+        raise AssertionError(f"batch render: implausible depth (coverage "
+                             f"{app['coverage']}, max {app['depth_max']})")
+
+    set_budget_check_default("off")
+    batched, R, t, K, kw = _batch_chunk(device, app)
+    rp = trt.DepthRender(K, BATCH_SIZE, **kw)
+    with torch.no_grad():
+        # one call's launches, then the kernel's epilogue against the plain
+        # one bit for bit
+        torch.cuda.synchronize()
+        reset_counts()
+        dp, sp = rp.render(batched, R, t, return_silhouette=True)
+        torch.cuda.synchronize()
+        per_call = read_counts()
+        fp_, _ = rp.rasterize(batched, R, t)
+        with plain_epilogue():
+            dx, sx = rp.render(batched, R, t, return_silhouette=True)
+            fx_, _ = rp.rasterize(batched, R, t)
+    print(f"[batch] one {BATCH_CHUNK}-view call launches {per_call}",
+          flush=True)
+    if per_call != only(per_call, hard_k1=1, gather_tiles_fwd=1,
+                        untile_scatter=4):
+        raise AssertionError("a batch render call must launch hard_k1 and "
+                             "gather_tiles_fwd once and untile_scatter once "
+                             f"per fragment field, got {per_call}")
+    same = {"depth": bool(torch.equal(dp, dx)),
+            "silhouette": bool(torch.equal(sp, sx)),
+            **{n: bool(torch.equal(getattr(fp_, n), getattr(fx_, n)))
+               for n in ("pix_to_face", "zbuf", "bary", "dists")}}
+    print(f"[batch] untile kernel vs plain epilogue on one {BATCH_CHUNK}-view "
+          f"call, bit-identical: {same}; coverage "
+          f"{float((dp > 0).float().mean()):.4f}", flush=True)
+    if not all(same.values()):
+        raise AssertionError("the untile kernel's epilogue is not "
+                             "bit-identical to its plain version")
+    del dx, sx, fx_
+    grad = _untile_backward_check(device)
+
+    # the new kernels against their plain versions at this call's shapes
+    st = rp.settings
+    with torch.no_grad():
+        fd = setup_face_planes(batched, rp.camera_with_pose(R, t))
+        inp = cuda_hard.binned_inputs(fd, st)
+        idx = slot_faces(inp.bins, inp.slab.shape[2], empty=-1)
+        F = inp.planes.shape[1]
+        fid = torch.arange(F, dtype=torch.float32, device=device)
+        ch = torch.cat([inp.planes, fid.expand(BATCH_CHUNK, F)[..., None]],
+                       dim=-1)
+        gather = gather_check("720p call slab", idx, ch, card, bwd=False)
+        bins, fields = cuda_hard.binned_tile_fields(fd, st)
+    A = bins.invrank.shape[1]
+    table = cuda_untile.tile_slot_table(bins.rank, A, bins.n_tiles_hw)
+    n_read = int((table < A).sum())          # tiles that copy an active row
+    untile = {}
+    for name, (v, bg) in fields.items():
+        rows = v.reshape(v.shape[:3] + (-1,))
+        args = (rows, table, bg, BATCH_SIZE, BATCH_TILE, bins.n_tiles_hw)
+        img_k = cuda_untile.untile_scatter_fwd(*args)
+        img_p = cuda_untile.untile_scatter_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(img_k, img_p):
+            raise AssertionError(f"untile_scatter ({name}) disagrees with "
+                                 "its plain version")
+        es, C = rows.element_size(), rows.shape[3]
+        untile[name] = {
+            "shape": list(rows.shape), "dtype": str(rows.dtype),
+            "strides": list(rows.stride()),
+            "ms": time_ms(lambda: cuda_untile.untile_scatter_fwd(*args)),
+            "device_ms": device_ms(
+                lambda: cuda_untile.untile_scatter_fwd(*args),
+                "untile_kernel"),
+            "plain_ms": time_ms(
+                lambda: cuda_untile.untile_scatter_reference(*args)),
+            **bound(n_read * BATCH_TILE ** 2 * C * es + table.numel() * 4
+                    + img_k.numel() * es, 0)}
+        print(f"[batch] untile_scatter {name} at rows {untile[name]['shape']}"
+              f" {rows.dtype}: equal to plain; {untile[name]} ({card})",
+              flush=True)
+    del img_k, img_p, fields
+
+    with torch.no_grad():
+        call_ms = {}
+        for run in ("kernel", "plain", "plain_2", "kernel_2"):
+            with (plain_epilogue() if run.startswith("plain")
+                  else contextlib.nullcontext()):
+                call_ms[run] = time_ms(lambda: rp.render(batched, R, t),
+                                       reps=10)
+    print(f"[batch] one {BATCH_CHUNK}-view call by CUDA events, in turns "
+          f"(budget checks off): {call_ms} ms ({card})", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with torch.no_grad():
+            prof = _busy_share(lambda: [rp.render(batched, R, t)
+                                        for _ in range(PROFILE_ITERS)],
+                               PROFILE_ITERS, top=8)
+        print(f"[batch] profile of {PROFILE_ITERS} {BATCH_CHUNK}-view calls "
+              f"({card}): {prof}", flush=True)
+    except RuntimeError as e:   # the profiler is optional here
+        prof = None
+        print(f"[batch] profile: not measured ({e})", flush=True)
+    peak_call = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[batch] peak device memory over the profiled calls "
+          f"{peak_call:.3f} GiB ({card})", flush=True)
+    set_budget_check_default(None)
+    return {"app": app, "counts": counts, "per_call": per_call,
+            "gather": gather, "untile": untile, "n_read": n_read,
+            "grad": grad, "call_ms": call_ms, "profile": prof,
+            "peak_app_gb": peak_app, "peak_call_gb": peak_call}
 
 
 def main() -> None:
@@ -1221,13 +1589,14 @@ def main() -> None:
     print(f"build: {build_s:.2f} s -> {lib_path}", flush=True)
     print((lib_path.parent / "build.log").read_text(), flush=True)
 
-    kernels = soft_phase(device, card)
+    soft_gather, kernels = soft_phase(device, card)
     hard = hard_phase(device, card)
     fits = {route: pose_fit_phase(device, card, route)
             for route in ("fragments", "pallas")}
     tex = texture_phase(device, card)
     joint = joint_fit_phase(device, card)
     pts = points_phase(device, card)
+    batch = batch_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -1290,6 +1659,49 @@ def main() -> None:
          "per_point_ms": kp["ms"], "per_point_device_ms": kp["device_ms"],
          "per_point_plain_ms": kp["plain_ms"],
          "per_point_bound_ms": kp["bound_ms"]})
+    g7, gs = batch["gather"], soft_gather
+    source = "torch_renderer_tpu_torch/csrc/gather_tiles.cu"
+    kernels += [
+        {"name": "gather_tiles_fwd", "route": "cuda", "source": source,
+         "replaces": "torch_renderer_tpu/rasterize/pallas_gather.py:129",
+         "launches": batch["counts"]["gather_tiles_fwd"],
+         "max_abs_err": max(g7["max_abs_err"], gs["max_abs_err"]),
+         "ms": g7["ms"], "device_ms": g7["device_ms"],
+         "plain_ms": g7["plain_ms"], "bound_ms": g7["bound_ms"],
+         "bound_by": g7["bound_by"], "library_ms": g7["library_ms"],
+         "shape": g7["shape"], "soft_slab_ms": gs["ms"],
+         "soft_slab_device_ms": gs["device_ms"],
+         "soft_slab_plain_ms": gs["plain_ms"],
+         "soft_slab_bound_ms": gs["bound_ms"],
+         "soft_slab_library_ms": gs["library_ms"]},
+        {"name": "gather_tiles_bwd", "route": "cuda", "source": source,
+         "replaces": "torch_renderer_tpu/rasterize/pallas_gather.py:154",
+         "launches": gs["launches_bwd"],
+         "max_abs_err": gs["bwd"]["max_abs_err"], "tol": gs["bwd"]["tol"],
+         "ms": gs["bwd"]["ms"], "device_ms": gs["bwd"]["device_ms"],
+         "plain_ms": gs["bwd"]["plain_ms"],
+         "bound_ms": gs["bwd"]["bound_ms"],
+         "bound_by": gs["bwd"]["bound_by"],
+         "library_ms": gs["bwd"]["library_ms"], "shape": gs["shape"]},
+    ]
+    u = batch["untile"].values()
+    dev = [r["device_ms"] for r in u]
+    kernels.append(
+        {"name": "untile_scatter", "route": "cuda",
+         "source": "torch_renderer_tpu_torch/csrc/untile.cu",
+         "replaces": "torch_renderer_tpu/rasterize/pallas_untile.py:113",
+         "launches": batch["counts"]["untile_scatter"], "max_abs_err": 0.0,
+         "ms": sum(r["ms"] for r in u),
+         "device_ms": None if None in dev else sum(dev),
+         "plain_ms": sum(r["plain_ms"] for r in u),
+         "bound_ms": sum(r["bound_ms"] for r in u), "bound_by": "bytes",
+         "library_ms": None, "per_call_of": "the 4 fields of one 12-view "
+         "720p call", "fields_ms": {n: r["ms"] for n, r in
+                                    batch["untile"].items()}})
+    app = batch["app"]
+    print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
+          f"batched, {app['serial_images_per_s']:.1f} serial; one call "
+          f"{batch['call_ms']} ms", flush=True)
     print(f"point renders ({card}): " + ", ".join(
         f"{n} fwd {r['fwd_ms']:.3f} / grad {r['grad_ms']:.3f} ms"
         for n, r in pts["runs"].items()), flush=True)

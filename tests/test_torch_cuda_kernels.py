@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (soft coverage, hard raster, bilinear
-texture sampling, point selection) against their plain PyTorch versions,
+texture sampling, point selection, tile gather, untile) against their plain
+PyTorch versions,
 on an NVIDIA GPU. Marked ``cuda``: without a card every test here skips
 (the decision is made in a fixture, never at import).
 
@@ -16,7 +17,11 @@ changes from run to run). Point selection: winners equal (the kernel
 repeats the plain coverage arithmetic op for op); end to end on the card
 against the CPU, point ids differ on under 0.1% of pixels (the projection
 rounds otherwise on the card, which can move a splat's rim) and values
-agree within 1e-6 where they are the same.
+agree within 1e-6 where they are the same. Tile gather: the forward equal
+(a copy); the backward within 1e-6 of the largest table gradient (float32
+atomics add a row's terms in an order that changes from run to run).
+Untile: equal (a copy of 4- or 8-byte words), for float32 and int64 fields,
+strided rows and the renderer's fragments.
 """
 
 import numpy as np
@@ -383,3 +388,135 @@ def test_binned_points_match_cpu(device):
         torch.testing.assert_close(d_g[same], d_c[same], rtol=0, atol=1e-6)
         torch.testing.assert_close(g_g, g_c, rtol=0,
                                    atol=1e-3 * float(g_c.abs().max()))
+
+
+def _gather_case(seed, B, T, S, F, C, device, dtype):
+    rng = np.random.default_rng(seed)
+    idx = np.full((B, T, S), -1, np.int64)
+    for b in range(B):
+        for t in range(T):
+            n = rng.integers(0, S + 1)
+            idx[b, t, :n] = np.sort(rng.choice(F, size=n, replace=False))
+    table = rng.standard_normal((B, F, C)).astype(np.float32)
+    g = rng.standard_normal((B, T, S, C)).astype(np.float32)
+    return (torch.tensor(idx, dtype=dtype, device=device),
+            torch.tensor(table, device=device), torch.tensor(g, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("B,T,S,F,C", [(2, 24, 16, 200, 12), (1, 5, 8, 130, 3),
+                                       (8, 128, 128, 1280, 6),
+                                       (1, 8, 8, 2300, 2)])
+def test_gather_tiles_matches_plain(device, dtype, B, T, S, F, C):
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    idx, table, g = _gather_case(0, B, T, S, F, C, device, dtype)
+    before = (cg.GATHER_FWD_LAUNCHES, cg.GATHER_BWD_LAUNCHES)
+    out = cg.gather_tiles_fwd(idx, table)
+    dt = cg.gather_tiles_bwd(idx, g, F)
+    torch.cuda.synchronize()
+    assert (cg.GATHER_FWD_LAUNCHES, cg.GATHER_BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, cg.gather_tiles_reference(idx, table))
+    ref = cg.gather_tiles_bwd_reference(idx, g, F)
+    torch.testing.assert_close(dt, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+    assert bool((out[idx < 0] == 0).all())
+
+
+def test_gather_tiles_autograd(device):
+    import torch_renderer_tpu_torch as trt
+
+    idx, table, g = _gather_case(1, 2, 8, 8, 96, 4, device, torch.int64)
+    t = table.clone().requires_grad_(True)
+    (trt.gather_tiles(idx, t) * g).sum().backward()
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    ref = cg.gather_tiles_bwd_reference(idx, g, 96)
+    torch.testing.assert_close(t.grad, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+def _untile_case(seed, B, TH, TW, tile, A, C, device, dtype):
+    rng = np.random.default_rng(seed)
+    T = TH * TW
+    rank = np.full((B, T), 10 ** 6, np.int64)
+    for b in range(B):
+        rank[b, rng.choice(T, A, replace=False)] = np.arange(A)
+    rows = rng.standard_normal((B, A, tile * tile, C)) * 100
+    return (torch.tensor(rows, device=device).to(dtype),
+            torch.tensor(rank, device=device))
+
+
+@pytest.mark.parametrize("dtype,C,bg", [(torch.float32, 1, -1.0),
+                                        (torch.int64, 1, -1),
+                                        (torch.float32, 3, 0.0),
+                                        (torch.float32, 12, 2.0)])
+@pytest.mark.parametrize("tile,crop", [(16, (5, 3)), (32, (0, 0)),
+                                       (8, (7, 1))])
+def test_untile_matches_plain(device, dtype, C, bg, tile, crop):
+    from torch_renderer_tpu_torch.rasterize import cuda_untile as cu
+
+    B, TH, TW, A = 2, 3, 5, 9
+    rows, rank = _untile_case(0, B, TH, TW, tile, A, C, device, dtype)
+    size = (TH * tile - crop[0], TW * tile - crop[1])
+    table = cu.tile_slot_table(rank, A, (TH, TW))
+    before = cu.UNTILE_LAUNCHES
+    img = cu.untile_scatter_fwd(rows, table, bg, size, tile, (TH, TW))
+    torch.cuda.synchronize()
+    assert cu.UNTILE_LAUNCHES == before + 1
+    assert img.dtype == dtype and tuple(img.shape) == (B,) + size + (C,)
+    assert torch.equal(img, cu.untile_scatter_reference(
+        rows, table, bg, size, tile, (TH, TW)))
+    # strided rows: a channel slice of a wider field
+    wide = torch.cat([rows, rows], dim=-1)[..., 1:C + 1]
+    assert torch.equal(
+        cu.untile_scatter_fwd(wide, table, bg, size, tile, (TH, TW)),
+        cu.untile_scatter_reference(wide, table, bg, size, tile, (TH, TW)))
+
+
+@pytest.mark.parametrize("act,K", [(None, 1), (40, 1), (None, 4)])
+def test_untile_epilogue_matches_plain_on_card(monkeypatch, device, act, K):
+    """Fragments through the untile kernel equal the plain epilogue's bit for
+    bit on the card; the silhouette's vertex gradient through the kernel's
+    wrapper agrees with the plain epilogue differentiated by autograd within
+    1e-5 of its largest: the untile backward is exact, but the gradient's
+    scatter-adds downstream (the winners' corner gather) sum in float32
+    atomics whose order changes from run to run."""
+    import math
+
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize import cuda_untile as cu
+
+    H, W = 144, 176
+    f = 0.9 * H
+    Km = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    verts, faces = trt.icosphere(3)
+    m = trt.Meshes.from_single(verts, faces, device=device).extend(3)
+    R, t = trt.look_at_view_transform(2.7, [15.0, 40.0, 65.0],
+                                      [0.0, 120.0, 240.0])
+    R, t = R.to(device), t.to(device)
+    blur = 1e-4 * math.log(1 / 1e-4 - 1) if K > 1 else 0.0
+    r = trt.MeshRenderer(Km, (H, W), bin_size=16, max_faces_per_bin=256,
+                         active_tiles=act, faces_per_pixel=K,
+                         blur_radius=blur, device=device)
+
+    def run():
+        v = m.verts.clone().requires_grad_(True)
+        o = r.render(m.update_padded(v), R, t)
+        (g,) = torch.autograd.grad((o.silhouette ** 2).sum(), v)
+        return o.fragments, o.depth, g
+
+    before = cu.UNTILE_LAUNCHES
+    fa, da, ga = run()
+    assert cu.UNTILE_LAUNCHES == before + 4          # one per field
+    monkeypatch.setattr(cuda_hard, "untile_scatter",
+                        cu.untile_scatter_reference)
+    fb, db, gb = run()
+    assert cu.UNTILE_LAUNCHES == before + 4
+    for name in ("pix_to_face", "zbuf", "bary", "dists"):
+        assert torch.equal(getattr(fa, name), getattr(fb, name)), name
+    assert torch.equal(da, db)
+    torch.testing.assert_close(ga, gb, rtol=0,
+                               atol=1e-5 * float(gb.abs().max()))

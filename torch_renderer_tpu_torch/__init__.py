@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Four slices are ported:
+Five slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning and the soft-coverage CUDA
@@ -16,7 +16,11 @@ Four slices are ported:
   * the point stack: point clouds with features, point-splat
     rasterization (the point-selection CUDA kernel for binned settings,
     plain torch for dense ones), the compositors and the five point
-    renderers (alpha, norm, Pulsar splat, Pulsar sphere, depth).
+    renderers (alpha, norm, Pulsar splat, Pulsar sphere, depth);
+  * the batched multi-view depth render (apps/batch_render_bench.py): the
+    tile-gather kernel pair that loads every binned path's candidate slabs,
+    the fused untile kernel that ends every binned mesh raster, and the
+    timing harness (utils.timing).
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
@@ -51,12 +55,14 @@ from .opt.pose_fit import (
     pose_params_from_Rt,
     pose_params_to_Rt,
 )
+from .rasterize.cuda_gather import gather_tiles
 from .rasterize.cuda_soft import (
     SoftKernelConfig,
     soft_silhouette_cuda,
     soft_silhouette_fd,
     suggest_soft_config,
 )
+from .rasterize.cuda_untile import tile_slot_table, untile_scatter
 from .rasterize.fragments import Fragments
 from .rasterize.geometry import (
     FacePlanes,
@@ -97,6 +103,7 @@ from .structures.textures import (
     TexturesVertex,
     sphere_uv_mapping,
 )
+from .utils.timing import StageTimer, TimingResult, profiler_trace, time_fn
 
 __all__ = [
     "AlphaPointRender",
@@ -133,11 +140,14 @@ __all__ = [
     "RenderOutputs",
     "SilhouetteRender",
     "SoftKernelConfig",
+    "StageTimer",
     "TexturesUV",
     "TexturesVertex",
+    "TimingResult",
     "VertexColorFitter",
     "build_topology",
     "chamfer_distance",
+    "gather_tiles",
     "icosphere",
     "knn_points",
     "load_obj",
@@ -148,6 +158,7 @@ __all__ = [
     "mesh_normal_consistency",
     "pose_params_from_Rt",
     "pose_params_to_Rt",
+    "profiler_trace",
     "rasterize_face_data",
     "rasterize_meshes",
     "rasterize_points",
@@ -160,4 +171,7 @@ __all__ = [
     "soft_silhouette_streaming",
     "sphere_uv_mapping",
     "suggest_soft_config",
+    "tile_slot_table",
+    "time_fn",
+    "untile_scatter",
 ]

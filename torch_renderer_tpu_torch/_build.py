@@ -121,6 +121,14 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_texsample_bwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
                                       i32, i32, i32, i32, i32, i32, vp]
     lib.trt_texsample_bwd.restype = i32
+    for name in ("trt_gather_tiles_fwd", "trt_gather_tiles_bwd"):
+        getattr(lib, name).argtypes = [vp, i32, vp, vp, i32, i64, i32, i32,
+                                       i32, vp]
+        getattr(lib, name).restype = i32
+    lib.trt_untile_scatter.argtypes = [vp, vp, i64, vp, i32, i32, i32, i32,
+                                       i32, i32, i32, i32, i32, i64, i64, i64,
+                                       i64, i32, vp]
+    lib.trt_untile_scatter.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,9 +1,29 @@
 """Helpers shared by the port's apps (counterpart of the JAX package's
-``apps/_common.py``): the pinhole intrinsics and the scene mesh."""
+``apps/_common.py``): the common CLI options, the pinhole intrinsics and the
+scene mesh."""
 
 from __future__ import annotations
 
+import argparse
+
 import numpy as np
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    """The options every app of the JAX package shares, with --device (the
+    torch device; default cuda, which raises without a card) in place of
+    --cpu."""
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cpu, cuda or cuda:N")
+    p.add_argument("--obj", type=str, default=None, help="input OBJ mesh path")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--check-budgets", nargs="?", const="warn", default="warn",
+                   choices=["warn", "off"],
+                   help="'warn' (default) reads every silent-drop budget's "
+                        "true count back once per call and warns on "
+                        "overflow; 'off' disables the checks (benching)")
+    return p
 
 
 def pinhole_K(image_size, focal_scale: float = 0.9) -> np.ndarray:

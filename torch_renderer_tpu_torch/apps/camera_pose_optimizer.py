@@ -17,26 +17,16 @@ no fallback); pass --device cpu to run on the CPU.
 
 from __future__ import annotations
 
-import argparse
 import time
 
 import numpy as np
 import torch
 
-from ._common import load_scene_mesh, pinhole_K
+from ._common import base_parser, load_scene_mesh, pinhole_K
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cpu, cuda or cuda:N")
-    p.add_argument("--obj", type=str, default=None, help="input OBJ mesh path")
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--check-budgets", nargs="?", const="warn", default="warn",
-                   choices=["warn", "off"],
-                   help="'warn' (default) reads every silent-drop budget's "
-                        "true count back once per call and warns on "
-                        "overflow; 'off' disables the checks (benching)")
+    p = base_parser(__doc__)
     p.add_argument("--image-size", type=int, default=128)
     p.add_argument("--iters", type=int, default=500)
     p.add_argument("--lr", type=float, default=1e-3)

@@ -29,6 +29,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .cuda_gather import gather_tiles
+
 # Non-overlap sentinel for rank slots (int32 max, as in the JAX package).
 NO_SLOT = 2**31 - 1
 
@@ -204,16 +206,19 @@ def bin_faces_active(fp, image_size, tile: int, pad_radius: float,
                             max_active)
 
 
-def slot_faces(bins: ActiveBins, per_tile: int) -> torch.Tensor:
-    """(B, A, per_tile) face id held by each candidate slot. Slots at or
-    beyond a tile's capped count hold face 0 (in bounds, never read as a
-    candidate); faces ranked beyond per_tile land in a trash column."""
+def slot_faces(bins: ActiveBins, per_tile: int,
+               empty: int = 0) -> torch.Tensor:
+    """(B, A, per_tile) contiguous face id held by each candidate slot.
+    Slots at or beyond a tile's capped count hold ``empty`` (0 keeps them in
+    bounds, never read as a candidate; -1 marks them for
+    cuda_gather.gather_tiles); faces ranked beyond per_tile land in a trash
+    column."""
     B, A, F = bins.slot.shape
     dest = bins.slot.clamp(max=per_tile)
     faces = torch.arange(F, device=dest.device).expand(B, A, F)
-    table = torch.zeros((B, A, per_tile + 1), dtype=torch.int64,
-                        device=dest.device)
-    return table.scatter(2, dest, faces)[..., :per_tile]
+    table = torch.full((B, A, per_tile + 1), empty, dtype=torch.int64,
+                       device=dest.device)
+    return table.scatter(2, dest, faces)[..., :per_tile].contiguous()
 
 
 def scatter_active(values: torch.Tensor, bins: ActiveBins) -> torch.Tensor:
@@ -229,11 +234,19 @@ def scatter_active_bg(values: torch.Tensor, bins: ActiveBins,
     scalar or a tensor broadcastable to the trailing dims. A gather through
     the tile rank from the values plus one background row, so every output
     is an exact copy and its backward has one source per element."""
+    return gather_rows_bg(values, bins.rank, bg)
+
+
+def gather_rows_bg(values: torch.Tensor, slot: torch.Tensor,
+                   bg) -> torch.Tensor:
+    """(B, A, ...) rows -> (B, T, ...): row slot[b, t] of values, or ``bg``
+    where slot[b, t] (>= 0) is A or more (scatter_active_bg through any
+    per-tile slot table)."""
     B, A = values.shape[:2]
     trail = tuple(values.shape[2:])
     bg_row = torch.as_tensor(bg, dtype=values.dtype, device=values.device)
     padded = torch.cat([values, bg_row.expand((B, 1) + trail)], dim=1)
-    idx = bins.rank.clamp(max=A)                            # (B, T)
+    idx = slot.long().clamp(max=A)                            # (B, T)
     T = idx.shape[1]
     idx = idx.reshape((B, T) + (1,) * len(trail)).expand((B, T) + trail)
     return padded.gather(1, idx)
@@ -256,23 +269,21 @@ def tile_channel_slabs(planes: torch.Tensor, bins: ActiveBins,
                        per_tile: int):
     """The binned kernels' inputs, gathered from (B, N, C) per-item
     channels (the hard path's 12 face channels, the point path's x, y, z
-    and r^2):
+    and r^2) by the tile-gather kernel (cuda_gather.gather_tiles):
 
     slab (B, A, per_tile, C + 1) float32: each active tile's candidates in
         ascending item id, the C channels plus the global item id (exact
-        in float32 below 2^24 items);
+        in float32 below 2^24 items); slots beyond the count are 0;
     count (B, A) int32: candidates per tile, capped at per_tile (items
         beyond it are dropped);
-    table (B, A, per_tile) int64: the item id of each slot (0 at slots
-        beyond the count, which are never read)."""
-    table = slot_faces(bins, per_tile)
-    B, A, K = table.shape
-    N, C = planes.shape[1], planes.shape[2] + 1
+    table (B, A, per_tile) int64: the item id of each slot, -1 at slots
+        beyond the count (a caller that indexes with it clamps)."""
+    table = slot_faces(bins, per_tile, empty=-1)
+    B, N = planes.shape[:2]
     fid = torch.arange(N, dtype=planes.dtype, device=planes.device)
     ch = torch.cat([planes, fid.expand(B, N)[..., None]], dim=-1)
-    slab = ch.gather(1, table.reshape(B, A * K, 1).expand(B, A * K, C))
     count = bins.count.clamp(max=per_tile).to(torch.int32)
-    return slab.reshape(B, A, K, C), count, table
+    return gather_tiles(table, ch), count, table
 
 
 def tile_pixel_coords(image_size, tile: int, device=None) -> torch.Tensor:
@@ -363,3 +374,40 @@ def suggest_group_lanes_fd(fp, image_size, tile: int, pad_radius: float,
     n = int(group_counts(bins, faces_per_tile).max())
     want = int(math.ceil(n * margin / 128)) * 128
     return max(128, min(want, _GROUP * faces_per_tile))
+
+
+def suggest_occupancy_split_fd(fp, image_size, tile: int, pad_radius: float,
+                               max_active: int, max_faces_per_bin: int,
+                               lo_candidates=(16, 32, 48, 64, 96),
+                               margin: float = 1.3, multiple: int = 8):
+    """(hi_tiles, lo_lanes) for RasterizationSettings.occupancy_split, or
+    None when no candidate improves on the single budget (the JAX package's
+    sizing rule, so both packages size the same split).
+
+    For each candidate lo, tiles whose margined count exceeds lo need the
+    full max_faces_per_bin budget; the modeled work hi * full + (A - hi) *
+    lo is minimized over the candidates. The JAX package reads the counts
+    of its count-ordered active slots; the rule only sees each view's
+    multiset of counts, so this sorts each view's tile counts in
+    descending order instead and keeps the first A (empty and dropped
+    tiles count 0, as that package's unused slots do)."""
+    overlap, _ = _face_overlap(fp, image_size, tile, pad_radius)
+    counts = overlap.sum(-1)                                # (B, T)
+    A = min(max_active, counts.shape[1])
+    cnt = counts.sort(dim=-1, descending=True).values[:, :A].cpu().numpy()
+    full = min(max_faces_per_bin, int(fp.valid.shape[-1]))
+    best, best_work = None, None
+    for lo in lo_candidates:
+        if lo >= full:
+            continue
+        n_hi = int((cnt * margin > lo).sum(axis=1).max())
+        hi = min(A, int(math.ceil(max(n_hi, 1) * margin / multiple))
+                 * multiple)
+        if hi >= A:
+            continue
+        work = hi * full + (A - hi) * lo
+        if best_work is None or work < best_work:
+            best, best_work = (hi, lo), work
+    if best is None or best_work > 0.9 * A * full:  # no real modeled win
+        return None
+    return best

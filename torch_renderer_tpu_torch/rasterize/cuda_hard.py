@@ -4,9 +4,10 @@ kernels (PyTorch counterpart of ``torch_renderer_tpu.rasterize.pallas_hard``).
 The path: bin faces into active tiles (binning.bin_faces_active; with no
 active-tile budget every tile gets a slot), gather each tile's candidates
 into (B, A, Fmax, 13) slabs (12 corner channels plus the global face id)
-with an int32 count per tile, run a selection kernel, scatter the per-tile
-fields back to the tile grid with the empty-fragment background and untile
-into (B, H, W, K) Fragments.
+with an int32 count per tile (the tile-gather kernel, cuda_gather), run a
+selection kernel, and write each per-tile field into the (B, H, W, K)
+image with the empty-fragment background in tiles with no active slot
+(the untile kernel, cuda_untile: one launch per Fragments field).
 
   * K = 1: ``hard_k1`` finds each pixel's nearest covering face and
     interpolates it in-kernel (zbuf, perspective-correct barycentrics,
@@ -46,11 +47,10 @@ from .binning import (
     bin_faces_active,
     check_budget,
     face_channel_planes,
-    scatter_active_bg,
     tile_channel_slabs,
     tile_grid,
-    untile_image,
 )
+from .cuda_untile import tile_slot_table, untile_scatter
 from .fragments import EMPTY_DIST, Fragments
 from .geometry import channel_edge_bary, channel_min_edge_dist2, fragment_math
 
@@ -283,10 +283,13 @@ class HardK1(torch.autograd.Function):
 # Public surface
 # ---------------------------------------------------------------------------
 
-def _to_image(values, bins, bg, image_size, tile: int):
-    """(B, A, P, K, ...) active-tile fields -> (B, H, W, K, ...)."""
-    return untile_image(scatter_active_bg(values, bins, bg), image_size,
-                        tile, bins.n_tiles_hw)
+def _to_image(values, table, bg, image_size, tile: int, n_tiles_hw):
+    """(B, A, P, K, ...) active-tile fields -> (B, H, W, K, ...) through the
+    untile kernel and the tile slot table."""
+    B, A, P = values.shape[:3]
+    img = untile_scatter(values.reshape(B, A, P, -1), table, bg, image_size,
+                         tile, n_tiles_hw)
+    return img.reshape(img.shape[:3] + tuple(values.shape[3:]))
 
 
 class BinnedInputs(NamedTuple):
@@ -328,12 +331,10 @@ def binned_inputs(fd, settings) -> BinnedInputs:
                         bins.origin.contiguous(), 1.0 / (min(H, W) / 2.0))
 
 
-def rasterize_binned_cuda(fd, settings) -> Fragments:
-    """Coarse-to-fine top-K rasterization through the CUDA kernels; the
-    counterpart of ``rasterize_binned_pallas``. fd: FacePlanes or
-    FaceRasterData; settings: a resolved RasterizationSettings (bin_size >
-    0)."""
-    H, W = settings.image_size
+def binned_tile_fields(fd, settings):
+    """Selection and interpolation on the active tiles: (bins, {field:
+    (values (B, A, tile^2, K, ...), background)}) for the four Fragments
+    fields, before the epilogue maps them to the image."""
     K = settings.faces_per_pixel
     tile = settings.bin_size
     blur = settings.blur_radius
@@ -351,7 +352,8 @@ def rasterize_binned_cuda(fd, settings) -> Fragments:
         B, A_, _, P = lane.shape
         live = lane >= 0
         fid = table.gather(2, lane.clamp_min(0).long().reshape(B, A_, K * P))
-        fid = fid.reshape(B, A_, K, P)
+        # a tile with no candidate holds -1 in slot 0
+        fid = fid.clamp_min(0).reshape(B, A_, K, P)
         zb, pc, dd = reinterpolate(planes, fid, live, origin, tile, inv_s,
                                    settings.clip_bary)
         zbuf = torch.where(live, zb, -1.0).transpose(2, 3)
@@ -359,6 +361,19 @@ def rasterize_binned_cuda(fd, settings) -> Fragments:
         bary = torch.where(live[..., None], torch.stack(pc, dim=-1), 0.0)
         bary = bary.transpose(2, 3)                           # (B,A,P,K,3)
         p2f = torch.where(live, fid, -1).transpose(2, 3)
-    img = lambda v, bg: _to_image(v, bins, bg, (H, W), tile)  # noqa: E731
-    return Fragments(pix_to_face=img(p2f, -1), zbuf=img(zbuf, -1.0),
-                     bary=img(bary, 0.0), dists=img(dists, EMPTY_DIST))
+    return bins, {"pix_to_face": (p2f, -1), "zbuf": (zbuf, -1.0),
+                  "bary": (bary, 0.0), "dists": (dists, EMPTY_DIST)}
+
+
+def rasterize_binned_cuda(fd, settings) -> Fragments:
+    """Coarse-to-fine top-K rasterization through the CUDA kernels; the
+    counterpart of ``rasterize_binned_pallas``. fd: FacePlanes or
+    FaceRasterData; settings: a resolved RasterizationSettings (bin_size >
+    0)."""
+    bins, fields = binned_tile_fields(fd, settings)
+    table = tile_slot_table(bins.rank, bins.invrank.shape[1],
+                            bins.n_tiles_hw)
+    return Fragments(**{
+        name: _to_image(v, table, bg, settings.image_size, settings.bin_size,
+                        bins.n_tiles_hw)
+        for name, (v, bg) in fields.items()})

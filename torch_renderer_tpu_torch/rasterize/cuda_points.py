@@ -267,6 +267,7 @@ def rasterize_points_binned_cuda(q, z, valid, radius2, settings, extra=None,
     A_, tp = lane.shape[1], lane.shape[3]
     live = lane >= 0
     pid = table.gather(2, lane.clamp_min(0).long().reshape(B, A_, -1))
+    pid = pid.clamp_min(0)              # a tile with no candidate holds -1
     pid = pid.reshape(B, A_, k_eff, tp)
     cols = [planes[..., :3]] + ([] if extra is None else [extra])
     ch = torch.cat(cols, dim=-1)                              # (B, N, 3 + CE)

@@ -2,9 +2,10 @@
 (PyTorch counterpart of ``torch_renderer_tpu.rasterize.pallas_soft``).
 
 The path: bin faces into active tiles (binning.bin_faces_active), gather
-each tile's candidate corners into (B, A, K, 6) slabs translated into the
-tile's own pixel frame, run the coverage kernel pair, scatter the per-tile
-sums back to the tile grid and untile into the image.
+each tile's candidate corners into (B, A, K, 6) slabs with the tile-gather
+kernel pair (cuda_gather) and translate them into the tile's own pixel
+frame, run the coverage kernel pair, scatter the per-tile sums back to the
+tile grid and untile into the image.
 
 Per (pixel p, face f): signed d2 = +min_e dist2(p, edge_e) outside and
 -min_e inside; S(p) = sum_f softplus(-d2 / sigma); alpha = 1 - exp(-S).
@@ -43,6 +44,7 @@ from .binning import (
     suggest_group_lanes_fd,
     untile_image,
 )
+from .cuda_gather import gather_tiles
 from .geometry import FacePlanes, setup_face_planes
 from .soft import SOFT_CUTOFF
 
@@ -228,15 +230,15 @@ class SoftCoverage(torch.autograd.Function):
 
 def tile_slabs(fp: FacePlanes, bins: ActiveBins, per_tile: int):
     """The kernels' inputs: q (B, A, per_tile, 6), each active tile's
-    candidate corners in the tile's own pixel frame (differentiable with
-    respect to fp), and count (B, A) int32, its candidates capped at
-    per_tile."""
-    table = slot_faces(bins, per_tile)                      # (B, A, K)
-    B, A, K = table.shape
+    candidate corners in the tile's own pixel frame, gathered by the
+    tile-gather kernel pair (differentiable with respect to fp; slots
+    beyond the count hold 0 before the translation and are never read),
+    and count (B, A) int32, its candidates capped at per_tile."""
+    idx = slot_faces(bins, per_tile, empty=-1)
     planes = torch.stack([fp.x0, fp.y0, fp.x1, fp.y1, fp.x2, fp.y2], dim=-1)
-    q = planes.gather(1, table.reshape(B, A * K, 1).expand(B, A * K, 6))
-    q = q.reshape(B, A, K, 6) - bins.origin.repeat(1, 1, 3)[:, :, None, :]
-    return q, bins.count.clamp(max=per_tile).to(torch.int32)
+    q = gather_tiles(idx, planes)
+    return (q - bins.origin.repeat(1, 1, 3)[:, :, None, :],
+            bins.count.clamp(max=per_tile).to(torch.int32))
 
 
 def _budget_checks(bins: ActiveBins, A: int | None, K: int, layout: str,

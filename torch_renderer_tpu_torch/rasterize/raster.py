@@ -51,13 +51,19 @@ class RasterizationSettings:
     tile k (k <= 32) and the budgets max_faces_per_bin / active_tiles: faces
     beyond a tile's budget and non-empty tiles beyond active_tiles are
     dropped. Every binned call runs the CUDA kernels on a CUDA tensor,
-    whatever ``impl`` says ("auto", "pallas" and "xla" are accepted).
+    whatever ``impl`` says ("auto", "pallas" and "xla" are accepted), and
+    ends with the untile kernel (rasterize/cuda_untile.py), one launch per
+    fragment field, whatever ``untile_impl`` says (the JAX package's two
+    epilogues give the same bits).
 
     Accepted and without effect here: ``layout`` ("packed" is the JAX
     package's K=1 packed-selection kernel; the port routes it to the one K=1
-    kernel), ``group_lanes``, ``occupancy_split``, ``select_impl="affine"``
-    (selection keys of the JAX XLA path) and ``untile_impl``. The
-    combinations the JAX package rejects are rejected here too.
+    kernel), ``group_lanes``, ``occupancy_split`` (the port's kernels give
+    every active tile the full max_faces_per_bin, so a split sized by
+    binning.suggest_occupancy_split_fd drops nothing in either package),
+    ``select_impl="affine"`` (selection keys of the JAX XLA path) and
+    ``untile_impl``. The combinations the JAX package rejects are rejected
+    here too.
 
     check_budgets: None (the process default of
     binning.set_budget_check_default), "off", or "warn" (reads each true
