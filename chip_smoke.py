@@ -8,14 +8,17 @@ Drives, through the port's public entry points:
      dense streaming oracle, the tile-gather pair against its plain
      versions at the step's corner slab, and 100 chained render + grad steps
      (v <- v - 1e-6 * grad) that must launch each soft kernel and each
-     gather kernel once a step;
+     gather kernel once a step; then a torch.profiler window of 20 steps
+     (device ms per step, the top kernels, the soft kernels' share);
   B. the hard-raster kernels against their plain versions at the camera
      pose fit's shapes (B=1, 128x128, the level-3 icosphere normalized to
      the unit sphere at look_at(2.7, 15, 40), tile 16, budgets from
      autotune at margin 2.0): hard_k1 at blur 0, topk_select at K=4 with
      blur 9.21e-4 and at K=50 with blur 1e-4. Winners must be identical,
      or differ only at selection-depth ties within 1e-6 on under 0.1% of
-     covered pixels; values within 1e-5;
+     covered pixels (the count of differing pixels is reported); values
+     within 1e-5; and untile_scatter on the K=4 raster's four fields, the
+     shape the fits launch it at, equal to its plain version;
   C. the camera pose fit at the app's defaults (Adam lr 1e-3, 500
      iterations, RGB on, start translation perturbed by 0.1 * N(0, 1) from
      seed 0, budget checks off), through the default fragments route
@@ -25,7 +28,8 @@ Drives, through the port's public entry points:
      gather_tiles_fwd launch (fragments), or one hard_k1, soft_coverage_fwd,
      soft_coverage_bwd and gather_tiles_bwd launch and two gather_tiles_fwd
      launches (pallas); either route also four untile_scatter launches, one
-     per fragment field of its mesh raster.
+     per fragment field of its mesh raster. Then a 20-iteration profile of
+     the fragments route (device ms per iteration, topk_select's share).
   D. the texture-sampling kernels against their plain versions at the joint
      fit's shapes: one 256x256x3 map shared by 2 views (batch stride 0),
      32768 points per view at u, v uniform in [0, 1] from a seeded
@@ -44,9 +48,10 @@ Drives, through the port's public entry points:
      distance to the target (2000 points each, fixed generator) below 0.5x
      its start (the JAX package's tests/test_deform_color.py gates); per
      iteration exactly one texsample_fwd, texsample_bwd, topk_select and
-     gather_tiles_fwd launch, four untile_scatter launches and no other. Then topk_select at the fit's K=8 shapes against
-     its plain version, and a torch.profiler window of 20 iterations
-     (device busy share, kernels per iteration).
+     gather_tiles_fwd launch, four untile_scatter launches and no other.
+     Then topk_select at the fit's K=8 shapes against its plain version,
+     and a torch.profiler window of 20 iterations (device busy share,
+     kernels per iteration, topk_select's share).
   F. the point stack at the JAX package's point bench scene
      (scripts/bench_points.py): B=4 clouds of 20000 points (0.8 * N(0, 1)
      from numpy seed 0, uniform [0, 1) RGB), 256x256, f = 0.8 * 256, R = I,
@@ -75,9 +80,9 @@ Drives, through the port's public entry points:
      per fragment field) and nothing else. On one 12-view call: the
      launches of that call, the call through the untile kernel against the
      same call ending with the kernel's plain version, bit for bit (depth,
-     silhouette and the four fields), gather_tiles_fwd against its plain
-     version on the call's (12, A, Fmax, 13) slab and untile_scatter on each
-     of its four fields (equal), the call timed with either epilogue in
+     silhouette and the four fields), gather_tiles_fwd and hard_k1 against
+     their plain versions on the call's (12, A, Fmax, 13) slab (hard_k1 with
+     its bound) and untile_scatter on each of its four fields (equal), the call timed with either epilogue in
      turns, a 20-call profile and the peak device memory; and the untile
      backward (K=4 blur fragments and the silhouette's vertex gradient at
      96^2, bin 16), the kernel's wrapper against the plain epilogue
@@ -90,12 +95,19 @@ larger of its bytes (inputs read once, outputs written once, live
 candidates only) at 3.35 TB/s and its operations at the float32 peak of 67
 TFLOP/s (NVIDIA's H100 SXM data sheet), counted per (pixel, candidate) pair
 or per point as the OPS constants below say; the gather pair and the untile
-kernel are copies, bound by bytes alone. A library yardstick is one PyTorch
-call computing the same function where there is one: grid_sample for the
-texture pair, Tensor.gather plus the mask and scatter_add_ for the gather
-pair. Any failure raises (exit code
-1). The second-to-last line is a JSON record of the kernels; the last line
+kernel are copies, bound by bytes alone. The hard kernels' operations count
+the full priority only for pairs whose pixel lies in the face's bounding
+box grown by sqrt(blur) (the pairs it can cover) and a box test for every
+other live pair; their every-pair count, as the plain versions evaluate
+it, is reported beside it as bound_every_pair_ms. A library yardstick is
+one PyTorch call computing the same function where there is one:
+grid_sample for the texture pair, Tensor.gather plus the mask and
+scatter_add_ for the gather pair. Any failure raises (exit code 1). The second-to-last line is a JSON record of the kernels; the last line
 is {"ok": true, "device": {...}}.
+
+The build's -Xptxas -v report is printed in full, and the registers,
+shared memory and spills of soft_coverage_bwd_kernel and
+topk_select_kernel once more in a line each.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -147,6 +159,9 @@ OPS_SOFT_FWD = 80
 OPS_SOFT_BWD = 100
 OPS_HARD_K1 = 35
 OPS_TOPK = 80
+# A (pixel, candidate) pair whose pixel lies outside the face's grown
+# bounding box needs only the box test: two compares per axis.
+OPS_BOX = 4
 # points_select per (pixel, live candidate) pair: two differences, two
 # squares, a sum and two compares (the insertion of the few covering
 # candidates is not counted).
@@ -181,6 +196,57 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": int(n_bytes), "ops": int(n_ops)}
 
 
+def _kernel_name(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled entry point, with its
+    integer and bool template arguments (topk_select_kernel<8,true,1024>):
+    the last of the length-prefixed names after _Z or _ZN."""
+    import re
+
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    at, name = m.end(), mangled
+    while at < len(mangled) and mangled[at].isdigit():
+        d = re.match(r"\d+", mangled[at:]).group()
+        at += len(d)
+        name = mangled[at:at + int(d)]
+        at += int(d)
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[at:])
+    if args:
+        vals = [("true" if v == "1" else "false") if t == "b" else v
+                for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+        return f"{name}<{','.join(vals)}>"
+    return name
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, shared memory (bytes) and spill stores / loads (bytes) of
+    each kernel in nvcc's -Xptxas -v report (build.log), keyed by the
+    kernel's name with its template argument (topk_select_kernel<8>)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,15 +279,11 @@ def device_ms(fn, name: str, reps: int = TIMING_REPS):
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:      # the profiler is optional here
-        print(f"device_ms({name}): not measured ({e})", flush=True)
-        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     us = [e.time_range.end - e.time_range.start for e in events
           if name in e.name]
@@ -520,6 +582,11 @@ def soft_phase(device, card: str):
           f"({step_ms:.4f} ms per step of B={B}, CUDA events over {STEPS} "
           f"steps; host wall {wall_s * 1000.0 / STEPS:.4f} ms/step) on "
           f"{card}", flush=True)
+    prof = _busy_share(lambda: [step(v) for _ in range(PROFILE_ITERS)],
+                       PROFILE_ITERS, top=5,
+                       named=("soft_coverage_bwd", "soft_coverage_fwd"))
+    print(f"[soft] profile over {PROFILE_ITERS} steps ({card}): {prof}",
+          flush=True)
 
     live = int(count.sum())
     Bq, Aq, Kq, _ = q.shape
@@ -550,7 +617,8 @@ def soft_phase(device, card: str):
          "ms": times["bwd"], "device_ms": times["bwd_device"],
          "plain_ms": times["bwd_plain"],
          "bound_ms": b_bwd["bound_ms"], "bound_by": b_bwd["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "img_s": B * 1000.0 / step_ms,
+         "step_profile": prof},
     ]
 
 
@@ -591,15 +659,14 @@ def _kernel_inputs(meshes, cam, K: int, blur: float):
         RasterizationSettings((POSE_IMAGE, POSE_IMAGE), blur_radius=blur,
                               faces_per_pixel=K, check_budgets="off"),
         meshes, cam, margin=2.0)
-    inp = cuda_hard.binned_inputs(setup_face_planes(meshes, cam), st)
-    return st, inp.slab, inp.count, inp.origin
+    return st, cuda_hard.binned_inputs(setup_face_planes(meshes, cam), st)
 
 
-def _winner_check(name, lane_k, lane_p, prio) -> float:
+def _winner_check(name, lane_k, lane_p, prio) -> tuple:
     """Raise unless the kernel's winner slots (B, A, K, P) equal the plain
     version's, or differ only at selection-depth ties on few pixels.
     Returns the largest selection-depth gap between the two (0 when the
-    winners are identical)."""
+    winners are identical) and the number of pixels that differ."""
     from torch_renderer_tpu_torch.rasterize.cuda_hard import INF
 
     def depth(lane):
@@ -616,18 +683,89 @@ def _winner_check(name, lane_k, lane_p, prio) -> float:
           f"a winner, largest selection-depth gap {max_gap:.3e}", flush=True)
     if n_pix and (max_gap > TIE_TOL or n_pix > TIE_SHARE * covered):
         raise AssertionError(f"{name}: winners disagree beyond depth ties")
-    return max_gap
+    return max_gap, n_pix
 
 
-def hard_bound(slab, count, rows: int, ops_per_pair: int,
-               tile: int) -> dict:
+def box_pairs(slab, origin, count, tile: int, inv_s: float,
+              blur: float) -> int:
+    """Live (pixel, candidate) pairs whose pixel lies in the face's screen
+    bounding box grown by sqrt(blur): a face covers no pixel outside it
+    (inside means inside the box, and the blur band lies within sqrt(blur)
+    of an edge), so only these pairs need the face's priority."""
+    r = math.sqrt(max(blur, 0.0))
+    off = torch.arange(tile, device=slab.device,
+                       dtype=torch.float32) * inv_s
+
+    def lines(q, o):
+        """(B, A, F) grid lines of the tile within each face's span."""
+        g = o[..., None, None] + off                         # (B, A, 1, T)
+        lo, hi = q.amin(-1, keepdim=True) - r, q.amax(-1, keepdim=True) + r
+        return ((g >= lo) & (g <= hi)).sum(-1)
+
+    live = (torch.arange(slab.shape[2], device=slab.device)
+            < count[..., None])
+    n = (lines(slab[..., 0:6:2], origin[..., 0])
+         * lines(slab[..., 1:6:2], origin[..., 1]))
+    return int((n * live).sum())
+
+
+def hard_bound(slab, count, origin, rows: int, ops_per_pair: int,
+               tile: int, inv_s: float, blur: float) -> dict:
     """Bound of a hard kernel: the live slab rows (52 bytes each), count,
-    origin and rows x tile^2 outputs of 4 bytes per tile; ops per live
-    (pixel, candidate) pair."""
+    origin and rows x tile^2 outputs of 4 bytes per tile, each moved once;
+    ops_per_pair for each live (pixel, candidate) pair whose pixel lies in
+    the face's grown box (box_pairs) and OPS_BOX for every other live
+    pair. bound_every_pair_ms charges ops_per_pair to every live pair, as
+    the plain versions evaluate them."""
     B, A = count.shape
     live, tp = int(count.sum()), tile * tile
-    return bound(live * 52 + B * A * 12 + B * A * rows * tp * 4,
-                 live * tp * ops_per_pair)
+    n_bytes = live * 52 + B * A * 12 + B * A * rows * tp * 4
+    n_box = box_pairs(slab, origin, count, tile, inv_s, blur)
+    every = bound(n_bytes, live * tp * ops_per_pair)
+    return {**bound(n_bytes, n_box * ops_per_pair
+                    + (live * tp - n_box) * OPS_BOX),
+            "box_pairs": n_box, "pairs": live * tp,
+            "bound_every_pair_ms": every["bound_ms"],
+            "bound_every_pair_by": every["bound_by"]}
+
+
+def hard_k1_check(tag: str, inp, st, card: str) -> dict:
+    """hard_k1 against its plain version on one binned raster's inputs
+    (cuda_hard.BinnedInputs): winners equal or tied, values within
+    VALUE_TOL where they agree; times by events, the profiler and the plain
+    version, and its bound."""
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    args = (inp.slab, inp.count, inp.origin, st.bin_size, inp.inv_s,
+            st.blur_radius, st.znear, st.clip_bary)
+    o_k = cuda_hard.hard_k1(*args)
+    o_p = cuda_hard.hard_k1_reference(*args)
+    torch.cuda.synchronize()
+
+    def lanes(o):
+        lane = torch.where(o[:, :, 6] > 0, o[:, :, 7], -1.0)
+        return lane.round().to(torch.int32)[:, :, None]
+
+    prio = cuda_hard._priority(*args[:7])
+    gap, n_diff = _winner_check(f"hard_k1 ({tag})", lanes(o_k), lanes(o_p),
+                                prio)
+    del prio
+    err = float(((o_k - o_p).abs() * (lanes(o_k) == lanes(o_p))).max())
+    if not err <= VALUE_TOL:
+        raise AssertionError(f"hard_k1 ({tag}) values disagree with its "
+                             "plain version")
+    rec = {"max_abs_err": max(err, gap), "diff_px": n_diff,
+           "shape": list(inp.slab.shape),
+           "live": int(inp.count.sum()),
+           "ms": time_ms(lambda: cuda_hard.hard_k1(*args)),
+           "device_ms": device_ms(lambda: cuda_hard.hard_k1(*args),
+                                  "hard_k1_kernel"),
+           "plain_ms": time_ms(lambda: cuda_hard.hard_k1_reference(*args),
+                               reps=3),
+           **hard_bound(inp.slab, inp.count, inp.origin, 8, OPS_HARD_K1,
+                        st.bin_size, inp.inv_s, st.blur_radius)}
+    print(f"[hard] hard_k1 ({tag}) ({card}): {rec}", flush=True)
+    return rec
 
 
 def hard_phase(device, card: str) -> dict:
@@ -635,6 +773,7 @@ def hard_phase(device, card: str) -> dict:
         PerspectiveCamera,
     )
     from torch_renderer_tpu_torch.rasterize import autotune, cuda_hard
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
 
     meshes, K, R_gt, t_gt, _ = pose_scene(device)
     cam = PerspectiveCamera.from_K(K, (POSE_IMAGE, POSE_IMAGE), R=R_gt,
@@ -642,42 +781,15 @@ def hard_phase(device, card: str) -> dict:
     out = {}
 
     # hard_k1 at blur 0 (the pallas route's depth/RGB raster)
-    st, slab, count, origin = _kernel_inputs(meshes, cam, 1, 0.0)
-    args = (slab, count, origin, st.bin_size, 1.0 / (POSE_IMAGE / 2.0), 0.0,
-            st.znear, st.clip_bary)
-    print(f"[hard] hard_k1 shapes: slab {tuple(slab.shape)}, live "
-          f"candidates {int(count.sum())}, max per tile "
-          f"{int(count.max())}", flush=True)
-    o_k = cuda_hard.hard_k1(*args)
-    o_p = cuda_hard.hard_k1_reference(*args)
-    torch.cuda.synchronize()
-    prio = cuda_hard._priority(slab, count, origin, *args[3:7])
-
-    def lanes(o):
-        lane = torch.where(o[:, :, 6] > 0, o[:, :, 7], -1.0)
-        return lane.round().to(torch.int32)[:, :, None]
-
-    gap = _winner_check("hard_k1", lanes(o_k), lanes(o_p), prio)
-    same = (lanes(o_k) == lanes(o_p))                         # (B, A, 1, P)
-    err = float(((o_k - o_p).abs() * same).max())
-    print(f"[hard] hard_k1 vs plain: max|d value| {err:.3e} at equal "
-          f"winners (tol {VALUE_TOL:.0e})", flush=True)
-    if not err <= VALUE_TOL:
-        raise AssertionError("hard_k1 values disagree with its plain version")
-    out["hard_k1"] = {
-        "max_abs_err": max(err, gap),
-        "ms": time_ms(lambda: cuda_hard.hard_k1(*args)),
-        "device_ms": device_ms(lambda: cuda_hard.hard_k1(*args),
-                               "hard_k1_kernel"),
-        "plain_ms": time_ms(lambda: cuda_hard.hard_k1_reference(*args)),
-        "shape": list(slab.shape),
-        **hard_bound(slab, count, 8, OPS_HARD_K1, st.bin_size)}
+    st, inp = _kernel_inputs(meshes, cam, 1, 0.0)
+    out["hard_k1"] = hard_k1_check("pose fit", inp, st, card)
 
     # topk_select at the fragments route's K=4 / blur, and at K=50
     for Kf, blur in ((4, POSE_BLUR), (50, 1e-4)):
-        st, slab, count, origin = _kernel_inputs(meshes, cam, Kf, blur)
-        args = (slab, count, origin, Kf, st.bin_size,
-                1.0 / (POSE_IMAGE / 2.0), blur, st.znear)
+        st, inp = _kernel_inputs(meshes, cam, Kf, blur)
+        slab, count, origin = inp.slab, inp.count, inp.origin
+        args = (slab, count, origin, Kf, st.bin_size, inp.inv_s, blur,
+                st.znear)
         print(f"[hard] topk_select K={Kf} blur {blur:.3e} shapes: slab "
               f"{tuple(slab.shape)}, max per tile {int(count.max())}",
               flush=True)
@@ -685,23 +797,35 @@ def hard_phase(device, card: str) -> dict:
         l_p = cuda_hard.topk_select_reference(*args)
         torch.cuda.synchronize()
         prio = cuda_hard._priority(slab, count, origin, *args[4:8])
-        gap = _winner_check(f"topk_select K={Kf}", l_k, l_p, prio)
+        gap, n_diff = _winner_check(f"topk_select K={Kf}", l_k, l_p, prio)
         out[f"topk_select_k{Kf}"] = {
-            "max_abs_err": gap,
+            "max_abs_err": gap, "diff_px": n_diff,
             "ms": time_ms(lambda: cuda_hard.topk_select(*args)),
             "device_ms": device_ms(lambda: cuda_hard.topk_select(*args),
-                                   "topk_select_kernel"),
+                                   "topk_select"),
             "plain_ms": time_ms(
                 lambda: cuda_hard.topk_select_reference(*args)),
             "shape": list(slab.shape),
-            **hard_bound(slab, count, Kf, OPS_TOPK, st.bin_size)}
+            **hard_bound(slab, count, origin, Kf, OPS_TOPK, st.bin_size,
+                         inp.inv_s, blur)}
+    # the untile kernel on the K=4 raster's four fields (the fits' shape)
+    st, _ = _kernel_inputs(meshes, cam, 4, POSE_BLUR)
+    with torch.no_grad():
+        bins, fields = cuda_hard.binned_tile_fields(
+            setup_face_planes(meshes, cam), st)
+        untile, _ = untile_check("pose fit K=4", bins, fields,
+                                 (POSE_IMAGE, POSE_IMAGE), st.bin_size, card)
+    del fields
     for name, r in out.items():
         print(f"[hard] {name} at {r['shape']} ({card}): kernel "
               f"{r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
               f"{r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']}: {r['bytes']} B, "
-              f"{r['ops']} op)", flush=True)
+              f"{r['ops']} op; {r['box_pairs']} of {r['pairs']} live pairs "
+              f"in a face's box), every-pair bound "
+              f"{r['bound_every_pair_ms']:.6f} ms", flush=True)
     autotune.clear_cache()   # the fits below resolve their own budgets
+    out["untile"] = untile
     return out
 
 
@@ -792,7 +916,14 @@ def pose_fit_phase(device, card: str, route: str,
     if counts != want:
         raise AssertionError(f"{route}: expected launches {want}, got "
                              f"{counts}")
-    return {"counts": counts, "it_s_events": iters / events_s,
+    prof = None
+    if route == "fragments":
+        prof = _busy_share(lambda: fitter.fit(
+            meshes, refs, params, n_steps=PROFILE_ITERS), PROFILE_ITERS,
+            top=5, named=("topk_select",))
+        print(f"[fit {route}] profile over {PROFILE_ITERS} iterations "
+              f"({card}): {prof}", flush=True)
+    return {"counts": counts, "it_s_events": iters / events_s, "profile": prof,
             "it_s_wall": iters / wall_s, "loss": [float(loss[0]),
                                                    float(loss[-1])],
             "err": [err0, err1]}
@@ -892,10 +1023,12 @@ def texture_phase(device, card: str) -> dict:
 # E. the joint shape + UV-texture fit at the app's defaults
 # ---------------------------------------------------------------------------
 
-def _busy_share(fn, iters: int, top: int = 0) -> dict:
+def _busy_share(fn, iters: int, top: int = 0, named: tuple = ()) -> dict:
     """Device busy time (union of device events) and kernels per iteration
     over fn(), which runs `iters` iterations, by torch.profiler; with top,
-    also the `top` kernel names with the most device time per iteration."""
+    also the `top` kernel names with the most device time per iteration;
+    for each string in named, the device ms per iteration of the kernels
+    whose names hold it and their share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -926,6 +1059,11 @@ def _busy_share(fn, iters: int, top: int = 0) -> dict:
                 e.time_range.end - e.time_range.start) / 1e3 / iters
         out["top_ms_per_iter"] = dict(sorted(
             per_name.items(), key=lambda kv: -kv[1])[:top])
+    for n in named:
+        ms = sum(e.time_range.end - e.time_range.start for e in events
+                 if n in e.name) / 1e3 / iters
+        out[f"{n}_ms_per_iter"] = ms
+        out[f"{n}_share_of_busy"] = ms / max(out["busy_ms_per_iter"], 1e-12)
     return out
 
 
@@ -1051,29 +1189,32 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
     l_p = cuda_hard.topk_select_reference(*targs)
     torch.cuda.synchronize()
     prio = cuda_hard._priority(inp.slab, inp.count, inp.origin, *targs[4:8])
-    gap = _winner_check("topk_select K=8 (joint fit)", l_k, l_p, prio)
-    topk = {"max_abs_err": gap, "shape": list(inp.slab.shape),
+    gap, n_diff = _winner_check("topk_select K=8 (joint fit)", l_k, l_p,
+                                prio)
+    topk = {"max_abs_err": gap, "diff_px": n_diff,
+            "shape": list(inp.slab.shape),
             "ms": time_ms(lambda: cuda_hard.topk_select(*targs)),
             "device_ms": device_ms(lambda: cuda_hard.topk_select(*targs),
-                                   "topk_select_kernel"),
+                                   "topk_select"),
             "plain_ms": time_ms(
                 lambda: cuda_hard.topk_select_reference(*targs)),
-            **hard_bound(inp.slab, inp.count, st.faces_per_pixel, OPS_TOPK,
-                         st.bin_size)}
+            **hard_bound(inp.slab, inp.count, inp.origin,
+                         st.faces_per_pixel, OPS_TOPK, st.bin_size,
+                         inp.inv_s, st.blur_radius)}
     print(f"[joint] topk_select K=8 at {topk['shape']} ({card}): kernel "
           f"{topk['ms']:.4f} ms (device {topk['device_ms']} ms), plain "
           f"{topk['plain_ms']:.4f} ms, bound "
-          f"{topk['bound_ms']:.6f} ms ({topk['bound_by']})", flush=True)
+          f"{topk['bound_ms']:.6f} ms ({topk['bound_by']}; "
+          f"{topk['box_pairs']} of {topk['pairs']} live pairs in a face's "
+          f"box), every-pair bound {topk['bound_every_pair_ms']:.6f} ms",
+          flush=True)
 
-    try:
-        prof = _busy_share(lambda: fitter.fit(
-            src, uvs, ds, torch.Generator().manual_seed(1),
-            n_steps=PROFILE_ITERS, params0=params), PROFILE_ITERS)
-        print(f"[joint] profile over {PROFILE_ITERS} iterations ({card}): "
-              f"{prof}", flush=True)
-    except RuntimeError as e:   # the profiler is optional here
-        prof = None
-        print(f"[joint] profile: not measured ({e})", flush=True)
+    prof = _busy_share(lambda: fitter.fit(
+        src, uvs, ds, torch.Generator().manual_seed(1),
+        n_steps=PROFILE_ITERS, params0=params), PROFILE_ITERS,
+        named=("topk_select",))
+    print(f"[joint] profile over {PROFILE_ITERS} iterations ({card}): "
+          f"{prof}", flush=True)
     return {"counts": counts, "it_s_events": iters / events_s,
             "it_s_wall": iters / wall_s, "sil": [sil0, sil1],
             "rgb": [rgb0, rgb1], "chamfer": [c0, c1],
@@ -1326,15 +1467,11 @@ def points_phase(device, card: str) -> dict:
     print(f"[points] main path launches {counts}; peak device memory "
           f"{peak_gb:.3f} GiB", flush=True)
 
-    try:
-        prof = _busy_share(lambda: [grad_step(auto)
-                                    for _ in range(PROFILE_ITERS)],
-                           PROFILE_ITERS, top=8)
-        print(f"[points] alpha grad-step profile over {PROFILE_ITERS} steps "
-              f"({card}): {prof}", flush=True)
-    except RuntimeError as e:   # the profiler is optional here
-        prof = None
-        print(f"[points] profile: not measured ({e})", flush=True)
+    prof = _busy_share(lambda: [grad_step(auto)
+                                for _ in range(PROFILE_ITERS)],
+                       PROFILE_ITERS, top=8)
+    print(f"[points] alpha grad-step profile over {PROFILE_ITERS} steps "
+          f"({card}): {prof}", flush=True)
     set_budget_check_default(None)
     return {"counts": counts, "kernel": kern, "runs": runs, "rim": rim,
             "budgets": bud, "peak_gb": peak_gb, "profile": prof}
@@ -1417,10 +1554,49 @@ def _untile_backward_check(device) -> dict:
     return {"err": err, "spread": spread, "tol": tol}
 
 
+def untile_check(tag: str, bins, fields: dict, image_size, tile: int,
+                 card: str):
+    """untile_scatter on each Fragments field of one binned raster against
+    its plain version (equal), timed by events, the profiler and the plain
+    version, with its bound: the active rows it copies, the slot table and
+    the image written once. Returns ({field: record}, tiles that copy)."""
+    from torch_renderer_tpu_torch.rasterize import cuda_untile
+
+    A = bins.invrank.shape[1]
+    table = cuda_untile.tile_slot_table(bins.rank, A, bins.n_tiles_hw)
+    n_read = int((table < A).sum())          # tiles that copy an active row
+    untile = {}
+    for name, (v, bg) in fields.items():
+        rows = v.reshape(v.shape[:3] + (-1,))
+        args = (rows, table, bg, image_size, tile, bins.n_tiles_hw)
+        img_k = cuda_untile.untile_scatter_fwd(*args)
+        img_p = cuda_untile.untile_scatter_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(img_k, img_p):
+            raise AssertionError(f"untile_scatter ({tag}, {name}) disagrees "
+                                 "with its plain version")
+        es, C = rows.element_size(), rows.shape[3]
+        untile[name] = {
+            "shape": list(rows.shape), "dtype": str(rows.dtype),
+            "strides": list(rows.stride()),
+            "ms": time_ms(lambda: cuda_untile.untile_scatter_fwd(*args)),
+            "device_ms": device_ms(
+                lambda: cuda_untile.untile_scatter_fwd(*args),
+                "untile_kernel"),
+            "plain_ms": time_ms(
+                lambda: cuda_untile.untile_scatter_reference(*args)),
+            **bound(n_read * tile ** 2 * C * es + table.numel() * 4
+                    + img_k.numel() * es, 0)}
+        print(f"[untile] {tag}: untile_scatter {name} at rows "
+              f"{untile[name]['shape']} {rows.dtype}: equal to plain; "
+              f"{untile[name]} ({card})", flush=True)
+    return untile, n_read
+
+
 def batch_phase(device, card: str) -> dict:
     import torch_renderer_tpu_torch as trt
     from torch_renderer_tpu_torch.apps import batch_render_bench
-    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_untile
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
     from torch_renderer_tpu_torch.rasterize.binning import (
         set_budget_check_default,
         slot_faces,
@@ -1503,36 +1679,11 @@ def batch_phase(device, card: str) -> dict:
         ch = torch.cat([inp.planes, fid.expand(BATCH_CHUNK, F)[..., None]],
                        dim=-1)
         gather = gather_check("720p call slab", idx, ch, card, bwd=False)
+        k1 = hard_k1_check("720p call slab", inp, st, card)
         bins, fields = cuda_hard.binned_tile_fields(fd, st)
-    A = bins.invrank.shape[1]
-    table = cuda_untile.tile_slot_table(bins.rank, A, bins.n_tiles_hw)
-    n_read = int((table < A).sum())          # tiles that copy an active row
-    untile = {}
-    for name, (v, bg) in fields.items():
-        rows = v.reshape(v.shape[:3] + (-1,))
-        args = (rows, table, bg, BATCH_SIZE, BATCH_TILE, bins.n_tiles_hw)
-        img_k = cuda_untile.untile_scatter_fwd(*args)
-        img_p = cuda_untile.untile_scatter_reference(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(img_k, img_p):
-            raise AssertionError(f"untile_scatter ({name}) disagrees with "
-                                 "its plain version")
-        es, C = rows.element_size(), rows.shape[3]
-        untile[name] = {
-            "shape": list(rows.shape), "dtype": str(rows.dtype),
-            "strides": list(rows.stride()),
-            "ms": time_ms(lambda: cuda_untile.untile_scatter_fwd(*args)),
-            "device_ms": device_ms(
-                lambda: cuda_untile.untile_scatter_fwd(*args),
-                "untile_kernel"),
-            "plain_ms": time_ms(
-                lambda: cuda_untile.untile_scatter_reference(*args)),
-            **bound(n_read * BATCH_TILE ** 2 * C * es + table.numel() * 4
-                    + img_k.numel() * es, 0)}
-        print(f"[batch] untile_scatter {name} at rows {untile[name]['shape']}"
-              f" {rows.dtype}: equal to plain; {untile[name]} ({card})",
-              flush=True)
-    del img_k, img_p, fields
+    untile, n_read = untile_check("720p call", bins, fields, BATCH_SIZE,
+                                  BATCH_TILE, card)
+    del fields
 
     with torch.no_grad():
         call_ms = {}
@@ -1546,23 +1697,19 @@ def batch_phase(device, card: str) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    try:
-        with torch.no_grad():
-            prof = _busy_share(lambda: [rp.render(batched, R, t)
-                                        for _ in range(PROFILE_ITERS)],
-                               PROFILE_ITERS, top=8)
-        print(f"[batch] profile of {PROFILE_ITERS} {BATCH_CHUNK}-view calls "
-              f"({card}): {prof}", flush=True)
-    except RuntimeError as e:   # the profiler is optional here
-        prof = None
-        print(f"[batch] profile: not measured ({e})", flush=True)
+    with torch.no_grad():
+        prof = _busy_share(lambda: [rp.render(batched, R, t)
+                                    for _ in range(PROFILE_ITERS)],
+                           PROFILE_ITERS, top=8)
+    print(f"[batch] profile of {PROFILE_ITERS} {BATCH_CHUNK}-view calls "
+          f"({card}): {prof}", flush=True)
     peak_call = torch.cuda.max_memory_allocated() / 2**30
     print(f"[batch] peak device memory over the profiled calls "
           f"{peak_call:.3f} GiB ({card})", flush=True)
     set_budget_check_default(None)
     return {"app": app, "counts": counts, "per_call": per_call,
             "gather": gather, "untile": untile, "n_read": n_read,
-            "grad": grad, "call_ms": call_ms, "profile": prof,
+            "grad": grad, "call_ms": call_ms, "profile": prof, "hard_k1": k1,
             "peak_app_gb": peak_app, "peak_call_gb": peak_call}
 
 
@@ -1587,9 +1734,18 @@ def main() -> None:
     _build.load_kernels()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s -> {lib_path}", flush=True)
-    print((lib_path.parent / "build.log").read_text(), flush=True)
+    log = (lib_path.parent / "build.log").read_text()
+    print(log, flush=True)
+    ptxas = ptxas_report(log)
+    for k, v in ptxas.items():
+        if k.startswith(("soft_coverage_bwd_kernel", "topk_select")):
+            print(f"ptxas {k}: {v.get('registers')} registers, "
+                  f"{v.get('smem')} bytes static smem, spill stores "
+                  f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
+                  "bytes", flush=True)
 
     soft_gather, kernels = soft_phase(device, card)
+    kernels[1]["ptxas"] = ptxas.get("soft_coverage_bwd_kernel")
     hard = hard_phase(device, card)
     fits = {route: pose_fit_phase(device, card, route)
             for route in ("fragments", "pallas")}
@@ -1607,8 +1763,14 @@ def main() -> None:
          "also_replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:611",
          "launches": fits["pallas"]["counts"]["hard_k1"],
          "max_abs_err": h1["max_abs_err"], "ms": h1["ms"],
-         "device_ms": h1["device_ms"], "plain_ms": h1["plain_ms"], "bound_ms": h1["bound_ms"],
-         "bound_by": h1["bound_by"], "library_ms": None},
+         "device_ms": h1["device_ms"], "plain_ms": h1["plain_ms"],
+         "bound_ms": h1["bound_ms"], "bound_by": h1["bound_by"],
+         "bound_every_pair_ms": h1["bound_every_pair_ms"],
+         "library_ms": None,
+         "depth_call": {k: batch["hard_k1"][k] for k in (
+             "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_every_pair_ms", "box_pairs", "pairs", "diff_px")},
+         "launches_depth_app": batch["counts"]["hard_k1"]},
         {"name": "topk_select", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:237",
          "launches": joint["counts"]["topk_select"],
@@ -1619,12 +1781,24 @@ def main() -> None:
          "plain_ms": joint["topk"]["plain_ms"],
          "bound_ms": joint["topk"]["bound_ms"],
          "bound_by": joint["topk"]["bound_by"], "library_ms": None,
+         "bound_every_pair_ms": joint["topk"]["bound_every_pair_ms"],
+         "box_pairs": {"k8_joint": joint["topk"]["box_pairs"],
+                       "k4": k4["box_pairs"], "k50": k50["box_pairs"]},
+         "pairs": {"k8_joint": joint["topk"]["pairs"],
+                   "k4": k4["pairs"], "k50": k50["pairs"]},
          "k4_ms": k4["ms"], "k4_device_ms": k4["device_ms"],
          "k4_plain_ms": k4["plain_ms"],
-         "k4_bound_ms": k4["bound_ms"],
+         "k4_bound_ms": k4["bound_ms"], "k4_bound_by": k4["bound_by"],
+         "k4_bound_every_pair_ms": k4["bound_every_pair_ms"],
          "k50_ms": k50["ms"], "k50_device_ms": k50["device_ms"],
          "k50_plain_ms": k50["plain_ms"],
-         "k50_bound_ms": k50["bound_ms"]},
+         "k50_bound_ms": k50["bound_ms"], "k50_bound_by": k50["bound_by"],
+         "k50_bound_every_pair_ms": k50["bound_every_pair_ms"],
+         "diff_px": {"k8_joint": joint["topk"]["diff_px"],
+                     "k4": k4["diff_px"], "k50": k50["diff_px"]},
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("topk_select")},
+         "pose_fit_profile": fits["fragments"]["profile"]},
     ]
     source = "torch_renderer_tpu_torch/csrc/texsample.cu"
     t = tex["times"]
@@ -1697,7 +1871,14 @@ def main() -> None:
          "bound_ms": sum(r["bound_ms"] for r in u), "bound_by": "bytes",
          "library_ms": None, "per_call_of": "the 4 fields of one 12-view "
          "720p call", "fields_ms": {n: r["ms"] for n, r in
-                                    batch["untile"].items()}})
+                                    batch["untile"].items()},
+         "launches_fits": {r: f["counts"]["untile_scatter"]
+                           for r, f in fits.items()},
+         "fits_shape": {k: sum(r[k] for r in hard["untile"].values())
+                        if None not in [r[k] for r in hard["untile"].values()]
+                        else None
+                        for k in ("ms", "device_ms", "plain_ms",
+                                  "bound_ms")}})
     app = batch["app"]
     print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
           f"batched, {app['serial_images_per_s']:.1f} serial; one call "

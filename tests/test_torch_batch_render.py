@@ -113,7 +113,15 @@ def test_app_configuration_matches_jax(scene):
     np.testing.assert_allclose(ps[~off], js[~off], rtol=0, atol=1e-4)
 
 
-def test_main_runs_on_cpu(capsys):
+@pytest.fixture
+def app_budget_default():
+    """The app sets the process-wide budget-check default for its run; put
+    the default (None) back, so later tests in this process see it."""
+    yield
+    pb.set_budget_check_default(None)
+
+
+def test_main_runs_on_cpu(capsys, app_budget_default):
     out = batch_render_bench.main([
         "--device", "cpu", "--n-views", "4", "--view-chunk", "2",
         "--height", "72", "--width", "128", "--reps", "1"])

@@ -51,11 +51,16 @@ def _slabs(seed, B, A, K, tile, device, inv_s=1.0 / 16):
             torch.tensor(count, dtype=torch.int32, device=device))
 
 
-# K=300 streams three shared-memory chunks in the forward and loops the
-# backward's threads over slots; tile=32 is the 1024-thread maximum.
+# K=300 and K=150 stream several shared-memory chunks (counts above 128);
+# counts are random, so mostly not multiples of the backward's 8 warps;
+# tiles 8, 16 and 32 give its lanes 2, 8 and 32 pixels each, tile 4 leaves
+# half of each warp's lanes idle; tile=32 is the forward's 1024-thread
+# maximum.
+# _slabs makes tile (0, 0) full and the last tile empty.
 @pytest.mark.parametrize("B,A,K,tile,sigma", [
     (2, 3, 5, 4, 1e-3), (2, 7, 64, 8, 1e-4), (1, 5, 300, 16, 1e-4),
-    (3, 2, 40, 32, 1e-4),
+    (3, 2, 40, 32, 1e-4), (2, 4, 13, 16, 1e-4), (2, 3, 150, 8, 1e-3),
+    (1, 3, 150, 32, 1e-4),
 ])
 def test_kernels_match_plain(device, B, A, K, tile, sigma):
     q, count = _slabs(0, B, A, K, tile, device)
@@ -76,6 +81,8 @@ def test_kernels_match_plain(device, B, A, K, tile, sigma):
     torch.testing.assert_close(dq, dq_ref, rtol=0,
                                atol=1e-3 * float(dq_ref.abs().max()))
     assert (S[-1, -1] == 0).all() and (dq[-1, -1] == 0).all()
+    dead = torch.arange(K, device=device) >= count[..., None]   # (B, A, K)
+    assert bool((dq[dead] == 0).all())
 
 
 def test_fused_path_matches_cpu(device):
@@ -174,20 +181,31 @@ def test_hard_k1_matches_plain(device, B, A, F, tile, blur, clip):
     assert bool((out[-1, -1] == empty).all())
 
 
-@pytest.mark.parametrize("K,blur", [(1, 0.0), (4, 9.21e-4), (50, 1e-4),
-                                    (64, 1e-3)])
-def test_topk_select_matches_plain(device, K, blur):
+# tests/test_torch_topk_split.py's slabs: faces with corners and edges on
+# pixel centres, faces smaller than a pixel, slivers (the cull's slack),
+# duplicated faces and equal-depth planes (ties), 150 candidates (two
+# staging chunks) and an empty tile; tiles 8, 16 and 32 give 16, 4 and 1
+# thread groups per pixel for K <= 16, and at tiles 25 and 32 with K > 25
+# two or four blocks share a tile (at 25 the last block's last threads hold
+# no pixel).
+@pytest.mark.parametrize("blur", [0.0, 1e-4, 9.21e-4])
+@pytest.mark.parametrize("K", [1, 4, 8, 16, 32, 50, 64])
+@pytest.mark.parametrize("tile", [8, 16, 25, 32])
+def test_topk_select_matches_plain(device, tile, K, blur):
+    from test_torch_topk_split import INV_S, topk_slabs
+
     from torch_renderer_tpu_torch.rasterize import cuda_hard
 
-    slab, count, origin = _hard_slabs(1, 2, 6, 150, 16, device)
-    args = (slab, count, origin, K, 16, 1.0 / 16, blur, 1e-5)
+    slab, count, origin = (t.to(device) for t in topk_slabs(
+        tile + K, 2, 6, 150, tile))
+    args = (slab, count, origin, K, tile, INV_S, blur, 1e-5)
     before = cuda_hard.TOPK_LAUNCHES
     lane = cuda_hard.topk_select(*args)
     torch.cuda.synchronize()
     assert cuda_hard.TOPK_LAUNCHES == before + 1
     ref = cuda_hard.topk_select_reference(*args)
-    assert lane.shape == ref.shape == (2, 6, K, 256)
-    prio = cuda_hard._priority(slab, count, origin, 16, 1.0 / 16, blur, 1e-5)
+    assert lane.shape == ref.shape == (2, 6, K, tile * tile)
+    prio = cuda_hard._priority(slab, count, origin, tile, INV_S, blur, 1e-5)
     _equal_or_ties(lane, ref, prio)
     assert bool((lane[-1, -1] == -1).all())
 

@@ -38,6 +38,7 @@ from torch_renderer_tpu_torch.ops.sample_points import (
     sample_points_from_meshes,
 )
 from torch_renderer_tpu_torch.opt import deform_color as pdc
+from torch_renderer_tpu_torch.rasterize.binning import set_budget_check_default
 from torch_renderer_tpu_torch.structures import textures as ptex
 
 IMAGE = (48, 48)
@@ -239,7 +240,15 @@ def test_default_config_geometry_converges(scene):
     assert c1 < 0.5 * c0, f"chamfer {c0} -> {c1}"
 
 
-def test_app_runs(tmp_path, capsys):
+@pytest.fixture
+def app_budget_default():
+    """The app sets the process-wide budget-check default for its run; put
+    the default (None) back, so later tests in this process see it."""
+    yield
+    set_budget_check_default(None)
+
+
+def test_app_runs(tmp_path, capsys, app_budget_default):
     sil, rgb, params = app.main([
         "--device", "cpu", "--iters", "25", "--image-size", "48",
         "--level", "2", "--texture-size", "32", "--views", "6",

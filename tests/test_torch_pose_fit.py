@@ -28,6 +28,7 @@ from torch_renderer_tpu_torch import interop
 from torch_renderer_tpu_torch.apps import camera_pose_optimizer as app
 from torch_renderer_tpu_torch.cameras import look_at as plook
 from torch_renderer_tpu_torch.opt import pose_fit as ppose
+from torch_renderer_tpu_torch.rasterize.binning import set_budget_check_default
 from torch_renderer_tpu_torch.transforms import so3 as pso3
 
 IMG = 64
@@ -204,9 +205,17 @@ def test_object_pose_compose_matches_jax():
         atol=1e-6)
 
 
+@pytest.fixture
+def app_budget_default():
+    """The app sets the process-wide budget-check default for its run; put
+    the default (None) back, so later tests in this process see it."""
+    yield
+    set_budget_check_default(None)
+
+
 @pytest.mark.parametrize("extra", [[], ["--silhouette-impl", "pallas",
                                         "--sil-layout", "packed"]])
-def test_app_runs(extra, capsys):
+def test_app_runs(extra, capsys, app_budget_default):
     losses, ious, err0, err1 = app.main(
         ["--device", "cpu", "--iters", "3", "--image-size", "48",
          "--check-budgets", "off"]

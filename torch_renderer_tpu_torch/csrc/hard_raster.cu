@@ -113,21 +113,23 @@ __device__ __forceinline__ float edge_dist2(const Face& f, const float wx[3],
   return fmaxf(d2, 0.0f);
 }
 
-// Selection priority: zsel where the face covers the pixel, kInf elsewhere.
+// Selection priority: zsel where the face covers the pixel, kInf elsewhere
+// (zsel, and its divide, only for a covering pair: most pairs miss).
 __device__ __forceinline__ float priority(const Face& f, float px, float py,
                                           float blur, float znear) {
   float wx[3], wy[3], b[3];
   bary(f, px, py, wx, wy, b);
   const bool inside = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f;
+  bool cover = inside;
+  if (blur > 0.0f && !inside) cover = edge_dist2(f, wx, wy) < blur;
+  if (!cover) return kInf;
   const float r0 = fmaxf(b[0], 0.0f), r1 = fmaxf(b[1], 0.0f),
               r2 = fmaxf(b[2], 0.0f);
   const float den = fmaxf(
       add(add(mul(r0, f.invz[0]), mul(r1, f.invz[1])), mul(r2, f.invz[2])),
       1e-12f);
   const float zsel = dvd(add(add(r0, r1), r2), den);
-  bool cover = inside;
-  if (blur > 0.0f && !inside) cover = edge_dist2(f, wx, wy) < blur;
-  return (cover && zsel > znear) ? zsel : kInf;
+  return zsel > znear ? zsel : kInf;
 }
 
 __device__ __forceinline__ void stage_chunk(const float* __restrict__ st,
@@ -224,71 +226,259 @@ hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
   o[7 * tp] = (float)lane;
 }
 
+// The top-K kernel's cull box of a staged face: its screen bounding box
+// grown by a margin M past which no pixel can be covered, so a warp none of
+// whose pixels lies in the box skips the face and loses no winner (each
+// skipped pair would have had priority kInf). With eps = 2^-24, L the
+// longest edge (sqrt of the largest len2), A = |area2| and C the largest
+// |corner coordinate|:
+//   M = 1.001 * (sqrt(blur) * 1.002 + 4e-3 * L + 40 * eps * L^3 / A)
+//       + 4 * eps * C,
+// and no cull (M = inf) when A <= 4e-12 or A < 64 * eps * L^2, where the
+// computed orientation is not to be trusted. Why this is conservative for a
+// pixel P at distance D >= M - (the box's rounding) from the face:
+//  * inside: P lies outside some edge line by h >= D sin(theta_min / 2)
+//    >= D * A / (2 L^2) (in the region of a corner, the outward normals of
+//    its edges span the angle pi - theta). The computed edge function of
+//    that edge differs from the exact |g| h by at most 4.0001 eps |g| |w|
+//    (w, g rounded once each, two products and a difference), with |w| <=
+//    D + L, and the computed area2 is within 4 eps L^2 of the exact one,
+//    so its sign is right once A >= 64 eps L^2. Then the edge function
+//    keeps its sign, and inside is false, once D >= 10 eps L^3 / A.
+//  * blur band: the computed clamped segment distance, however t rounds
+//    within [0, 1], is at least D^2 - 10 eps (D + 2L)^2 (w and g rounded
+//    once each, then an expanded square), which is >= blur once
+//    D >= sqrt(blur) (1 + 2a) + 4aL with a = sqrt(10 eps) < 7.8e-4.
+//  * the box: 1.001 covers the rounding of M itself, and 4 eps C that of
+//    the corner coordinates minus M.
+// The box is staged as two bit masks over the tile: the rows whose pixel
+// y (the pixel formula, monotone in the row) lies in [y0, y1], and the
+// columns whose x lies in [x0, x1]. A pixel whose row or whose column is
+// not masked lies outside the box. A NaN box masks every row and column
+// (no cull); a NaN tile origin masks none, and then no pixel is covered.
+// tests/test_torch_topk_split.py cull_boxes copies this formula for its CPU
+// model of this kernel.
+struct __align__(8) Cull {
+  unsigned rows, cols;
+};
+
+__device__ __forceinline__ float grid_at(float o, int r, float inv_s) {
+  return add(o, mul((float)r, inv_s));
+}
+
+// Bit r (r < tile) set where lo <= grid_at(o, r) <= hi: an estimate of
+// the first and last such r, stepped to the exact ones.
+__device__ __forceinline__ unsigned grid_mask(float lo, float hi, float o,
+                                              float inv_s, int tile) {
+  const unsigned full = tile >= 32 ? 0xffffffffu : (1u << tile) - 1u;
+  if (!(lo <= hi) || !(inv_s > 0.0f)) return full;
+  int a = (int)fminf(fmaxf(ceilf((lo - o) / inv_s), 0.0f), (float)tile);
+  while (a > 0 && grid_at(o, a - 1, inv_s) >= lo) --a;
+  while (a < tile && grid_at(o, a, inv_s) < lo) ++a;
+  int b = (int)fminf(fmaxf(floorf((hi - o) / inv_s), -1.0f),
+                     (float)(tile - 1));
+  while (b < tile - 1 && grid_at(o, b + 1, inv_s) <= hi) ++b;
+  while (b >= 0 && grid_at(o, b, inv_s) > hi) --b;
+  if (a > b) return 0u;
+  return (unsigned)(((1ull << (b - a + 1)) - 1ull) << a);
+}
+
+__device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
+                                           float ox, float oy, float inv_s,
+                                           int tile) {
+  constexpr float kEps = 5.9604645e-08f;   // 2^-24
+  const float L2 = fmaxf(fmaxf(f.len2[0], f.len2[1]), f.len2[2]);
+  const float L = sqrtf(L2);
+  // area2 as load_face computes it (inv_area is 1 for a tiny area2)
+  const float area = fabsf(
+      sub(mul(sub(f.qx[1], f.qx[0]), sub(f.qy[2], f.qy[0])),
+          mul(sub(f.qy[1], f.qy[0]), sub(f.qx[2], f.qx[0]))));
+  float C = 0.0f;
+  float x0 = f.qx[0], x1 = f.qx[0], y0 = f.qy[0], y1 = f.qy[0];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    C = fmaxf(C, fmaxf(fabsf(f.qx[k]), fabsf(f.qy[k])));
+    x0 = fminf(x0, f.qx[k]);
+    x1 = fmaxf(x1, f.qx[k]);
+    y0 = fminf(y0, f.qy[k]);
+    y1 = fmaxf(y1, f.qy[k]);
+  }
+  float M = __int_as_float(0x7f800000);   // +inf: no cull
+  if (area > 4e-12f && area >= 64.0f * kEps * L2) {
+    M = 1.001f * (sqrt_blur * 1.002f + 4e-3f * L + 40.0f * kEps * L * L2 / area)
+        + 4.0f * kEps * C;
+  }
+  return {grid_mask(y0 - M, y1 + M, oy, inv_s, tile),
+          grid_mask(x0 - M, x1 + M, ox, inv_s, tile)};
+}
+
+// A thread's sorted list of (zsel, slot) entries, K of them, in shared
+// memory (entry j of thread t at j * stride + t: neighbouring threads on
+// neighbouring words). A candidate is pushed only when it is below the K-th
+// entry; it enters after every entry it is not below: with slots pushed in
+// ascending order that is the stable insertion, ties to the earlier slot,
+// and with LEX it is (zsel, slot) lexicographic order, as a merge needs.
+// Entries from `fill` on are empty (kInf, -1), so a push shifts only the
+// filled entries above it.
+struct TopkList {
+  float* z;
+  int* s;
+  int stride, K;
+  float kth = kInf;   // the K-th entry's z: the bar a candidate must beat
+  int kl = -1;        // and its slot
+  int fill = 0;       // entries filled
+
+  __device__ __forceinline__ void init() {
+    for (int j = 0; j < K; ++j) {
+      z[j * stride] = kInf;
+      s[j * stride] = -1;
+    }
+  }
+  template <bool LEX>
+  __device__ __forceinline__ void push(float cz, int cl) {
+    int j = min(fill, K - 1);
+    for (; j > 0; --j) {
+      const float pz = z[(j - 1) * stride];
+      const int ps = s[(j - 1) * stride];
+      if (!(cz < pz || (LEX && cz == pz && cl < ps))) break;
+      z[j * stride] = pz;
+      s[j * stride] = ps;
+    }
+    z[j * stride] = cz;
+    s[j * stride] = cl;
+    fill = min(fill + 1, K);
+    if (fill == K) {
+      kth = z[(K - 1) * stride];
+      kl = s[(K - 1) * stride];
+    }
+  }
+  __device__ __forceinline__ int slot(int j) const { return s[j * stride]; }
+};
+
+constexpr int kTopkChunk = 256;   // candidates staged per pass (top-K)
+constexpr int kStageBytes = kTopkChunk * (int)(sizeof(Cull) + sizeof(Face));
+constexpr int kMaxSmem = 232448;  // the most shared memory a block may opt into
+
+// The warp-uniform cull and the scan of one group's share of the tile's
+// candidates; returns with the list filled. The block's groups each hold
+// np pixels of the tile, from pixel pb on.
+__device__ __forceinline__ void topk_scan(
+    const float* __restrict__ st, int n, int S, int grp, int np, int pb,
+    int tile, float ox, float oy, float px, float py, float inv_s,
+    float blur, float znear, Cull* culls, Face* faces, TopkList& list) {
+  // This warp's rows and columns of the tile: all of them when the warp
+  // spans two groups.
+  unsigned wrows, wcols;
+  {
+    const int t0 = threadIdx.x & ~31;
+    const int t1 = min(t0 + 31, (int)blockDim.x - 1);
+    int c_lo = 0, c_hi = tile - 1, r_lo = 0, r_hi = tile - 1;
+    if (t0 / np == t1 / np) {
+      // a block's threads past the tile's last pixel (fewer than P, so
+      // never a whole warp) hold no row
+      const int p0 = pb + t0 % np, p1 = min(pb + t1 % np, tile * tile - 1);
+      r_lo = p0 / tile;
+      r_hi = p1 / tile;
+      if (r_lo == r_hi) {
+        c_lo = p0 % tile;
+        c_hi = p1 % tile;
+      }
+    }
+    wrows = (unsigned)(((1ull << (r_hi - r_lo + 1)) - 1ull) << r_lo);
+    wcols = (unsigned)(((1ull << (c_hi - c_lo + 1)) - 1ull) << c_lo);
+  }
+  for (int c0 = 0; c0 < n; c0 += kTopkChunk) {   // n is uniform in the block
+    const int m = min(kTopkChunk, n - c0);
+    __syncthreads();                             // previous chunk consumed
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      load_face(st + (long)(c0 + i) * kChannels, faces[i]);
+      culls[i] = cull_masks(faces[i], sqrtf(fmaxf(blur, 0.0f)), ox, oy,
+                            inv_s, tile);
+    }
+    __syncthreads();
+    for (int i = grp; i < m; i += S) {
+      const Cull c = culls[i];                   // one face for the warp
+      if (!(c.rows & wrows) || !(c.cols & wcols)) continue;
+      const float cz = priority(faces[i], px, py, blur, znear);
+      if (cz < list.kth) list.push<false>(cz, c0 + i);
+    }
+  }
+}
+
 // Replaces torch_renderer_tpu/rasterize/pallas_hard.py _topk_select_kernel
 // (reached through _tile_topk_reinterp).
-// Bound: arithmetic, like hard_k1, plus a KMAX-step insertion per covering
-// candidate (few candidates cover a pixel: ~K of them). Design: as
-// hard_k1, with a per-thread sorted list of (zsel, slot) of KMAX entries in
-// registers (statically indexed, unrolled; a runtime K <= KMAX uses the
-// first K). A candidate enters only below the K-th entry, at the first
-// entry it is strictly below, shifting the rest: ties keep the earlier
-// slot, the JAX kernel's first-lane rule. The TPU kernel's K extraction
-// passes over a (pixel, face) priority slab become this one pass.
-template <int KMAX>
+// Bound: arithmetic (a priority per (pixel, candidate) pair, four IEEE
+// divides in the blur band) and latency: a level-4 face covers a few of a
+// tile's pixels, so almost every pair is a miss, and one thread per pixel
+// walking every candidate leaves most of the SM idle. Design, per block =
+// (batch, active tile):
+//  * S thread groups per pixel: the largest power of two with
+//    S * tile^2 <= 1024 whose lists fit in shared memory (4 at tile 16 for
+//    K <= 16, 2 for K = 50, 1 at tile 32). Where even one group's lists
+//    do not fit (tile 32 with K > 25), P blocks (gridDim.z) share the
+//    tile, each with one group over tile^2 / P of its pixels. The tile's
+//    candidates stream through shared memory in chunks with their per-face
+//    constants and cull masks; group s takes chunk entries s, s + S, ...
+//    (ascending slot order within a group, balanced shares) and keeps its
+//    sorted list of K (zsel, slot) entries in shared memory (TopkList): no
+//    list in registers, so nothing spills, and the list is only touched by
+//    a candidate that beats the K-th entry (kept in a register).
+//  * Warp-uniform cull: a warp's threads share a group, and their pixels
+//    some rows and columns of the tile (two full rows at tile 16, one at
+//    tile 32); the warp skips a face none of whose masked rows or none of
+//    whose masked columns (above) it holds, without evaluating it.
+//  * Merge: a tree over the groups: at each level each group of the lower
+//    half inserts its partner's entries in (zsel, slot) lexicographic
+//    order, stopping at the first that does not enter. That order is the
+//    one the stable sequential insertion produces, so the K winners are the
+//    same; group 0 writes them.
+// The TPU kernel's K extraction passes over a (pixel, face) priority slab
+// become this one pass.
 __global__ void __launch_bounds__(kMaxPixels)
 topk_select_kernel(const float* __restrict__ slab,
                    const int* __restrict__ count,
                    const float* __restrict__ origin, int* __restrict__ lane,
                    int A, int F, int K, int tile, float inv_s, float blur,
                    float znear) {
-  __shared__ Face faces[kChunk];
+  extern __shared__ float4 smem[];   // staging, then each thread's list
+  Cull* culls = reinterpret_cast<Cull*>(smem);
+  Face* faces = reinterpret_cast<Face*>(culls + kTopkChunk);
+  const int nt = blockDim.x;
+  float* zl = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem) + kStageBytes);
+  int* sl = reinterpret_cast<int*>(zl + nt * K);
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], F));
   const int tp = tile * tile;
-  const int p = threadIdx.x;
-  const float px = add(origin[2 * cell], mul((float)(p % tile), inv_s));
-  const float py = add(origin[2 * cell + 1], mul((float)(p / tile), inv_s));
-  const float* st = slab + cell * F * kChannels;
-
-  float zs[KMAX];
-  int ls[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    zs[j] = kInf;
-    ls[j] = -1;
-  }
-  float kth = kInf;   // the K-th entry's z: the bar a candidate must beat
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    const int m = min(kChunk, n - c0);
-    __syncthreads();
-    stage_chunk(st, c0, m, faces);
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      float cz = priority(faces[i], px, py, blur, znear);
-      if (!(cz < kth)) continue;
-      int cl = c0 + i;
-      bool moved = false;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < K && (moved || cz < zs[j])) {
-          const float tz = zs[j];
-          const int tl = ls[j];
-          zs[j] = cz;
-          ls[j] = cl;
-          cz = tz;
-          cl = tl;
-          moved = true;
-        }
-        if (j == K - 1) kth = zs[j];
+  const int np = (tp + gridDim.z - 1) / gridDim.z;   // this block's pixels
+  const int pb = blockIdx.z * np;
+  const int S = nt / np;
+  const int t = threadIdx.x;
+  const int grp = t / np, p = pb + t % np;
+  const float ox = origin[2 * cell], oy = origin[2 * cell + 1];
+  TopkList list{zl + t, sl + t, nt, K};
+  list.init();
+  topk_scan(slab + cell * F * kChannels, n, S, grp, np, pb, tile, ox, oy,
+            grid_at(ox, p % tile, inv_s), grid_at(oy, p / tile, inv_s),
+            inv_s, blur, znear, culls, faces, list);
+  // tree merge of the S groups' lists of each pixel
+  for (int half = S / 2; half >= 1; half /= 2) {
+    __syncthreads();                             // the partners' lists done
+    if (grp < half) {
+      const int q = t + half * np;               // the partner thread
+      for (int j = 0; j < K; ++j) {
+        const float cz = zl[j * nt + q];
+        const int cl = sl[j * nt + q];
+        // the partner's list is sorted: the first entry that does not
+        // enter ends it
+        if (!(cz < list.kth || (cz == list.kth && cl < list.kl))) break;
+        list.push<true>(cz, cl);
       }
     }
   }
-  if (p >= tp) return;
+  if (grp != 0 || p >= tp) return;
   int* o = lane + cell * K * tp + p;
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < K) o[(long)j * tp] = ls[j];
-  }
+  for (int j = 0; j < K; ++j) o[(long)j * tp] = list.slot(j);
 }
 
 int check_shape(int B, int A, int F, int tile) {
@@ -299,13 +489,10 @@ int check_shape(int B, int A, int F, int tile) {
   return 0;
 }
 
-template <int KMAX>
-void launch_topk(dim3 grid, int threads, cudaStream_t stream,
-                 const float* slab, const int* count, const float* origin,
-                 int* lane, int A, int F, int K, int tile, float inv_s,
-                 float blur, float znear) {
-  topk_select_kernel<KMAX><<<grid, threads, 0, stream>>>(
-      slab, count, origin, lane, A, F, K, tile, inv_s, blur, znear);
+// Shared memory of a top-K block of nt threads: the staging buffer and
+// each thread's K entries of 8 bytes.
+long topk_smem(int nt, int K) {
+  return kStageBytes + (long)nt * K * (sizeof(float) + sizeof(int));
 }
 
 }  // namespace
@@ -337,25 +524,30 @@ int trt_topk_select(const float* slab, const int* count, const float* origin,
   if (K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
   err = (int)cudaSetDevice(device);
   if (err) return err;
-  const dim3 grid(A, B);
-  const int threads = tile * tile;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (K <= 4) {
-    launch_topk<4>(grid, threads, s, slab, count, origin, lane, A, F, K,
-                   tile, inv_s, blur, znear);
-  } else if (K <= 8) {
-    launch_topk<8>(grid, threads, s, slab, count, origin, lane, A, F, K,
-                   tile, inv_s, blur, znear);
-  } else if (K <= 16) {
-    launch_topk<16>(grid, threads, s, slab, count, origin, lane, A, F, K,
-                    tile, inv_s, blur, znear);
-  } else if (K <= 32) {
-    launch_topk<32>(grid, threads, s, slab, count, origin, lane, A, F, K,
-                    tile, inv_s, blur, znear);
-  } else {
-    launch_topk<kMaxK>(grid, threads, s, slab, count, origin, lane, A, F, K,
-                       tile, inv_s, blur, znear);
+  // P blocks per tile, each over np of its pixels: the fewest whose lists
+  // fit in shared memory (np >= 256 fits K = 64); then S groups per pixel:
+  // the most (a power of two) that 1024 threads and shared memory allow
+  const int tp = tile * tile;
+  int P = 1;
+  while (topk_smem((tp + P - 1) / P, K) > kMaxSmem) P *= 2;
+  const int np = (tp + P - 1) / P;
+  int S = 1;
+  while (2 * S * np <= kMaxPixels && topk_smem(2 * S * np, K) <= kMaxSmem) {
+    S *= 2;
   }
+  // above 48 KB a block's dynamic shared memory needs an opt-in, once per
+  // device (setting it twice is harmless)
+  static bool opted[64];
+  if (device < 0 || device >= 64 || !opted[device]) {
+    err = (int)cudaFuncSetAttribute(
+        topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err) return err;
+    if (device >= 0 && device < 64) opted[device] = true;
+  }
+  topk_select_kernel<<<dim3(A, B, P), S * np, topk_smem(S * np, K),
+                       (cudaStream_t)stream>>>(
+      slab, count, origin, lane, A, F, K, tile, inv_s, blur, znear);
   return (int)cudaGetLastError();
 }
 

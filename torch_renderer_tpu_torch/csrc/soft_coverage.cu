@@ -22,7 +22,8 @@ namespace {
 
 constexpr int kMaxPixels = 1024;   // one forward thread per pixel
 constexpr int kChunk = 128;        // candidates staged per shared-memory pass
-constexpr int kBwdThreads = 128;   // backward: one thread per candidate slot
+constexpr int kBwdThreads = 256;   // backward: 8 warps, a slot each at a time
+constexpr int kBwdWarps = kBwdThreads / 32;
 
 // Per-face constants, hoisted out of the (pixel, face) loop: the divide
 // happens once per face and edge, never per pair.
@@ -121,77 +122,113 @@ soft_coverage_fwd_kernel(const float* __restrict__ q,
   if (p < tp) S[cell * tp + p] = acc;
 }
 
+// Adds one (pixel, face) pair's dS/d(corners), contracted with the pixel's
+// cotangent gp, to out. dS/d(signed) = sigmoid(x) * (-1/sigma), with
+// d(signed)/d(d2) = -1 inside and +1 outside; each edge tied at the
+// minimum takes an even share of d(d2). With t held fixed and
+// u = w - t g the edge's offset from its foot point, dd = |u|^2 gives
+//   d(dd)/d(a) = -2 (1 - t) u,   d(dd)/d(b) = -2 t u
+// for its corners a and b. Written without branches: every edge's terms
+// are computed and scaled by its share (0 off the minimum), as the lanes
+// of a warp seldom agree on the nearest edge.
+__device__ __forceinline__ void pair_grad(const Face& f, float px, float py,
+                                          float gp, float inv_sigma,
+                                          float (&out)[6]) {
+  Pair r;
+  const float x = -signed_d2(f, px, py, r) * inv_sigma;
+  const float sig = 1.0f / (1.0f + expf(-x));
+  const float alpha = gp * sig * (-inv_sigma) * (r.inside ? -1.0f : 1.0f);
+  const bool m0 = r.dd[0] <= r.d2;
+  const bool m1 = r.dd[1] <= r.d2;
+  const bool m2 = r.dd[2] <= r.d2;
+  const int ties = (int)m0 + (int)m1 + (int)m2;
+  const float an =
+      alpha * (ties <= 1 ? 1.0f : (ties == 2 ? 0.5f : 1.0f / 3.0f));
+  const bool me[3] = {m0, m1, m2};
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const float k = me[e] ? 2.0f * an : 0.0f;
+    const float t = r.t[e];
+    const float ux = r.wx[e] - t * f.gx[e];
+    const float uy = r.wy[e] - t * f.gy[e];
+    const float ca = k * (t - 1.0f);   // corner a = e
+    const float cb = -k * t;           // corner b = (e + 1) % 3
+    const int a = e, b = (e + 1) % 3;
+    out[2 * a] += ca * ux;
+    out[2 * a + 1] += ca * uy;
+    out[2 * b] += cb * ux;
+    out[2 * b + 1] += cb * uy;
+  }
+}
+
 // Replaces torch_renderer_tpu/rasterize/pallas_soft.py _bwd_kernel_packed
-// (bench route) and _bwd_kernel (lane route), both built on _moment_dq.
-// Bound: arithmetic, like the forward (plus a sigmoid per pair). Design:
-// one block per active tile, one thread per candidate slot. The tile's
-// cotangent row sits in shared memory and every thread walks all pixels,
-// keeping its six corner gradients in registers, so each slot's sum has a
+// (bench route) and _bwd_kernel (lane route), both built on _moment_dq, and
+// the sublane route's _bwd_kernel_t.
+// Bound: arithmetic, like the forward (plus a sigmoid and a divide per
+// pair); a tile reads its candidates' 24 bytes and its cotangent row once.
+// Design: one block of kBwdThreads (8 warps) per active tile. The tile's
+// cotangent row, its pixel coordinates and, chunk by chunk, its candidates'
+// per-face constants (load_face) are staged in shared memory. Warps take
+// slots (warp w: slots w, w + 8, ...) and lanes take pixels (lane l:
+// pixels l, l + 32, ..., so tile^2 / 32 each); each lane keeps the six
+// corner partials of its pixels in registers, and a fixed-order
+// __shfl_xor_sync butterfly sums them across the warp, whose lane 0 writes
+// the slot's row. So the serial chain of a lane is tile^2 / 32 pairs per
+// slot it visits, not tile^2 pairs per slot, and a block keeps 8 warps in
+// flight however few candidates its tile holds. Each slot still has a
 // single writer: no atomics, and the result does not depend on scheduling.
 // The per-pixel product form replaces the TPU's moment form, which existed
 // to save vector ops on that chip; both give the same gradient. The scatter
-// from slots back to faces is not here: it is autograd's scatter-add of the
-// slot gather.
+// from slots back to faces is not here: it is the gather kernel's backward.
 __global__ void __launch_bounds__(kBwdThreads)
 soft_coverage_bwd_kernel(const float* __restrict__ q,
                          const int* __restrict__ count,
                          const float* __restrict__ g,
                          float* __restrict__ dq, int A, int K, int tile,
                          float inv_s, float inv_sigma) {
-  __shared__ float g_s[kMaxPixels];
+  __shared__ float g_s[kMaxPixels], px_s[kMaxPixels], py_s[kMaxPixels];
+  __shared__ Face faces[kChunk];
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], K));
   const int tp = tile * tile;
-  for (int p = threadIdx.x; p < tp; p += blockDim.x) g_s[p] = g[cell * tp + p];
-  __syncthreads();
-
+  for (int p = threadIdx.x; p < tp; p += blockDim.x) {
+    g_s[p] = g[cell * tp + p];
+    px_s[p] = (float)(p % tile) * inv_s;
+    py_s[p] = (float)(p / tile) * inv_s;
+  }
   const float* qt = q + cell * K * 6;
   float* dqt = dq + cell * K * 6;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (k < n) {
-      Face f;
-      load_face(qt + (long)k * 6, f);
-      for (int iy = 0; iy < tile; ++iy) {
-        const float py = (float)iy * inv_s;
-        for (int ix = 0; ix < tile; ++ix) {
-          const float px = (float)ix * inv_s;
-          Pair r;
-          const float x = -signed_d2(f, px, py, r) * inv_sigma;
-          // dS/d(signed) = sigmoid(x) * (-1/sigma); d(signed)/d(d2) = -1
-          // inside, +1 outside
-          const float sig = 1.0f / (1.0f + expf(-x));
-          const float alpha = g_s[iy * tile + ix] * sig * (-inv_sigma) *
-                              (r.inside ? -1.0f : 1.0f);
-          const bool m0 = r.dd[0] <= r.d2;
-          const bool m1 = r.dd[1] <= r.d2;
-          const bool m2 = r.dd[2] <= r.d2;
-          const int ties = (int)m0 + (int)m1 + (int)m2;
-          const float an =
-              alpha * (ties <= 1 ? 1.0f : (ties == 2 ? 0.5f : 1.0f / 3.0f));
-          const bool m[3] = {m0, m1, m2};
+  // slots at or beyond count get zeros
+  for (long i = (long)n * 6 + threadIdx.x; i < (long)K * 6; i += blockDim.x) {
+    dqt[i] = 0.0f;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c0 = 0; c0 < n; c0 += kChunk) {   // n is uniform in the block
+    const int m = min(kChunk, n - c0);
+    __syncthreads();                          // previous chunk consumed
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      load_face(qt + (long)(c0 + i) * 6, faces[i]);
+    }
+    __syncthreads();                          // also publishes g_s, px_s, py_s
+    for (int i = warp; i < m; i += kBwdWarps) {
+      const Face f = faces[i];
+      float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      for (int p = lane; p < tp; p += 32) {
+        pair_grad(f, px_s[p], py_s[p], g_s[p], inv_sigma, out);
+      }
+      // fixed-order butterfly: every lane ends with the same sums
 #pragma unroll
-          for (int e = 0; e < 3; ++e) {
-            if (!m[e]) continue;
-            // dd = |w - t g|^2 with t held fixed:
-            //   d(dd)/d(a) = -2(1-t)(w - t g), d(dd)/d(b) = -2t(w - t g)
-            const float t = r.t[e];
-            const float b2 = 2.0f * an;
-            const float ca = b2 * (t - 1.0f);
-            const float cg = b2 * t * (1.0f - t);
-            const float cbw = -b2 * t;
-            const float cbg = b2 * t * t;
-            const int a = e, b = (e + 1) % 3;
-            out[2 * a] += ca * r.wx[e] + cg * f.gx[e];
-            out[2 * a + 1] += ca * r.wy[e] + cg * f.gy[e];
-            out[2 * b] += cbw * r.wx[e] + cbg * f.gx[e];
-            out[2 * b + 1] += cbw * r.wy[e] + cbg * f.gy[e];
-          }
+      for (int c = 0; c < 6; ++c) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          out[c] += __shfl_xor_sync(0xffffffffu, out[c], off);
         }
       }
-    }
+      if (lane == 0) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) dqt[(long)k * 6 + c] = out[c];
+        for (int c = 0; c < 6; ++c) dqt[(long)(c0 + i) * 6 + c] = out[c];
+      }
+    }
   }
 }
 

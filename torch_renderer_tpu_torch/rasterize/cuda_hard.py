@@ -13,7 +13,11 @@ image with the empty-fragment background in tiles with no active slot
     interpolates it in-kernel (zbuf, perspective-correct barycentrics,
     signed boundary distance, global face id).
   * K > 1: ``topk_select`` keeps each pixel's K nearest covering faces, as
-    winner slots only; their values are re-derived in torch.
+    winner slots only; their values are re-derived in torch. The kernel
+    splits a tile's candidates among several thread groups per pixel,
+    skips a face for a warp whose pixels miss its conservatively grown
+    bounding box, and merges the groups' lists in (depth, slot) order:
+    the winners are those of one stable pass over the slots.
 
 A face covers a pixel when the pixel is inside it (or within squared
 distance blur of its boundary) and its selection z, interpolated with
