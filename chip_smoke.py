@@ -17,8 +17,10 @@ Drives, through the port's public entry points:
      blur 9.21e-4 and at K=50 with blur 1e-4. Winners must be identical,
      or differ only at selection-depth ties within 1e-6 on under 0.1% of
      covered pixels (the count of differing pixels is reported); values
-     within 1e-5; and untile_scatter on the K=4 raster's four fields, the
-     shape the fits launch it at, equal to its plain version;
+     within 1e-5; untile_scatter on the K=4 raster's four fields in one
+     launch, the shape the fits launch it at, equal to its plain version;
+     and the soft kernel pair against its plain versions at the pallas
+     route's silhouette slab (lane layout, tile 16, every tile active);
   C. the camera pose fit at the app's defaults (Adam lr 1e-3, 500
      iterations, RGB on, start translation perturbed by 0.1 * N(0, 1) from
      seed 0, budget checks off), through the default fragments route
@@ -27,8 +29,8 @@ Drives, through the port's public entry points:
      start, and per iteration exactly one topk_select and one
      gather_tiles_fwd launch (fragments), or one hard_k1, soft_coverage_fwd,
      soft_coverage_bwd and gather_tiles_bwd launch and two gather_tiles_fwd
-     launches (pallas); either route also four untile_scatter launches, one
-     per fragment field of its mesh raster. Then a 20-iteration profile of
+     launches (pallas); either route also one untile_scatter launch, for
+     the four fragment fields of its mesh raster. Then a 20-iteration profile of
      the fragments route (device ms per iteration, topk_select's share).
   D. the texture-sampling kernels against their plain versions at the joint
      fit's shapes: one 256x256x3 map shared by 2 views (batch stride 0),
@@ -48,7 +50,7 @@ Drives, through the port's public entry points:
      distance to the target (2000 points each, fixed generator) below 0.5x
      its start (the JAX package's tests/test_deform_color.py gates); per
      iteration exactly one texsample_fwd, texsample_bwd, topk_select and
-     gather_tiles_fwd launch, four untile_scatter launches and no other.
+     gather_tiles_fwd and untile_scatter launch and no other.
      Then topk_select at the fit's K=8 shapes against its plain version,
      and a torch.profiler window of 20 iterations (device busy share,
      kernels per iteration, topk_select's share).
@@ -76,14 +78,14 @@ Drives, through the port's public entry points:
      its defaults (120 look-at views of a normalized level-3 icosphere at
      1280x720, calls of 12 views, f = 0.9 * 720, bin 32, auto budgets,
      select_impl "affine", --check-budgets warn), which must launch per call
-     exactly one hard_k1, one gather_tiles_fwd and four untile_scatter (one
-     per fragment field) and nothing else. On one 12-view call: the
+     exactly one hard_k1, one gather_tiles_fwd and one untile_scatter (for
+     the four fragment fields) and nothing else. On one 12-view call: the
      launches of that call, the call through the untile kernel against the
      same call ending with the kernel's plain version, bit for bit (depth,
      silhouette and the four fields), gather_tiles_fwd and hard_k1 against
      their plain versions on the call's (12, A, Fmax, 13) slab (hard_k1 with
-     its bound) and untile_scatter on each of its four fields (equal), the call timed with either epilogue in
-     turns, a 20-call profile and the peak device memory; and the untile
+     its bound) and untile_scatter on its four fields in one launch (each
+     equal), the call timed with either epilogue in turns, a 20-call profile and the peak device memory; and the untile
      backward (K=4 blur fragments and the silhouette's vertex gradient at
      96^2, bin 16), the kernel's wrapper against the plain epilogue
      differentiated by autograd: fragments equal, gradients within 1e-5 of
@@ -98,16 +100,22 @@ or per point as the OPS constants below say; the gather pair and the untile
 kernel are copies, bound by bytes alone. The hard kernels' operations count
 the full priority only for pairs whose pixel lies in the face's bounding
 box grown by sqrt(blur) (the pairs it can cover) and a box test for every
-other live pair; their every-pair count, as the plain versions evaluate
+other live pair. The soft forward's count the full pair only where its
+term is not exactly +0.0, the edge math alone where it is and the pixel
+lies in the face's box grown by sqrt(104 sigma), and a box test for every
+other live pair. Their every-pair count, as the plain versions evaluate
 it, is reported beside it as bound_every_pair_ms. A library yardstick is
 one PyTorch call computing the same function where there is one:
 grid_sample for the texture pair, Tensor.gather plus the mask and
-scatter_add_ for the gather pair. Any failure raises (exit code 1). The second-to-last line is a JSON record of the kernels; the last line
-is {"ok": true, "device": {...}}.
+scatter_add_ for the gather pair, one torch.take per field for the untile
+kernel; each is timed by events and alone (the profiler's sum of every
+kernel of the call). Any failure raises (exit code 1). The second-to-last
+line is a JSON record of the kernels; the last line is
+{"ok": true, "device": {...}}.
 
 The build's -Xptxas -v report is printed in full, and the registers,
-shared memory and spills of soft_coverage_bwd_kernel and
-topk_select_kernel once more in a line each.
+shared memory and spills of the soft pair, topk_select_kernel and
+untile_kernel once more in a line each.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -157,6 +165,12 @@ FP32_OPS_PER_S = 67e12
 # priority with the blur band's edge distances.
 OPS_SOFT_FWD = 80
 OPS_SOFT_BWD = 100
+# Of the forward's 80, the softplus and its add to the sum (25 + 1): a pair
+# whose x = -signed d2 / sigma lies below SOFT_CUTOFF adds exactly +0.0 and
+# needs only the rest, its edge math.
+OPS_SOFTPLUS = 26
+OPS_SOFT_EDGE = OPS_SOFT_FWD - OPS_SOFTPLUS
+SOFT_CUTOFF = -104.0
 OPS_HARD_K1 = 35
 OPS_TOPK = 80
 # A (pixel, candidate) pair whose pixel lies outside the face's grown
@@ -269,24 +283,31 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, name: str, reps: int = TIMING_REPS):
+def device_ms(fn, name: str | None, reps: int = TIMING_REPS):
     """Mean device time per call of fn() of the kernels whose name holds
-    `name`, by torch.profiler: the kernel alone, where time_ms also sees
-    the host's launch cost when that is the longer. None if the profiler
-    records no such kernel."""
+    `name` (of every kernel in the window with None: a library call's),
+    by torch.profiler: the kernels alone, where time_ms also sees the
+    host's launch cost when that is the longer. A window that records no
+    device event at all (seen on the card once or twice a run) is profiled
+    again, up to three windows; None if the profiler still records no such
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
     us = [e.time_range.end - e.time_range.start for e in events
-          if name in e.name]
+          if name is None or name in e.name]
     if not us:
         print(f"device_ms({name}): no such kernel among "
               f"{sorted({e.name for e in events})}", flush=True)
@@ -346,12 +367,13 @@ def plain_epilogue():
     yardstick the kernel's epilogue is held against."""
     from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_untile
 
-    saved = cuda_hard.untile_scatter
-    cuda_hard.untile_scatter = cuda_untile.untile_scatter_reference
+    saved = cuda_hard.untile_scatter_fields
+    cuda_hard.untile_scatter_fields = \
+        cuda_untile.untile_scatter_fields_reference
     try:
         yield
     finally:
-        cuda_hard.untile_scatter = saved
+        cuda_hard.untile_scatter_fields = saved
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +387,8 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
     gradient (float32 atomics add a row's terms in an order that changes
     from run to run). Times by events and by the profiler; the library
     yardsticks are one Tensor.gather plus the mask (forward) and one
-    scatter_add_ (backward) on precomputed indices."""
+    scatter_add_ (backward) on precomputed indices, by events and by the
+    profiler (every kernel of the call: the mask and the zero fill too)."""
     from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
 
     B, T, S = idx.shape
@@ -399,6 +422,8 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
            "plain_ms": time_ms(lambda: cg.gather_tiles_reference(idx, table)),
            "library_ms": time_ms(lambda: torch.where(
                mask, table.gather(1, ids), 0.0)),
+           "library_device_ms": device_ms(lambda: torch.where(
+               mask, table.gather(1, ids), 0.0), None),
            **bound(B * T * S * isz + n_rows * C * 4 + B * T * S * C * 4, 0)}
     if bwd:
         gen = torch.Generator(device=idx.device).manual_seed(5)
@@ -424,6 +449,9 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
                 lambda: cg.gather_tiles_bwd_reference(idx, g, F)),
             "library_ms": time_ms(lambda: torch.zeros_like(table).scatter_add_(
                 1, ids, g_live)),
+            "library_device_ms": device_ms(
+                lambda: torch.zeros_like(table).scatter_add_(1, ids, g_live),
+                None),
             # the kernel reads g only at live slots
             **bound(B * T * S * isz + n_live * C * 4 + B * F * C * 4, 0)}
     print(f"[gather] {tag} ({card}): {rec}", flush=True)
@@ -450,6 +478,115 @@ def bench_scene(device):
     return meshes, cam
 
 
+def soft_fwd_bound(q, count, tile: int, inv_s: float,
+                   inv_sigma: float) -> dict:
+    """Bound of the soft forward on one slab: the live corners (24 bytes
+    each), count and the tile^2 outputs, each moved once; OPS_SOFT_FWD for
+    each live (pixel, face) pair whose term is not exactly +0.0 (x at or
+    above SOFT_CUTOFF), OPS_SOFT_EDGE for a pair below the cutoff whose
+    pixel lies in the face's screen box grown by sqrt(104 sigma), and
+    OPS_BOX for every other live pair: its distance from the face exceeds
+    that margin, which puts x below the cutoff by the box test alone.
+    bound_every_pair_ms charges OPS_SOFT_FWD to every live pair, as the
+    plain version evaluates them."""
+    from torch_renderer_tpu_torch.rasterize import cuda_soft
+
+    Bq, Aq, _, _ = q.shape
+    tp = tile * tile
+    signed, _, _, live, _ = cuda_soft._pair_terms(q, count, tile, inv_s)
+    full = live & (-signed * inv_sigma >= SOFT_CUTOFF)          # (B,A,P,K)
+    del signed
+    r = math.sqrt(-SOFT_CUTOFF / inv_sigma)
+    xoff, yoff = cuda_soft._pixel_offsets(tile, inv_s, q.device)
+
+    def near(c, off):
+        """(B, A, P, K): the pixel's coordinate within the grown span."""
+        lo = q[..., c:6:2].amin(-1)[..., None, :] - r
+        hi = q[..., c:6:2].amax(-1)[..., None, :] + r
+        return (off[:, None] >= lo) & (off[:, None] <= hi)
+
+    edge = live & ~full & near(0, xoff) & near(1, yoff)
+    n_live, n_full, n_edge = int(live.sum()) * tp, int(full.sum()), \
+        int(edge.sum())
+    del full, edge
+    n_bytes = int(count.sum()) * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4
+    every = bound(n_bytes, n_live * OPS_SOFT_FWD)
+    return {**bound(n_bytes, n_full * OPS_SOFT_FWD + n_edge * OPS_SOFT_EDGE
+                    + (n_live - n_full - n_edge) * OPS_BOX),
+            "pairs": n_live, "full_pairs": n_full, "edge_pairs": n_edge,
+            "bound_every_pair_ms": every["bound_ms"],
+            "bound_every_pair_by": every["bound_by"]}
+
+
+def soft_pair_check(tag: str, q, count, tile: int, inv_s: float,
+                    inv_sigma: float, card: str) -> dict:
+    """The soft kernel pair against its plain versions on one slab: the
+    forward within 1e-4 + 1e-5 max|S|, the backward within 1e-3 max|dq| on
+    a random cotangent; times by events, by the profiler and the plain
+    versions, and each kernel's bound (soft_fwd_bound; OPS_SOFT_BWD per
+    live pair)."""
+    from torch_renderer_tpu_torch.rasterize import cuda_soft
+
+    Bq, Aq, Kq, _ = q.shape
+    tp = tile * tile
+    g = torch.rand((Bq, Aq, tp), device=q.device)
+    print(f"[soft] {tag}: kernel shapes: q {tuple(q.shape)}, live "
+          f"candidates {int(count.sum())}, max per tile {int(count.max())}",
+          flush=True)
+    args = (q, count, tile, inv_s, inv_sigma)
+    S_k = cuda_soft.soft_coverage_fwd(*args)
+    S_p = cuda_soft.soft_coverage_fwd_reference(*args)
+    dq_k = cuda_soft.soft_coverage_bwd(q, count, g, tile, inv_s, inv_sigma)
+    dq_p = cuda_soft.soft_coverage_bwd_reference(q, count, g, tile, inv_s,
+                                                 inv_sigma)
+    torch.cuda.synchronize()
+    fwd_err = float((S_k - S_p).abs().max())
+    fwd_tol = 1e-4 + 1e-5 * float(S_p.abs().max())
+    bwd_err = float((dq_k - dq_p).abs().max())
+    # the kernel sums pixels in another order and form than the plain version
+    bwd_tol = 1e-3 * float(dq_p.abs().max())
+    print(f"[soft] {tag}: soft_coverage_fwd vs plain: max|dS| "
+          f"{fwd_err:.3e} (tol {fwd_tol:.3e}, max|S| "
+          f"{float(S_p.abs().max()):.3e})", flush=True)
+    print(f"[soft] {tag}: soft_coverage_bwd vs plain: max|ddq| "
+          f"{bwd_err:.3e} (tol {bwd_tol:.3e}, max|dq| "
+          f"{float(dq_p.abs().max()):.3e})", flush=True)
+    if not fwd_err <= fwd_tol:
+        raise AssertionError(f"soft_coverage_fwd ({tag}) disagrees with its "
+                             "plain version")
+    if not bwd_err <= bwd_tol:
+        raise AssertionError(f"soft_coverage_bwd ({tag}) disagrees with its "
+                             "plain version")
+    live = int(count.sum())
+    b_fwd = soft_fwd_bound(q, count, tile, inv_s, inv_sigma)
+    b_bwd = bound(live * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4
+                  + Bq * Aq * Kq * 24, live * tp * OPS_SOFT_BWD)
+    fwd = lambda: cuda_soft.soft_coverage_fwd(*args)  # noqa: E731
+    bwd = lambda: cuda_soft.soft_coverage_bwd(  # noqa: E731
+        q, count, g, tile, inv_s, inv_sigma)
+    out = {
+        "fwd": {"max_abs_err": fwd_err, "tol": fwd_tol, "ms": time_ms(fwd),
+                "device_ms": device_ms(fwd, "soft_coverage_fwd_kernel"),
+                "plain_ms": time_ms(
+                    lambda: cuda_soft.soft_coverage_fwd_reference(*args)),
+                **b_fwd},
+        "bwd": {"max_abs_err": bwd_err, "tol": bwd_tol, "ms": time_ms(bwd),
+                "device_ms": device_ms(bwd, "soft_coverage_bwd_kernel"),
+                "plain_ms": time_ms(
+                    lambda: cuda_soft.soft_coverage_bwd_reference(
+                        q, count, g, tile, inv_s, inv_sigma)),
+                **b_bwd},
+        "shape": list(q.shape), "live": live}
+    print(f"[soft] {tag}: kernel times ({card}; {live} live candidates x "
+          f"{tp} pixels): {out}", flush=True)
+    return out
+
+
+# the soft forward's pair counts and every-pair bound (soft_fwd_bound)
+SOFT_FWD_PAIR_KEYS = ("pairs", "full_pairs", "edge_pairs",
+                      "bound_every_pair_ms")
+
+
 def soft_phase(device, card: str):
     import torch_renderer_tpu_torch as trt
     from torch_renderer_tpu_torch.rasterize import cuda_soft
@@ -470,53 +607,9 @@ def soft_phase(device, card: str):
                             math.sqrt(SOFT_CUTOFF * SIGMA), cfg.active_tiles)
     q, count = cuda_soft.tile_slabs(
         fp0, bins, min(cfg.faces_per_tile, fp0.num_faces))
-    tile, inv_s, inv_sigma = cfg.tile, 1.0 / (IMAGE / 2.0), 1.0 / SIGMA
-    g = torch.rand((B, q.shape[1], tile * tile), device=device)
-    print(f"[soft] kernel shapes: q {tuple(q.shape)}, live candidates "
-          f"{int(count.sum())}, max per tile {int(count.max())}", flush=True)
-
-    S_k = cuda_soft.soft_coverage_fwd(q, count, tile, inv_s, inv_sigma)
-    S_p = cuda_soft.soft_coverage_fwd_reference(q, count, tile, inv_s,
-                                                inv_sigma)
-    dq_k = cuda_soft.soft_coverage_bwd(q, count, g, tile, inv_s, inv_sigma)
-    dq_p = cuda_soft.soft_coverage_bwd_reference(q, count, g, tile, inv_s,
-                                                 inv_sigma)
-    torch.cuda.synchronize()
-    fwd_err = float((S_k - S_p).abs().max())
-    fwd_tol = 1e-4 + 1e-5 * float(S_p.abs().max())
-    bwd_err = float((dq_k - dq_p).abs().max())
-    # the kernel sums pixels in another order and form than the plain version
-    bwd_tol = 1e-3 * float(dq_p.abs().max())
-    print(f"[soft] soft_coverage_fwd vs plain: max|dS| {fwd_err:.3e} "
-          f"(tol {fwd_tol:.3e}, max|S| {float(S_p.abs().max()):.3e})",
-          flush=True)
-    print(f"[soft] soft_coverage_bwd vs plain: max|ddq| {bwd_err:.3e} "
-          f"(tol {bwd_tol:.3e}, max|dq| {float(dq_p.abs().max()):.3e})",
-          flush=True)
-    if not fwd_err <= fwd_tol:
-        raise AssertionError("soft_coverage_fwd disagrees with its plain "
-                             "version")
-    if not bwd_err <= bwd_tol:
-        raise AssertionError("soft_coverage_bwd disagrees with its plain "
-                             "version")
-
-    times = {
-        "fwd": time_ms(lambda: cuda_soft.soft_coverage_fwd(
-            q, count, tile, inv_s, inv_sigma)),
-        "fwd_plain": time_ms(lambda: cuda_soft.soft_coverage_fwd_reference(
-            q, count, tile, inv_s, inv_sigma)),
-        "bwd": time_ms(lambda: cuda_soft.soft_coverage_bwd(
-            q, count, g, tile, inv_s, inv_sigma)),
-        "bwd_plain": time_ms(lambda: cuda_soft.soft_coverage_bwd_reference(
-            q, count, g, tile, inv_s, inv_sigma)),
-        "fwd_device": device_ms(lambda: cuda_soft.soft_coverage_fwd(
-            q, count, tile, inv_s, inv_sigma), "soft_coverage_fwd_kernel"),
-        "bwd_device": device_ms(lambda: cuda_soft.soft_coverage_bwd(
-            q, count, g, tile, inv_s, inv_sigma), "soft_coverage_bwd_kernel"),
-    }
-    print(f"[soft] kernel times at the bench shape ({card}): "
-          + ", ".join(f"{k} {v} ms" for k, v in times.items()),
-          flush=True)
+    q = q.detach()
+    pair = soft_pair_check("bench slab", q, count, cfg.tile,
+                           1.0 / (IMAGE / 2.0), 1.0 / SIGMA, card)
 
     # the slab gather pair at the bench slab (the step's corner gather)
     idx = slot_faces(bins, q.shape[2], empty=-1)
@@ -587,38 +680,31 @@ def soft_phase(device, card: str):
                        named=("soft_coverage_bwd", "soft_coverage_fwd"))
     print(f"[soft] profile over {PROFILE_ITERS} steps ({card}): {prof}",
           flush=True)
+    print(f"[soft] soft_coverage_fwd in the step profile: "
+          f"{prof['soft_coverage_fwd_ms_per_iter']:.4f} ms per step, "
+          f"{100 * prof['soft_coverage_fwd_share_of_busy']:.1f}% of "
+          f"{prof['busy_ms_per_iter']:.4f} busy ms ({card})", flush=True)
 
-    live = int(count.sum())
-    Bq, Aq, Kq, _ = q.shape
-    tp = tile * tile
-    b_fwd = bound(live * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4,
-                  live * tp * OPS_SOFT_FWD)
-    b_bwd = bound(live * 24 + Bq * Aq * 4 + Bq * Aq * tp * 4
-                  + Bq * Aq * Kq * 24, live * tp * OPS_SOFT_BWD)
-    print(f"[soft] bounds ({live} live candidates x {tp} pixels): fwd "
-          f"{b_fwd}, bwd {b_bwd}", flush=True)
     source = "torch_renderer_tpu_torch/csrc/soft_coverage.cu"
     gather["launches_bwd"] = counts["gather_tiles_bwd"]
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")
+    f, b = pair["fwd"], pair["bwd"]
+    fwd_keys = keys + SOFT_FWD_PAIR_KEYS
     return gather, [
         {"name": "soft_coverage_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:572",
          "also_replaces": ["torch_renderer_tpu/rasterize/pallas_soft.py:132",
                            "torch_renderer_tpu/rasterize/pallas_soft.py:342"],
-         "launches": counts["soft_coverage_fwd"], "max_abs_err": fwd_err,
-         "ms": times["fwd"], "device_ms": times["fwd_device"],
-         "plain_ms": times["fwd_plain"],
-         "bound_ms": b_fwd["bound_ms"], "bound_by": b_fwd["bound_by"],
-         "library_ms": None},
+         "launches": counts["soft_coverage_fwd"],
+         **{k: f[k] for k in fwd_keys}, "library_ms": None},
         {"name": "soft_coverage_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_soft.py:597",
          "also_replaces": ["torch_renderer_tpu/rasterize/pallas_soft.py:161",
                            "torch_renderer_tpu/rasterize/pallas_soft.py:362"],
-         "launches": counts["soft_coverage_bwd"], "max_abs_err": bwd_err,
-         "ms": times["bwd"], "device_ms": times["bwd_device"],
-         "plain_ms": times["bwd_plain"],
-         "bound_ms": b_bwd["bound_ms"], "bound_by": b_bwd["bound_by"],
-         "library_ms": None, "img_s": B * 1000.0 / step_ms,
-         "step_profile": prof},
+         "launches": counts["soft_coverage_bwd"],
+         **{k: b[k] for k in keys}, "library_ms": None,
+         "img_s": B * 1000.0 / step_ms, "step_profile": prof},
     ]
 
 
@@ -772,8 +858,17 @@ def hard_phase(device, card: str) -> dict:
     from torch_renderer_tpu_torch.cameras.perspective import (
         PerspectiveCamera,
     )
-    from torch_renderer_tpu_torch.rasterize import autotune, cuda_hard
+    from torch_renderer_tpu_torch.rasterize import (
+        autotune,
+        cuda_hard,
+        cuda_soft,
+    )
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        bin_faces_active,
+        tile_grid,
+    )
     from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+    from torch_renderer_tpu_torch.rasterize.soft import SOFT_CUTOFF
 
     meshes, K, R_gt, t_gt, _ = pose_scene(device)
     cam = PerspectiveCamera.from_K(K, (POSE_IMAGE, POSE_IMAGE), R=R_gt,
@@ -816,6 +911,15 @@ def hard_phase(device, card: str) -> dict:
         untile, _ = untile_check("pose fit K=4", bins, fields,
                                  (POSE_IMAGE, POSE_IMAGE), st.bin_size, card)
     del fields
+    # the soft pair at the pallas route's silhouette slab: the lane layout,
+    # tile 16, 128 faces per tile, every tile active
+    fp = setup_face_planes(meshes, cam)
+    TH, TW, _ = tile_grid((POSE_IMAGE, POSE_IMAGE), 16)
+    sbins = bin_faces_active(fp, (POSE_IMAGE, POSE_IMAGE), 16,
+                             math.sqrt(SOFT_CUTOFF * SIGMA), TH * TW)
+    q, count = cuda_soft.tile_slabs(fp, sbins, min(128, fp.num_faces))
+    soft = soft_pair_check("pose fit (pallas route) slab", q.detach(), count,
+                           16, 1.0 / (POSE_IMAGE / 2.0), 1.0 / SIGMA, card)
     for name, r in out.items():
         print(f"[hard] {name} at {r['shape']} ({card}): kernel "
               f"{r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
@@ -826,6 +930,7 @@ def hard_phase(device, card: str) -> dict:
               f"{r['bound_every_pair_ms']:.6f} ms", flush=True)
     autotune.clear_cache()   # the fits below resolve their own budgets
     out["untile"] = untile
+    out["soft"] = soft
     return out
 
 
@@ -906,12 +1011,13 @@ def pose_fit_phase(device, card: str, route: str,
     if not err1 < 0.1 * err0:
         raise AssertionError(f"{route}: the translation error did not fall "
                              "below 0.1x its start")
+    # one untile launch per mesh raster: all its fields at once
     want = ({"topk_select": iters, "gather_tiles_fwd": iters,
-             "untile_scatter": 4 * iters}
+             "untile_scatter": iters}
             if route == "fragments" else
             {"hard_k1": iters, "soft_coverage_fwd": iters,
              "soft_coverage_bwd": iters, "gather_tiles_fwd": 2 * iters,
-             "gather_tiles_bwd": iters, "untile_scatter": 4 * iters})
+             "gather_tiles_bwd": iters, "untile_scatter": iters})
     want = {k: want.get(k, 0) for k in counts}
     if counts != want:
         raise AssertionError(f"{route}: expected launches {want}, got "
@@ -1173,7 +1279,7 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
                              "below 0.5x its start")
     want = only(counts, texsample_fwd=iters, texsample_bwd=iters,
                 topk_select=iters, gather_tiles_fwd=iters,
-                untile_scatter=4 * iters)
+                untile_scatter=iters)
     if counts != want:
         raise AssertionError(f"joint fit: expected launches {want}, got "
                              f"{counts}")
@@ -1554,43 +1660,83 @@ def _untile_backward_check(device) -> dict:
     return {"err": err, "spread": spread, "tol": tol}
 
 
+def take_inputs(rows, bg, table, image_size, tile: int, n_tiles_hw):
+    """The untile yardstick's inputs for one field: its rows with a
+    background row appended at slot A, (B, A + 1, tile^2, C) contiguous,
+    and the (B, H, W, C) index map into them, so that one torch.take
+    computes the kernel's function."""
+    B, A, P, C = rows.shape
+    H, W = image_size
+    src = torch.cat([rows, rows.new_full((B, 1, P, C), bg)], dim=1)
+    y = torch.arange(H, device=rows.device)[:, None]
+    x = torch.arange(W, device=rows.device)[None, :]
+    t = (y // tile) * n_tiles_hw[1] + x // tile                 # (H, W)
+    p = (y % tile) * tile + x % tile
+    slot = table.long().clamp(0, A)[:, t]                       # (B, H, W)
+    b = torch.arange(B, device=rows.device)[:, None, None]
+    idx = (((b * (A + 1) + slot) * P + p) * C)[..., None] \
+        + torch.arange(C, device=rows.device)
+    return src.contiguous(), idx
+
+
 def untile_check(tag: str, bins, fields: dict, image_size, tile: int,
                  card: str):
-    """untile_scatter on each Fragments field of one binned raster against
-    its plain version (equal), timed by events, the profiler and the plain
-    version, with its bound: the active rows it copies, the slot table and
-    the image written once. Returns ({field: record}, tiles that copy)."""
+    """The untile kernel on all Fragments fields of one binned raster (one
+    launch) against its plain version on each field (equal), timed by events, by
+    the profiler and the plain version; the library yardstick is one
+    torch.take per field through an index map built before the timing
+    (take_inputs), checked equal too. Its bound: the active rows it
+    copies, the slot table once and the images written once. Returns
+    (record, tiles that copy)."""
     from torch_renderer_tpu_torch.rasterize import cuda_untile
 
+    fwd = cuda_untile.untile_scatter_fields_fwd
     A = bins.invrank.shape[1]
-    table = cuda_untile.tile_slot_table(bins.rank, A, bins.n_tiles_hw)
+    nthw = bins.n_tiles_hw
+    table = cuda_untile.tile_slot_table(bins.rank, A, nthw)
     n_read = int((table < A).sum())          # tiles that copy an active row
-    untile = {}
-    for name, (v, bg) in fields.items():
-        rows = v.reshape(v.shape[:3] + (-1,))
-        args = (rows, table, bg, image_size, tile, bins.n_tiles_hw)
-        img_k = cuda_untile.untile_scatter_fwd(*args)
-        img_p = cuda_untile.untile_scatter_reference(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(img_k, img_p):
+    flat = [(v.reshape(v.shape[:3] + (-1,)), bg) for v, bg in fields.values()]
+    args = (flat, table, image_size, tile, nthw)
+
+    def plain():
+        return [cuda_untile.untile_scatter_reference(
+            rows, table, bg, image_size, tile, nthw) for rows, bg in flat]
+
+    takes = [take_inputs(rows, bg, table, image_size, tile, nthw)
+             for rows, bg in flat]
+
+    def library():
+        return [torch.take(src, idx) for src, idx in takes]
+
+    imgs, want, lib = fwd(*args), plain(), library()
+    torch.cuda.synchronize()
+    n_bytes = table.numel() * 4
+    per_field = {}
+    for name, (rows, _), img, ref, got in zip(fields, flat, imgs, want, lib):
+        if not torch.equal(img, ref):
             raise AssertionError(f"untile_scatter ({tag}, {name}) disagrees "
                                  "with its plain version")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"the untile yardstick ({tag}, {name}) "
+                                 "disagrees with the plain version")
         es, C = rows.element_size(), rows.shape[3]
-        untile[name] = {
-            "shape": list(rows.shape), "dtype": str(rows.dtype),
-            "strides": list(rows.stride()),
-            "ms": time_ms(lambda: cuda_untile.untile_scatter_fwd(*args)),
-            "device_ms": device_ms(
-                lambda: cuda_untile.untile_scatter_fwd(*args),
-                "untile_kernel"),
-            "plain_ms": time_ms(
-                lambda: cuda_untile.untile_scatter_reference(*args)),
-            **bound(n_read * tile ** 2 * C * es + table.numel() * 4
-                    + img_k.numel() * es, 0)}
-        print(f"[untile] {tag}: untile_scatter {name} at rows "
-              f"{untile[name]['shape']} {rows.dtype}: equal to plain; "
-              f"{untile[name]} ({card})", flush=True)
-    return untile, n_read
+        n_bytes += n_read * tile ** 2 * C * es + img.numel() * es
+        per_field[name] = {"shape": list(rows.shape),
+                           "dtype": str(rows.dtype),
+                           "strides": list(rows.stride())}
+    del imgs, want, lib
+    rec = {"fields": per_field, "launches_per_raster": 1,
+           "ms": time_ms(lambda: fwd(*args)),
+           "device_ms": device_ms(lambda: fwd(*args), "untile_kernel"),
+           "plain_ms": time_ms(plain),
+           "library_ms": time_ms(library),
+           "library_device_ms": device_ms(library, None),
+           **bound(n_bytes, 0)}
+    print(f"[untile] {tag}: untile_scatter on {len(flat)} fields in "
+          f"one launch, each "
+          f"field equal to plain and to torch.take; {rec} ({card})",
+          flush=True)
+    return rec, n_read
 
 
 def batch_phase(device, card: str) -> dict:
@@ -1625,7 +1771,7 @@ def batch_phase(device, card: str) -> dict:
           f"{wall_s:.1f} s in all; launches {counts}; peak device memory "
           f"{peak_app:.3f} GiB; {card}", flush=True)
     want = only(counts, hard_k1=calls, gather_tiles_fwd=calls,
-                untile_scatter=4 * calls)
+                untile_scatter=calls)
     if counts != want:
         raise AssertionError(f"batch render: expected launches {want}, got "
                              f"{counts}")
@@ -1651,10 +1797,10 @@ def batch_phase(device, card: str) -> dict:
     print(f"[batch] one {BATCH_CHUNK}-view call launches {per_call}",
           flush=True)
     if per_call != only(per_call, hard_k1=1, gather_tiles_fwd=1,
-                        untile_scatter=4):
-        raise AssertionError("a batch render call must launch hard_k1 and "
-                             "gather_tiles_fwd once and untile_scatter once "
-                             f"per fragment field, got {per_call}")
+                        untile_scatter=1):
+        raise AssertionError("a batch render call must launch hard_k1, "
+                             "gather_tiles_fwd and untile_scatter once "
+                             f"each, got {per_call}")
     same = {"depth": bool(torch.equal(dp, dx)),
             "silhouette": bool(torch.equal(sp, sx)),
             **{n: bool(torch.equal(getattr(fp_, n), getattr(fx_, n)))
@@ -1738,17 +1884,27 @@ def main() -> None:
     print(log, flush=True)
     ptxas = ptxas_report(log)
     for k, v in ptxas.items():
-        if k.startswith(("soft_coverage_bwd_kernel", "topk_select")):
+        if k.startswith(("soft_coverage", "topk_select", "untile_kernel")):
             print(f"ptxas {k}: {v.get('registers')} registers, "
                   f"{v.get('smem')} bytes static smem, spill stores "
                   f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
                   "bytes", flush=True)
 
     soft_gather, kernels = soft_phase(device, card)
-    kernels[1]["ptxas"] = ptxas.get("soft_coverage_bwd_kernel")
     hard = hard_phase(device, card)
     fits = {route: pose_fit_phase(device, card, route)
             for route in ("fragments", "pallas")}
+    # the soft pair's entries: ptxas, and the pallas route's silhouette
+    # slab (its launches are that route's 500 iterations)
+    for entry, key in zip(kernels[:2], ("fwd", "bwd")):
+        name = f"soft_coverage_{key}"
+        entry["ptxas"] = ptxas.get(f"{name}_kernel")
+        entry["launches_pose_fit"] = fits["pallas"]["counts"][name]
+        entry["pose_fit_shape"] = {
+            "shape": hard["soft"]["shape"], "live": hard["soft"]["live"],
+            **{k: hard["soft"][key][k] for k in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by") + (SOFT_FWD_PAIR_KEYS if key == "fwd" else ())}}
     tex = texture_phase(device, card)
     joint = joint_fit_phase(device, card)
     pts = points_phase(device, card)
@@ -1843,11 +1999,13 @@ def main() -> None:
          "ms": g7["ms"], "device_ms": g7["device_ms"],
          "plain_ms": g7["plain_ms"], "bound_ms": g7["bound_ms"],
          "bound_by": g7["bound_by"], "library_ms": g7["library_ms"],
+         "library_device_ms": g7["library_device_ms"],
          "shape": g7["shape"], "soft_slab_ms": gs["ms"],
          "soft_slab_device_ms": gs["device_ms"],
          "soft_slab_plain_ms": gs["plain_ms"],
          "soft_slab_bound_ms": gs["bound_ms"],
-         "soft_slab_library_ms": gs["library_ms"]},
+         "soft_slab_library_ms": gs["library_ms"],
+         "soft_slab_library_device_ms": gs["library_device_ms"]},
         {"name": "gather_tiles_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_gather.py:154",
          "launches": gs["launches_bwd"],
@@ -1856,29 +2014,25 @@ def main() -> None:
          "plain_ms": gs["bwd"]["plain_ms"],
          "bound_ms": gs["bwd"]["bound_ms"],
          "bound_by": gs["bwd"]["bound_by"],
-         "library_ms": gs["bwd"]["library_ms"], "shape": gs["shape"]},
+         "library_ms": gs["bwd"]["library_ms"],
+         "library_device_ms": gs["bwd"]["library_device_ms"],
+         "shape": gs["shape"]},
     ]
-    u = batch["untile"].values()
-    dev = [r["device_ms"] for r in u]
+    u, uf = batch["untile"], hard["untile"]
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_device_ms")
     kernels.append(
         {"name": "untile_scatter", "route": "cuda",
          "source": "torch_renderer_tpu_torch/csrc/untile.cu",
          "replaces": "torch_renderer_tpu/rasterize/pallas_untile.py:113",
          "launches": batch["counts"]["untile_scatter"], "max_abs_err": 0.0,
-         "ms": sum(r["ms"] for r in u),
-         "device_ms": None if None in dev else sum(dev),
-         "plain_ms": sum(r["plain_ms"] for r in u),
-         "bound_ms": sum(r["bound_ms"] for r in u), "bound_by": "bytes",
-         "library_ms": None, "per_call_of": "the 4 fields of one 12-view "
-         "720p call", "fields_ms": {n: r["ms"] for n, r in
-                                    batch["untile"].items()},
+         **{k: u[k] for k in keys}, "bound_by": "bytes",
+         "per_call_of": "the 4 fields of one 12-view 720p call",
+         "launches_per_raster": u["launches_per_raster"],
          "launches_fits": {r: f["counts"]["untile_scatter"]
                            for r, f in fits.items()},
-         "fits_shape": {k: sum(r[k] for r in hard["untile"].values())
-                        if None not in [r[k] for r in hard["untile"].values()]
-                        else None
-                        for k in ("ms", "device_ms", "plain_ms",
-                                  "bound_ms")}})
+         "fits_shape": {k: uf[k] for k in keys},
+         "ptxas": ptxas.get("untile_kernel")})
     app = batch["app"]
     print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
           f"batched, {app['serial_images_per_s']:.1f} serial; one call "

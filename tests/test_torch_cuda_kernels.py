@@ -21,7 +21,9 @@ agree within 1e-6 where they are the same. Tile gather: the forward equal
 (a copy); the backward within 1e-6 of the largest table gradient (float32
 atomics add a row's terms in an order that changes from run to run).
 Untile: equal (a copy of 4- or 8-byte words), for float32 and int64 fields,
-strided rows and the renderer's fragments.
+strided rows, several fields in one launch and the renderer's fragments.
+The soft forward also equals its CPU model (tests/test_torch_soft_fwd.py)
+bit for bit.
 """
 
 import numpy as np
@@ -83,6 +85,43 @@ def test_kernels_match_plain(device, B, A, K, tile, sigma):
     assert (S[-1, -1] == 0).all() and (dq[-1, -1] == 0).all()
     dead = torch.arange(K, device=device) >= count[..., None]   # (B, A, K)
     assert bool((dq[dead] == 0).all())
+
+
+# The forward at the staging chunk's boundaries (counts 0, 1, 127, 128,
+# 129 and 300 of a 300-slot slab, one tile each) for tiles 8, 16 and 32
+# and sigma 1e-5, 1e-4 and 1e-3 (the cull margin and the cutoff scale with
+# sqrt(sigma)).
+@pytest.mark.parametrize("sigma", [1e-5, 1e-4, 1e-3])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_soft_fwd_chunk_counts(device, tile, sigma):
+    q, _ = _slabs(tile, 2, 6, 300, tile, device)
+    count = torch.tensor([[0, 1, 127, 128, 129, 300]] * 2, dtype=torch.int32,
+                         device=device)
+    before = cuda_soft.FWD_LAUNCHES
+    S = cuda_soft.soft_coverage_fwd(q, count, tile, 1.0 / 16, 1.0 / sigma)
+    torch.cuda.synchronize()
+    assert cuda_soft.FWD_LAUNCHES == before + 1
+    ref = cuda_soft.soft_coverage_fwd_reference(q, count, tile, 1.0 / 16,
+                                                1.0 / sigma)
+    torch.testing.assert_close(S, ref, rtol=0,
+                               atol=1e-4 + 1e-5 * float(ref.abs().max()))
+    assert bool((S[:, 0] == 0).all())
+
+
+# The kernel's float32 operations are all written out, so it equals the
+# CPU model of tests/test_torch_soft_fwd.py bit for bit (the model's FMA
+# rounds once through float64, as the card's does), cull and skip included.
+@pytest.mark.parametrize("tile,K,sigma", [(8, 64, 1e-4), (16, 130, 1e-4),
+                                          (32, 40, 1e-5), (25, 20, 1e-3)])
+def test_soft_fwd_matches_cpu_model(device, tile, K, sigma):
+    from test_torch_soft_fwd import fwd_model, random_slabs
+
+    q, count = random_slabs(tile + K, 2, 3, K, tile)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    S_model, _, _ = fwd_model(q, count, tile, 1.0 / 16, 1.0 / sigma, sms)
+    S = cuda_soft.soft_coverage_fwd(q.to(device), count.to(device), tile,
+                                    1.0 / 16, 1.0 / sigma)
+    assert torch.equal(S.cpu(), S_model)
 
 
 def test_fused_path_matches_cpu(device):
@@ -493,6 +532,102 @@ def test_untile_matches_plain(device, dtype, C, bg, tile, crop):
         cu.untile_scatter_reference(wide, table, bg, size, tile, (TH, TW)))
 
 
+def _raster_fields(device, size, views, K, tile):
+    """The binned raster's tile fields and slot table for `views` look-at
+    views of the normalized level-3 icosphere at `size`: K=1 at blur 0, or
+    K > 1 with the pose fit's blur."""
+    import math
+
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize import cuda_untile as cu
+
+    H, W = size
+    f = 0.9 * H
+    Km = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    m = trt.Meshes.from_single(*trt.icosphere(3), device=device)
+    m, _, _ = m.center_and_scale_to_unit_sphere()
+    azim = np.linspace(0.0, 360.0, views, endpoint=False).astype(np.float32)
+    R, t = trt.look_at_view_transform(2.7, 15.0, torch.from_numpy(azim))
+    blur = 1e-4 * math.log(1 / 1e-4 - 1) if K > 1 else 0.0
+    r = trt.MeshRenderer(Km, size, bin_size=tile, max_faces_per_bin=256,
+                         faces_per_pixel=K, blur_radius=blur, device=device)
+    fd = trt.setup_faces(m.extend(views), r.camera_with_pose(R.to(device),
+                                                             t.to(device)))
+    with torch.no_grad():
+        bins, fields = cuda_hard.binned_tile_fields(fd, r.settings)
+    table = cu.tile_slot_table(bins.rank, bins.invrank.shape[1],
+                               bins.n_tiles_hw)
+    flat = [(v.reshape(v.shape[:3] + (-1,)), bg) for v, bg in fields.values()]
+    return flat, table, bins.n_tiles_hw
+
+
+# The raster's four fields in one launch, at the depth app's 12-view 720p
+# call (K=1, bin 32: float32 planes, bary's channels tile^2 apart, int64
+# ids) and at the fits' 128^2 K=4 raster (bin 16: K channels tile^2 apart,
+# bary's K x 3), each equal to its plain version.
+@pytest.mark.parametrize("size,views,K,tile", [((720, 1280), 12, 1, 32),
+                                               ((128, 128), 1, 4, 16)])
+def test_untile_fields_match_plain(device, size, views, K, tile):
+    from torch_renderer_tpu_torch.rasterize import cuda_untile as cu
+
+    fields, table, nthw = _raster_fields(device, size, views, K, tile)
+    before = cu.UNTILE_LAUNCHES
+    imgs = cu.untile_scatter_fields_fwd(fields, table, size, tile, nthw)
+    torch.cuda.synchronize()
+    assert cu.UNTILE_LAUNCHES == before + 1
+    want = cu.untile_scatter_fields_reference(fields, table, size, tile,
+                                              nthw)
+    for (rows, _), img, ref in zip(fields, imgs, want):
+        assert img.dtype == rows.dtype and torch.equal(img, ref)
+
+
+# Every read path of the kernel on one launch: channel planes (pixel
+# stride 1) of 1-3 float32 or int64 channels, interleaved channels
+# (contiguous rows), channel slices (unaligned: one load per element),
+# K x 3 channels tile^2 apart, 5 channels (a thread per element), at tiles
+# 8, 16, 25 (runs do not fit: per element) and 32 and cropped sizes.
+@pytest.mark.parametrize("tile,crop", [(8, (7, 1)), (16, (0, 0)),
+                                       (25, (3, 4)), (32, (5, 3))])
+def test_untile_fields_read_paths(device, tile, crop):
+    from torch_renderer_tpu_torch.rasterize import cuda_untile as cu
+
+    B, TH, TW, A = 2, 3, 4, 7
+    rng = np.random.default_rng(tile)
+    rank = np.full((B, TH * TW), 10 ** 6, np.int64)
+    for b in range(B):
+        rank[b, rng.choice(TH * TW, A, replace=False)] = np.arange(A)
+    table = cu.tile_slot_table(torch.tensor(rank, device=device), A,
+                               (TH, TW))
+    P = tile * tile
+
+    def rows(C, dtype):
+        v = rng.standard_normal((B, A, P, 2 * C + 1)) * 1e3
+        return torch.tensor(v, device=device).to(dtype)
+
+    f32, i64 = torch.float32, torch.int64
+    planar = lambda r: r.transpose(2, 3).contiguous().transpose(2, 3)  # noqa
+    kc = torch.tensor(rng.standard_normal((B, A, 4, 3, P)), device=device
+                      ).float().permute(0, 1, 4, 2, 3).reshape(B, A, P, 12)
+    fields = [(planar(rows(1, f32)[..., :1]), -1.0),
+              (planar(rows(3, f32)[..., :3]), 0.0),
+              (planar(rows(3, i64)[..., :3]), -1),
+              (rows(1, i64)[..., :1].contiguous(), -1),
+              (rows(3, f32)[..., :3].contiguous(), 2.0),
+              (rows(3, f32)[..., 1:4], 0.5),
+              (kc, 0.0),
+              (rows(5, f32)[..., :5].contiguous(), 9.0)]
+    size = (TH * tile - crop[0], TW * tile - crop[1])
+    before = cu.UNTILE_LAUNCHES
+    imgs = cu.untile_scatter_fields_fwd(fields, table, size, tile, (TH, TW))
+    torch.cuda.synchronize()
+    assert cu.UNTILE_LAUNCHES == before + 1
+    want = cu.untile_scatter_fields_reference(fields, table, size, tile,
+                                              (TH, TW))
+    for i, (img, ref) in enumerate(zip(imgs, want)):
+        assert torch.equal(img, ref), i
+
+
 @pytest.mark.parametrize("act,K", [(None, 1), (40, 1), (None, 4)])
 def test_untile_epilogue_matches_plain_on_card(monkeypatch, device, act, K):
     """Fragments through the untile kernel equal the plain epilogue's bit for
@@ -528,11 +663,11 @@ def test_untile_epilogue_matches_plain_on_card(monkeypatch, device, act, K):
 
     before = cu.UNTILE_LAUNCHES
     fa, da, ga = run()
-    assert cu.UNTILE_LAUNCHES == before + 4          # one per field
-    monkeypatch.setattr(cuda_hard, "untile_scatter",
-                        cu.untile_scatter_reference)
+    assert cu.UNTILE_LAUNCHES == before + 1          # one per raster
+    monkeypatch.setattr(cuda_hard, "untile_scatter_fields",
+                        cu.untile_scatter_fields_reference)
     fb, db, gb = run()
-    assert cu.UNTILE_LAUNCHES == before + 4
+    assert cu.UNTILE_LAUNCHES == before + 1
     for name in ("pix_to_face", "zbuf", "bary", "dists"):
         assert torch.equal(getattr(fa, name), getattr(fb, name)), name
     assert torch.equal(da, db)

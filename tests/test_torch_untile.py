@@ -167,8 +167,8 @@ def _scene(level, views):
 def _plain_epilogue(monkeypatch):
     """End the binned raster with the plain version, differentiated by
     autograd, in place of the untile wrapper and its own backward."""
-    monkeypatch.setattr(cuda_hard, "untile_scatter",
-                        cuda_untile.untile_scatter_reference)
+    monkeypatch.setattr(cuda_hard, "untile_scatter_fields",
+                        cuda_untile.untile_scatter_fields_reference)
 
 
 @pytest.mark.parametrize("act", [None, 24])
@@ -233,3 +233,65 @@ def test_k4_fragments_and_grad_parity(monkeypatch):
     assert int((fa.pix_to_face[..., 1] >= 0).sum()) > 100
     assert bool(torch.isfinite(g_a).all()) and float(g_b.abs().max()) > 0
     torch.testing.assert_close(g_a, g_b, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Several fields in one call: untile_scatter_fields
+# ---------------------------------------------------------------------------
+
+def _raster_fields(K, tile):
+    """The binned raster's four tile fields at 52x70 (a cropped grid at
+    every tile size) for 2 views of a level-2 icosphere, K=1 at blur 0 or
+    K>1 with a blur band, as (rows (B, A, tile^2, C), bg) pairs, with the
+    slot table, the tile grid and the tiles' ranks."""
+    H, W = 52, 70
+    f = 0.9 * H
+    Km = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    m, R, t = _scene(2, [(15.0, 0.0), (40.0, 120.0)])
+    blur = 1e-4 * math.log(1 / 1e-4 - 1) if K > 1 else 0.0
+    r = port.MeshRenderer(Km, (H, W), bin_size=tile, max_faces_per_bin=160,
+                          faces_per_pixel=K, blur_radius=blur, device="cpu")
+    fd = port.setup_faces(m, r.camera_with_pose(R, t))
+    bins, fields = cuda_hard.binned_tile_fields(fd, r.settings)
+    table = cuda_untile.tile_slot_table(bins.rank, bins.invrank.shape[1],
+                                        bins.n_tiles_hw)
+    flat = [(v.reshape(v.shape[:3] + (-1,)).detach(), bg)
+            for v, bg in fields.values()]
+    return flat, table, (H, W), bins.n_tiles_hw, bins.rank
+
+
+@pytest.mark.parametrize("tile", [8, 16, 25, 32])
+@pytest.mark.parametrize("K", [1, 4])
+def test_fields_equal_per_field(K, tile):
+    """untile_scatter_fields on a raster's four fields (int64 ids, float32
+    planes, bary's channels tile^2 apart) equals the JAX fused untile on
+    each field, values bit for bit and the float fields' gradients (one
+    autograd Function for all fields) within 1e-5 of jax.vjp's."""
+    flat, table, size, nthw, rank = _raster_fields(K, tile)
+    assert flat[0][0].dtype == torch.int64 and flat[2][0].stride()[3] > 1
+    A_ = flat[0][0].shape[1]
+    jtable = tile_slot_table(jnp.asarray(rank.numpy().astype(np.int32)), A_,
+                             nthw)
+    rows = [r.clone().requires_grad_(r.is_floating_point())
+            for r, _ in flat]
+    imgs = cuda_untile.untile_scatter_fields(
+        [(r, bg) for r, (_, bg) in zip(rows, flat)], table, size, tile, nthw)
+    rng = np.random.default_rng(tile + K)
+    gs = [rng.standard_normal(tuple(img.shape)).astype(np.float32)
+          for img in imgs]
+    floats = [i for i, r in enumerate(rows) if r.requires_grad]
+    got = dict(zip(floats, torch.autograd.grad(
+        [imgs[i] for i in floats], [rows[i] for i in floats],
+        [torch.from_numpy(gs[i]) for i in floats])))
+    for i, (img, (r, bg)) in enumerate(zip(imgs, flat)):
+        # the ids (small here) ride through the JAX kernel as float32
+        jrows = jnp.asarray(r.numpy().astype(np.float32))
+        want, vjp = jax.vjp(lambda x: untile_scatter_pallas(
+            x, jtable, float(bg), size, tile, nthw), jrows)
+        img = img.detach().numpy()
+        np.testing.assert_array_equal(img, np.asarray(want).astype(img.dtype))
+        if i in got:
+            (g_j,) = vjp(jnp.asarray(gs[i]))
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(g_j),
+                                       rtol=0, atol=1e-5)
+            assert float(np.abs(np.asarray(g_j)).max()) > 0

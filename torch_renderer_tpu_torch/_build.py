@@ -125,10 +125,9 @@ def load_kernels() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [vp, i32, vp, vp, i32, i64, i32, i32,
                                        i32, vp]
         getattr(lib, name).restype = i32
-    lib.trt_untile_scatter.argtypes = [vp, vp, i64, vp, i32, i32, i32, i32,
-                                       i32, i32, i32, i32, i32, i64, i64, i64,
-                                       i64, i32, vp]
-    lib.trt_untile_scatter.restype = i32
+    lib.trt_untile_scatter_fields.argtypes = [vp, i32, vp, i32, i32, i32,
+                                              i32, i32, i32, i32, i32, vp]
+    lib.trt_untile_scatter_fields.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib

@@ -7,7 +7,8 @@ into (B, A, Fmax, 13) slabs (12 corner channels plus the global face id)
 with an int32 count per tile (the tile-gather kernel, cuda_gather), run a
 selection kernel, and write each per-tile field into the (B, H, W, K)
 image with the empty-fragment background in tiles with no active slot
-(the untile kernel, cuda_untile: one launch per Fragments field).
+(the untile kernel, cuda_untile: one launch for the four Fragments
+fields).
 
   * K = 1: ``hard_k1`` finds each pixel's nearest covering face and
     interpolates it in-kernel (zbuf, perspective-correct barycentrics,
@@ -54,7 +55,7 @@ from .binning import (
     tile_channel_slabs,
     tile_grid,
 )
-from .cuda_untile import tile_slot_table, untile_scatter
+from .cuda_untile import tile_slot_table, untile_scatter_fields
 from .fragments import EMPTY_DIST, Fragments
 from .geometry import channel_edge_bary, channel_min_edge_dist2, fragment_math
 
@@ -287,13 +288,17 @@ class HardK1(torch.autograd.Function):
 # Public surface
 # ---------------------------------------------------------------------------
 
-def _to_image(values, table, bg, image_size, tile: int, n_tiles_hw):
-    """(B, A, P, K, ...) active-tile fields -> (B, H, W, K, ...) through the
-    untile kernel and the tile slot table."""
-    B, A, P = values.shape[:3]
-    img = untile_scatter(values.reshape(B, A, P, -1), table, bg, image_size,
-                         tile, n_tiles_hw)
-    return img.reshape(img.shape[:3] + tuple(values.shape[3:]))
+def _to_images(fields: dict, table, image_size, tile: int,
+               n_tiles_hw) -> dict:
+    """{name: (values (B, A, P, K, ...), bg)} active-tile fields ->
+    {name: (B, H, W, K, ...)} through one launch of the untile kernel and
+    the tile slot table. Each field's trailing dimensions merge into the
+    kernel's channels as a view (binned_tile_fields lays them out so), and
+    the kernel reads them at their strides."""
+    flat = [(v.reshape(v.shape[:3] + (-1,)), bg) for v, bg in fields.values()]
+    imgs = untile_scatter_fields(flat, table, image_size, tile, n_tiles_hw)
+    return {name: img.reshape(img.shape[:3] + tuple(v.shape[3:]))
+            for (name, (v, _)), img in zip(fields.items(), imgs)}
 
 
 class BinnedInputs(NamedTuple):
@@ -362,8 +367,10 @@ def binned_tile_fields(fd, settings):
                                    settings.clip_bary)
         zbuf = torch.where(live, zb, -1.0).transpose(2, 3)
         dists = torch.where(live, dd, EMPTY_DIST).transpose(2, 3)
-        bary = torch.where(live[..., None], torch.stack(pc, dim=-1), 0.0)
-        bary = bary.transpose(2, 3)                           # (B,A,P,K,3)
+        # (B, A, K, 3, P): the (K, 3) dims of the (B, A, P, K, 3) view
+        # below merge into K * 3 channels without a copy
+        bary = torch.where(live[:, :, :, None], torch.stack(pc, dim=3), 0.0)
+        bary = bary.permute(0, 1, 4, 2, 3)                    # (B,A,P,K,3)
         p2f = torch.where(live, fid, -1).transpose(2, 3)
     return bins, {"pix_to_face": (p2f, -1), "zbuf": (zbuf, -1.0),
                   "bary": (bary, 0.0), "dists": (dists, EMPTY_DIST)}
@@ -377,7 +384,5 @@ def rasterize_binned_cuda(fd, settings) -> Fragments:
     bins, fields = binned_tile_fields(fd, settings)
     table = tile_slot_table(bins.rank, bins.invrank.shape[1],
                             bins.n_tiles_hw)
-    return Fragments(**{
-        name: _to_image(v, table, bg, settings.image_size, settings.bin_size,
-                        bins.n_tiles_hw)
-        for name, (v, bg) in fields.items()})
+    return Fragments(**_to_images(fields, table, settings.image_size,
+                                  settings.bin_size, bins.n_tiles_hw))
