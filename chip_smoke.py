@@ -17,7 +17,12 @@ Drives, through the port's public entry points:
      blur 9.21e-4 and at K=50 with blur 1e-4. Winners must be identical,
      or differ only at selection-depth ties within 1e-6 on under 0.1% of
      covered pixels (the count of differing pixels is reported); values
-     within 1e-5; untile_scatter on the K=4 raster's four fields in one
+     within 1e-5, and hard_k1's 8 rows equal to plain bit for bit;
+     gather_tiles_fwd at the fits' three slabs (the pallas route's K=1
+     hard slab and the fragments route's K=4 one, 13 channels, and the
+     pallas route's silhouette slab, 6) equal to plain, gather_tiles_bwd at
+     the silhouette slab, and the forward's launch floor (its time on a
+     one-slot input); untile_scatter on the K=4 raster's four fields in one
      launch, the shape the fits launch it at, equal to its plain version;
      and the soft kernel pair against its plain versions at the pallas
      route's silhouette slab (lane layout, tile 16, every tile active);
@@ -30,8 +35,9 @@ Drives, through the port's public entry points:
      gather_tiles_fwd launch (fragments), or one hard_k1, soft_coverage_fwd,
      soft_coverage_bwd and gather_tiles_bwd launch and two gather_tiles_fwd
      launches (pallas); either route also one untile_scatter launch, for
-     the four fragment fields of its mesh raster. Then a 20-iteration profile of
-     the fragments route (device ms per iteration, topk_select's share).
+     the four fragment fields of its mesh raster. Then a 20-iteration
+     profile of each route (device ms per iteration; topk_select's share,
+     or hard_k1's and the soft pair's; the forward gather's).
   D. the texture-sampling kernels against their plain versions at the joint
      fit's shapes: one 256x256x3 map shared by 2 views (batch stride 0),
      32768 points per view at u, v uniform in [0, 1] from a seeded
@@ -83,9 +89,10 @@ Drives, through the port's public entry points:
      launches of that call, the call through the untile kernel against the
      same call ending with the kernel's plain version, bit for bit (depth,
      silhouette and the four fields), gather_tiles_fwd and hard_k1 against
-     their plain versions on the call's (12, A, Fmax, 13) slab (hard_k1 with
-     its bound) and untile_scatter on its four fields in one launch (each
-     equal), the call timed with either epilogue in turns, a 20-call profile and the peak device memory; and the untile
+     their plain versions on the call's (12, A, Fmax, 13) slab (each equal;
+     hard_k1 with its bound) and untile_scatter on its four fields in one
+     launch (each equal), the call timed with either epilogue in turns, a
+     20-call profile and the peak device memory; and the untile
      backward (K=4 blur fragments and the silhouette's vertex gradient at
      96^2, bin 16), the kernel's wrapper against the plain epilogue
      differentiated by autograd: fragments equal, gradients within 1e-5 of
@@ -114,8 +121,9 @@ line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 
 The build's -Xptxas -v report is printed in full, and the registers,
-shared memory and spills of the soft pair, topk_select_kernel and
-untile_kernel once more in a line each.
+shared memory and spills of the soft pair, hard_k1_kernel,
+topk_select_kernel, gather_fwd_kernel and untile_kernel once more in a
+line each.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -455,6 +463,21 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
             # the kernel reads g only at live slots
             **bound(B * T * S * isz + n_live * C * 4 + B * F * C * 4, 0)}
     print(f"[gather] {tag} ({card}): {rec}", flush=True)
+    return rec
+
+
+def gather_floor(device, card: str) -> dict:
+    """The forward gather's launch floor: its time on a one-slot input
+    (one live id, a 13-channel table), by events and alone."""
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    idx = torch.zeros((1, 1, 1), dtype=torch.int64, device=device)
+    table = torch.ones((1, 1, 13), device=device)
+    rec = {"shape": [1, 1, 1, 13],
+           "ms": time_ms(lambda: cg.gather_tiles_fwd(idx, table)),
+           "device_ms": device_ms(lambda: cg.gather_tiles_fwd(idx, table),
+                                  "gather_fwd_kernel")}
+    print(f"[gather] launch floor, one slot ({card}): {rec}", flush=True)
     return rec
 
 
@@ -815,6 +838,20 @@ def hard_bound(slab, count, origin, rows: int, ops_per_pair: int,
             "bound_every_pair_by": every["bound_by"]}
 
 
+def _slab_gather_inputs(inp):
+    """The forward gather's inputs of a binned mesh raster
+    (cuda_hard.BinnedInputs): each slot's face id (-1 = empty) and the
+    (B, F, 13) table of 12 corner channels and the face id, as
+    binning.tile_channel_slabs builds them."""
+    from torch_renderer_tpu_torch.rasterize.binning import slot_faces
+
+    idx = slot_faces(inp.bins, inp.slab.shape[2], empty=-1)
+    B, F = inp.planes.shape[:2]
+    fid = torch.arange(F, dtype=torch.float32, device=idx.device)
+    return idx, torch.cat([inp.planes.detach(),
+                           fid.expand(B, F)[..., None]], dim=-1)
+
+
 def hard_k1_check(tag: str, inp, st, card: str) -> dict:
     """hard_k1 against its plain version on one binned raster's inputs
     (cuda_hard.BinnedInputs): winners equal or tied, values within
@@ -837,9 +874,12 @@ def hard_k1_check(tag: str, inp, st, card: str) -> dict:
                                 prio)
     del prio
     err = float(((o_k - o_p).abs() * (lanes(o_k) == lanes(o_p))).max())
-    if not err <= VALUE_TOL:
-        raise AssertionError(f"hard_k1 ({tag}) values disagree with its "
-                             "plain version")
+    same = bool(torch.equal(o_k, o_p))
+    print(f"[hard] hard_k1 ({tag}): all 8 rows equal to plain: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"hard_k1 ({tag}) disagrees with its plain "
+                             "version")
     rec = {"max_abs_err": max(err, gap), "diff_px": n_diff,
            "shape": list(inp.slab.shape),
            "live": int(inp.count.sum()),
@@ -865,6 +905,7 @@ def hard_phase(device, card: str) -> dict:
     )
     from torch_renderer_tpu_torch.rasterize.binning import (
         bin_faces_active,
+        slot_faces,
         tile_grid,
     )
     from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
@@ -878,6 +919,16 @@ def hard_phase(device, card: str) -> dict:
     # hard_k1 at blur 0 (the pallas route's depth/RGB raster)
     st, inp = _kernel_inputs(meshes, cam, 1, 0.0)
     out["hard_k1"] = hard_k1_check("pose fit", inp, st, card)
+    # the forward gather at the fits' hard slabs (12 corner channels and
+    # the face id): the pallas route's K=1 and the fragments route's K=4
+    gathers = {"pallas_hard": gather_check(
+        "pose fit pallas hard slab", *_slab_gather_inputs(inp), card,
+        bwd=False)}
+    _, inp4 = _kernel_inputs(meshes, cam, 4, POSE_BLUR)
+    gathers["fragments"] = gather_check(
+        "pose fit fragments slab", *_slab_gather_inputs(inp4), card,
+        bwd=False)
+    del inp4
 
     # topk_select at the fragments route's K=4 / blur, and at K=50
     for Kf, blur in ((4, POSE_BLUR), (50, 1e-4)):
@@ -920,6 +971,13 @@ def hard_phase(device, card: str) -> dict:
     q, count = cuda_soft.tile_slabs(fp, sbins, min(128, fp.num_faces))
     soft = soft_pair_check("pose fit (pallas route) slab", q.detach(), count,
                            16, 1.0 / (POSE_IMAGE / 2.0), 1.0 / SIGMA, card)
+    # the gather pair at that slab's corner gather
+    corners = torch.stack([fp.x0, fp.y0, fp.x1, fp.y1, fp.x2, fp.y2],
+                          dim=-1).detach().contiguous()
+    gathers["pallas_soft"] = gather_check(
+        "pose fit pallas soft slab", slot_faces(sbins, q.shape[2], empty=-1),
+        corners, card, bwd=True)
+    gathers["floor"] = gather_floor(device, card)
     for name, r in out.items():
         print(f"[hard] {name} at {r['shape']} ({card}): kernel "
               f"{r['ms']:.4f} ms (device {r['device_ms']} ms), plain "
@@ -931,6 +989,7 @@ def hard_phase(device, card: str) -> dict:
     autotune.clear_cache()   # the fits below resolve their own budgets
     out["untile"] = untile
     out["soft"] = soft
+    out["gathers"] = gathers
     return out
 
 
@@ -1022,13 +1081,12 @@ def pose_fit_phase(device, card: str, route: str,
     if counts != want:
         raise AssertionError(f"{route}: expected launches {want}, got "
                              f"{counts}")
-    prof = None
-    if route == "fragments":
-        prof = _busy_share(lambda: fitter.fit(
-            meshes, refs, params, n_steps=PROFILE_ITERS), PROFILE_ITERS,
-            top=5, named=("topk_select",))
-        print(f"[fit {route}] profile over {PROFILE_ITERS} iterations "
-              f"({card}): {prof}", flush=True)
+    prof = _busy_share(lambda: fitter.fit(
+        meshes, refs, params, n_steps=PROFILE_ITERS), PROFILE_ITERS,
+        top=5, named=(("topk_select",) if route == "fragments" else
+                      ("hard_k1", "soft_coverage")) + ("gather_fwd",))
+    print(f"[fit {route}] profile over {PROFILE_ITERS} iterations "
+          f"({card}): {prof}", flush=True)
     return {"counts": counts, "it_s_events": iters / events_s, "profile": prof,
             "it_s_wall": iters / wall_s, "loss": [float(loss[0]),
                                                    float(loss[-1])],
@@ -1745,7 +1803,6 @@ def batch_phase(device, card: str) -> dict:
     from torch_renderer_tpu_torch.rasterize import cuda_hard
     from torch_renderer_tpu_torch.rasterize.binning import (
         set_budget_check_default,
-        slot_faces,
     )
     from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
 
@@ -1819,12 +1876,8 @@ def batch_phase(device, card: str) -> dict:
     with torch.no_grad():
         fd = setup_face_planes(batched, rp.camera_with_pose(R, t))
         inp = cuda_hard.binned_inputs(fd, st)
-        idx = slot_faces(inp.bins, inp.slab.shape[2], empty=-1)
-        F = inp.planes.shape[1]
-        fid = torch.arange(F, dtype=torch.float32, device=device)
-        ch = torch.cat([inp.planes, fid.expand(BATCH_CHUNK, F)[..., None]],
-                       dim=-1)
-        gather = gather_check("720p call slab", idx, ch, card, bwd=False)
+        gather = gather_check("720p call slab", *_slab_gather_inputs(inp),
+                              card, bwd=False)
         k1 = hard_k1_check("720p call slab", inp, st, card)
         bins, fields = cuda_hard.binned_tile_fields(fd, st)
     untile, n_read = untile_check("720p call", bins, fields, BATCH_SIZE,
@@ -1884,7 +1937,8 @@ def main() -> None:
     print(log, flush=True)
     ptxas = ptxas_report(log)
     for k, v in ptxas.items():
-        if k.startswith(("soft_coverage", "topk_select", "untile_kernel")):
+        if k.startswith(("soft_coverage", "hard_k1", "topk_select",
+                         "gather_fwd", "untile_kernel")):
             print(f"ptxas {k}: {v.get('registers')} registers, "
                   f"{v.get('smem')} bytes static smem, spill stores "
                   f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
@@ -1926,7 +1980,9 @@ def main() -> None:
          "depth_call": {k: batch["hard_k1"][k] for k in (
              "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "bound_every_pair_ms", "box_pairs", "pairs", "diff_px")},
-         "launches_depth_app": batch["counts"]["hard_k1"]},
+         "launches_depth_app": batch["counts"]["hard_k1"],
+         "ptxas": ptxas.get("hard_k1_kernel"),
+         "pose_fit_profile": fits["pallas"]["profile"]},
         {"name": "topk_select", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_hard.py:237",
          "launches": joint["counts"]["topk_select"],
@@ -2005,7 +2061,16 @@ def main() -> None:
          "soft_slab_plain_ms": gs["plain_ms"],
          "soft_slab_bound_ms": gs["bound_ms"],
          "soft_slab_library_ms": gs["library_ms"],
-         "soft_slab_library_device_ms": gs["library_device_ms"]},
+         "soft_slab_library_device_ms": gs["library_device_ms"],
+         "launches_pose_fit": {r: f["counts"]["gather_tiles_fwd"]
+                               for r, f in fits.items()},
+         "fits_slabs": {k: {n: g[n] for n in (
+             "shape", "live", "ms", "device_ms", "plain_ms", "bound_ms",
+             "library_ms", "library_device_ms")}
+             for k, g in hard["gathers"].items() if k != "floor"},
+         "launch_floor": hard["gathers"]["floor"],
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("gather_fwd")}},
         {"name": "gather_tiles_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_gather.py:154",
          "launches": gs["launches_bwd"],
@@ -2016,7 +2081,12 @@ def main() -> None:
          "bound_by": gs["bwd"]["bound_by"],
          "library_ms": gs["bwd"]["library_ms"],
          "library_device_ms": gs["bwd"]["library_device_ms"],
-         "shape": gs["shape"]},
+         "shape": gs["shape"],
+         "launches_pose_fit": fits["pallas"]["counts"]["gather_tiles_bwd"],
+         "pallas_soft_slab": {k: hard["gathers"]["pallas_soft"]["bwd"][k]
+                              for k in ("max_abs_err", "ms", "device_ms",
+                                        "plain_ms", "bound_ms",
+                                        "library_ms", "library_device_ms")}},
     ]
     u, uf = batch["untile"], hard["untile"]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",

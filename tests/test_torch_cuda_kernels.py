@@ -220,6 +220,51 @@ def test_hard_k1_matches_plain(device, B, A, F, tile, blur, clip):
     assert bool((out[-1, -1] == empty).all())
 
 
+def _hard_k1_plan(tile: int, tiles: int, device):
+    """(P, R, S): the blocks a tile, rows a block and thread groups a
+    pixel of a hard_k1 launch over `tiles` tiles on this card."""
+    import ctypes
+
+    from torch_renderer_tpu_torch import _build
+
+    plan = (ctypes.c_int * 3)()
+    assert _build.load_kernels().trt_hard_k1_plan(
+        tile, tiles, ctypes.addressof(plan), device.index) == 0
+    return tuple(plan)
+
+
+# tests/test_torch_topk_split.py's slabs (ties from duplicated faces and
+# equal-depth planes, several staging chunks, an empty tile),
+# repeated over as many tiles as make the launcher take each of its plans
+# at this tile (1 to 8192 tiles): winners and all 8 rows equal the plain
+# version's.
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_hard_k1_plans_match_plain(device, tile):
+    from test_torch_topk_split import INV_S, topk_slabs
+
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    plans = {}
+    for k in range(53):
+        tiles = max(1, round(2 ** (k / 4)))
+        plans.setdefault(_hard_k1_plan(tile, tiles, device), tiles)
+    found = {S for _, _, S in plans}
+    assert min(found) == 1 and max(found) >= 4
+    F = 300 if tile <= 16 else 150
+    for (P, R, S), A in plans.items():
+        base = topk_slabs(tile + S, 1, 6, F, tile)   # tile 0 full, 5 empty
+        slab, count, origin = (t.repeat(1, -(-A // 6), *([1] * (t.ndim - 2)))
+                               [:, :A].contiguous().to(device) for t in base)
+        for blur, clip in ((0.0, False), (9.21e-4, True)):
+            args = (slab, count, origin, tile, INV_S, blur, 1e-5, clip)
+            before = cuda_hard.HARD_LAUNCHES
+            out = cuda_hard.hard_k1(*args)
+            torch.cuda.synchronize()
+            assert cuda_hard.HARD_LAUNCHES == before + 1
+            assert torch.equal(out, cuda_hard.hard_k1_reference(*args)), \
+                (P, R, S)
+
+
 # tests/test_torch_topk_split.py's slabs: faces with corners and edges on
 # pixel centres, faces smaller than a pixel, slivers (the cull's slack),
 # duplicated faces and equal-depth planes (ties), 150 candidates (two
@@ -460,10 +505,19 @@ def _gather_case(seed, B, T, S, F, C, device, dtype):
             torch.tensor(table, device=device), torch.tensor(g, device=device))
 
 
+# (8, 128, 128) x 6: the soft slab; (1, 64, 224 / 192) x 13 and
+# (1, 64, 128) x 6: the fits' slabs; (12, 336, 45) x 13: the depth call's,
+# rows of 2340 bytes (a head and a tail); (1, 3, 1) x 3: rows too short for
+# a 16-byte store.
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("B,T,S,F,C", [(2, 24, 16, 200, 12), (1, 5, 8, 130, 3),
                                        (8, 128, 128, 1280, 6),
-                                       (1, 8, 8, 2300, 2)])
+                                       (1, 8, 8, 2300, 2),
+                                       (1, 64, 224, 1280, 13),
+                                       (1, 64, 192, 1280, 13),
+                                       (1, 64, 128, 1280, 6),
+                                       (12, 336, 45, 1280, 13),
+                                       (1, 3, 1, 4, 3)])
 def test_gather_tiles_matches_plain(device, dtype, B, T, S, F, C):
     from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
 
@@ -479,6 +533,25 @@ def test_gather_tiles_matches_plain(device, dtype, B, T, S, F, C):
     torch.testing.assert_close(dt, ref, rtol=0,
                                atol=1e-6 * float(ref.abs().max()))
     assert bool((out[idx < 0] == 0).all())
+
+
+# ids outside [0, F) and an all-dead row, at rows whose byte size is and is
+# not a multiple of 16 (tests/test_torch_gather_plan.py's cases)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("B,T,S,F,C", [(2, 3, 128, 40, 6), (1, 4, 45, 50, 13),
+                                       (1, 2, 224, 300, 13), (2, 5, 7, 9, 1),
+                                       (1, 3, 1, 4, 3)])
+def test_gather_tiles_out_of_range_ids(device, dtype, B, T, S, F, C):
+    from test_torch_gather_plan import _case
+
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    idx, table = (t.to(device) for t in _case(B + T + S, B, T, S, F, C,
+                                               dtype))
+    out = cg.gather_tiles_fwd(idx, table)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cg.gather_tiles_reference(idx, table))
+    assert bool((out[0, 0] == 0).all())
 
 
 def test_gather_tiles_autograd(device):

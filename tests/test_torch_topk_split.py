@@ -28,7 +28,7 @@ import torch
 from torch_renderer_tpu_torch.rasterize import cuda_hard
 
 CHUNK = 256          # the kernel's candidates per shared-memory pass
-STAGE_BYTES = CHUNK * (8 + 19 * 4)   # its staged cull masks and faces
+STAGE_BYTES = CHUNK * (8 + 5 * 16)   # its staged cull masks and faces
 MAX_SMEM = 232448    # the shared memory a block may opt into
 INV_S = 1.0 / 16
 

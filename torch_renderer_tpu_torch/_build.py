@@ -108,6 +108,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_hard_k1.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, f32,
                                 f32, i32, i32, vp]
     lib.trt_hard_k1.restype = i32
+    lib.trt_hard_k1_plan.argtypes = [i32, ctypes.c_int64, vp, i32]
+    lib.trt_hard_k1_plan.restype = i32
     lib.trt_topk_select.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                     f32, f32, f32, i32, vp]
     lib.trt_topk_select.restype = i32
@@ -121,10 +123,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_texsample_bwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
                                       i32, i32, i32, i32, i32, i32, vp]
     lib.trt_texsample_bwd.restype = i32
-    for name in ("trt_gather_tiles_fwd", "trt_gather_tiles_bwd"):
-        getattr(lib, name).argtypes = [vp, i32, vp, vp, i32, i64, i32, i32,
-                                       i32, vp]
-        getattr(lib, name).restype = i32
+    lib.trt_gather_tiles_fwd.argtypes = [vp, i32, vp, vp, i32, i32, i32, i32,
+                                         i32, i32, i32, i32, vp]
+    lib.trt_gather_tiles_fwd.restype = i32
+    lib.trt_gather_tiles_bwd.argtypes = [vp, i32, vp, vp, i32, i64, i32, i32,
+                                         i32, vp]
+    lib.trt_gather_tiles_bwd.restype = i32
     lib.trt_untile_scatter_fields.argtypes = [vp, i32, vp, i32, i32, i32,
                                               i32, i32, i32, i32, i32, vp]
     lib.trt_untile_scatter_fields.restype = i32

@@ -11,8 +11,9 @@
 // A face covers a pixel when the pixel is inside it (or, with blur > 0,
 // within squared distance blur of its boundary), and its selection z
 //   zsel = sum relu(b) / max(sum relu(b) * invz, 1e-12)
-// is above znear. Ties keep the earlier slot: strict < while visiting slots
-// in ascending order, and a stable insertion for top-K.
+// is above znear. Ties keep the earlier slot: each thread group visits its
+// share of the slots in ascending order with strict < (a stable insertion
+// for top-K), and the groups merge in (zsel, slot) order.
 //
 // Every selection and interpolation formula is written with the _rn
 // intrinsics in the operation order of the plain PyTorch versions
@@ -37,8 +38,11 @@
 
 namespace {
 
-constexpr int kMaxPixels = 1024;   // one thread per pixel of a tile
-constexpr int kChunk = 128;        // candidates staged per shared-memory pass
+constexpr int kMaxPixels = 1024;   // threads of a block at most
+constexpr int kChunk = 256;        // candidates staged per shared-memory pass
+constexpr int kK1Chunk = 128;      // the same for hard_k1
+constexpr int kK1BlockPixels = 128;  // a hard_k1 block's pixels at most
+constexpr int kK1MaxGroups = 4;    // and its thread groups per pixel
 constexpr int kChannels = 13;
 constexpr int kMaxK = 64;
 constexpr float kInf = 3.0e38f;
@@ -49,7 +53,7 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
-// Per-face values that do not depend on the pixel, staged in shared memory.
+// Per-face values that do not depend on the pixel.
 struct Face {
   float qx[3], qy[3];
   float invz[3];
@@ -77,6 +81,32 @@ __device__ __forceinline__ void load_face(const float* __restrict__ c,
   const float area2 = sub(mul(sub(f.qx[1], f.qx[0]), sub(f.qy[2], f.qy[0])),
                           mul(sub(f.qy[1], f.qy[0]), sub(f.qx[2], f.qx[0])));
   f.inv_area = dvd(1.0f, fabsf(area2) > 1e-12f ? area2 : 1.0f);
+}
+
+// A Face as staged in shared memory: five float4s, so that a warp reads a
+// staged face with five broadcast 16-byte loads (four at blur 0, where the
+// edge lengths are not read), not nineteen of 4 bytes: the scan's loads of
+// shared memory, not its arithmetic, set its pace otherwise.
+struct __align__(16) FaceS {
+  float4 a;   // qx0 qy0 qx1 qy1
+  float4 b;   // qx2 qy2 gx0 gy0
+  float4 c;   // gx1 gy1 gx2 gy2
+  float4 d;   // inv_area invz0 invz1 invz2
+  float4 e;   // len2_0 len2_1 len2_2 -
+};
+
+__device__ __forceinline__ FaceS pack(const Face& f) {
+  return {make_float4(f.qx[0], f.qy[0], f.qx[1], f.qy[1]),
+          make_float4(f.qx[2], f.qy[2], f.gx[0], f.gy[0]),
+          make_float4(f.gx[1], f.gy[1], f.gx[2], f.gy[2]),
+          make_float4(f.inv_area, f.invz[0], f.invz[1], f.invz[2]),
+          make_float4(f.len2[0], f.len2[1], f.len2[2], 0.0f)};
+}
+
+__device__ __forceinline__ Face unpack(const FaceS& s) {
+  const float4 a = s.a, b = s.b, c = s.c, d = s.d, e = s.e;
+  return {{a.x, a.z, b.x}, {a.y, a.w, b.y}, {d.y, d.z, d.w},
+          {b.z, c.x, c.z}, {b.w, c.y, c.w}, {e.x, e.y, e.z}, d.x};
 }
 
 // Screen-space barycentrics of pixel (px, py); wx/wy are the pixel minus
@@ -132,101 +162,7 @@ __device__ __forceinline__ float priority(const Face& f, float px, float py,
   return zsel > znear ? zsel : kInf;
 }
 
-__device__ __forceinline__ void stage_chunk(const float* __restrict__ st,
-                                            int c0, int m, Face* faces) {
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    load_face(st + (long)(c0 + i) * kChannels, faces[i]);
-  }
-}
-
-// Replaces torch_renderer_tpu/rasterize/pallas_hard.py _hard_kernel (reached
-// through _tile_hard_fwd).
-// Bound: arithmetic and latency. A tile reads F * 52 bytes of candidates
-// for tile^2 * F (pixel, face) pairs of ~40 flops each, so device memory is
-// never the limit; at the pose fit's sizes (a few dozen tiles) the card is
-// far from full and launch latency dominates. Design: one block per
-// (batch, active tile), one thread per pixel; the tile's candidates stream
-// through shared memory in chunks with their per-face constants staged
-// there (every warp reads one face at a time: a broadcast). The trip count
-// is the tile's own count. Selection keeps only (priority, slot) per
-// thread; the winner is interpolated once at the end from its slab row,
-// instead of picking 5 interpolated values per chunk as the TPU kernel did.
-__global__ void __launch_bounds__(kMaxPixels)
-hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
-               const float* __restrict__ origin, float* __restrict__ out,
-               int A, int F, int tile, float inv_s, float blur, float znear,
-               int clip_bary) {
-  __shared__ Face faces[kChunk];
-  const long cell = (long)blockIdx.y * A + blockIdx.x;
-  const int n = max(0, min(count[cell], F));
-  const int tp = tile * tile;
-  const int p = threadIdx.x;
-  const float px = add(origin[2 * cell], mul((float)(p % tile), inv_s));
-  const float py = add(origin[2 * cell + 1], mul((float)(p / tile), inv_s));
-  const float* st = slab + cell * F * kChannels;
-
-  float best = kInf;
-  int lane = 0;
-  for (int c0 = 0; c0 < n; c0 += kChunk) {   // n is uniform in the block
-    const int m = min(kChunk, n - c0);
-    __syncthreads();                          // previous chunk consumed
-    stage_chunk(st, c0, m, faces);
-    __syncthreads();
-    for (int i = 0; i < m; ++i) {
-      const float pr = priority(faces[i], px, py, blur, znear);
-      if (pr < best) {
-        best = pr;
-        lane = c0 + i;
-      }
-    }
-  }
-  if (p >= tp) return;
-
-  float* o = out + cell * 8 * tp + p;
-  if (!(best < kInf)) {
-    o[0] = -1.0f;
-    o[tp] = 0.0f;
-    o[2 * tp] = 0.0f;
-    o[3 * tp] = 0.0f;
-    o[4 * tp] = kEmptyDist;
-    o[5 * tp] = -1.0f;
-    o[6 * tp] = 0.0f;
-    o[7 * tp] = 0.0f;
-    return;
-  }
-  const float* c = st + (long)lane * kChannels;
-  Face f;
-  load_face(c, f);
-  float wx[3], wy[3], b[3];
-  bary(f, px, py, wx, wy, b);
-  const bool inside = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f;
-  float pc[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) pc[k] = mul(b[k], f.invz[k]);
-  const float denom = fmaxf(add(add(pc[0], pc[1]), pc[2]), 1e-12f);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) pc[k] = dvd(pc[k], denom);
-  if (clip_bary) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pc[k] = fmaxf(pc[k], 0.0f);
-    const float rden = fmaxf(add(add(pc[0], pc[1]), pc[2]), 1e-12f);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pc[k] = dvd(pc[k], rden);
-  }
-  const float zbuf =
-      add(add(mul(pc[0], c[6]), mul(pc[1], c[7])), mul(pc[2], c[8]));
-  const float d2 = edge_dist2(f, wx, wy);
-  o[0] = zbuf;
-  o[tp] = pc[0];
-  o[2 * tp] = pc[1];
-  o[3 * tp] = pc[2];
-  o[4 * tp] = inside ? -d2 : d2;
-  o[5 * tp] = c[12];
-  o[6 * tp] = 1.0f;
-  o[7 * tp] = (float)lane;
-}
-
-// The top-K kernel's cull box of a staged face: its screen bounding box
+// The cull box of a staged face (both kernels): its screen bounding box
 // grown by a margin M past which no pixel can be covered, so a warp none of
 // whose pixels lies in the box skips the face and loses no winner (each
 // skipped pair would have had priority kInf). With eps = 2^-24, L the
@@ -256,8 +192,8 @@ hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
 // columns whose x lies in [x0, x1]. A pixel whose row or whose column is
 // not masked lies outside the box. A NaN box masks every row and column
 // (no cull); a NaN tile origin masks none, and then no pixel is covered.
-// tests/test_torch_topk_split.py cull_boxes copies this formula for its CPU
-// model of this kernel.
+// tests/test_torch_topk_split.py cull_boxes copies this formula for the CPU
+// models of both kernels.
 struct __align__(8) Cull {
   unsigned rows, cols;
 };
@@ -272,10 +208,12 @@ __device__ __forceinline__ unsigned grid_mask(float lo, float hi, float o,
                                               float inv_s, int tile) {
   const unsigned full = tile >= 32 ? 0xffffffffu : (1u << tile) - 1u;
   if (!(lo <= hi) || !(inv_s > 0.0f)) return full;
-  int a = (int)fminf(fmaxf(ceilf((lo - o) / inv_s), 0.0f), (float)tile);
+  // the estimates need no exact divide: the steps make them exact
+  int a = (int)fminf(fmaxf(ceilf(__fdividef(lo - o, inv_s)), 0.0f),
+                     (float)tile);
   while (a > 0 && grid_at(o, a - 1, inv_s) >= lo) --a;
   while (a < tile && grid_at(o, a, inv_s) < lo) ++a;
-  int b = (int)fminf(fmaxf(floorf((hi - o) / inv_s), -1.0f),
+  int b = (int)fminf(fmaxf(floorf(__fdividef(hi - o, inv_s)), -1.0f),
                      (float)(tile - 1));
   while (b < tile - 1 && grid_at(o, b + 1, inv_s) <= hi) ++b;
   while (b >= 0 && grid_at(o, b, inv_s) > hi) --b;
@@ -283,9 +221,9 @@ __device__ __forceinline__ unsigned grid_mask(float lo, float hi, float o,
   return (unsigned)(((1ull << (b - a + 1)) - 1ull) << a);
 }
 
-__device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
-                                           float ox, float oy, float inv_s,
-                                           int tile) {
+// The grown box (x0, x1, y0, y1) of a face: infinite without a cull, NaN
+// for a NaN corner.
+__device__ __forceinline__ float4 cull_box(const Face& f, float sqrt_blur) {
   constexpr float kEps = 5.9604645e-08f;   // 2^-24
   const float L2 = fmaxf(fmaxf(f.len2[0], f.len2[1]), f.len2[2]);
   const float L = sqrtf(L2);
@@ -308,8 +246,15 @@ __device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
     M = 1.001f * (sqrt_blur * 1.002f + 4e-3f * L + 40.0f * kEps * L * L2 / area)
         + 4.0f * kEps * C;
   }
-  return {grid_mask(y0 - M, y1 + M, oy, inv_s, tile),
-          grid_mask(x0 - M, x1 + M, ox, inv_s, tile)};
+  return make_float4(x0 - M, x1 + M, y0 - M, y1 + M);
+}
+
+__device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
+                                           float ox, float oy, float inv_s,
+                                           int tile) {
+  const float4 b = cull_box(f, sqrt_blur);
+  return {grid_mask(b.z, b.w, oy, inv_s, tile),
+          grid_mask(b.x, b.y, ox, inv_s, tile)};
 }
 
 // A thread's sorted list of (zsel, slot) entries, K of them, in shared
@@ -355,8 +300,7 @@ struct TopkList {
   __device__ __forceinline__ int slot(int j) const { return s[j * stride]; }
 };
 
-constexpr int kTopkChunk = 256;   // candidates staged per pass (top-K)
-constexpr int kStageBytes = kTopkChunk * (int)(sizeof(Cull) + sizeof(Face));
+constexpr int kStageBytes = kChunk * (int)(sizeof(Cull) + sizeof(FaceS));
 constexpr int kMaxSmem = 232448;  // the most shared memory a block may opt into
 
 // The warp-uniform cull and the scan of one group's share of the tile's
@@ -365,7 +309,7 @@ constexpr int kMaxSmem = 232448;  // the most shared memory a block may opt into
 __device__ __forceinline__ void topk_scan(
     const float* __restrict__ st, int n, int S, int grp, int np, int pb,
     int tile, float ox, float oy, float px, float py, float inv_s,
-    float blur, float znear, Cull* culls, Face* faces, TopkList& list) {
+    float blur, float znear, Cull* culls, FaceS* faces, TopkList& list) {
   // This warp's rows and columns of the tile: all of them when the warp
   // spans two groups.
   unsigned wrows, wcols;
@@ -387,19 +331,21 @@ __device__ __forceinline__ void topk_scan(
     wrows = (unsigned)(((1ull << (r_hi - r_lo + 1)) - 1ull) << r_lo);
     wcols = (unsigned)(((1ull << (c_hi - c_lo + 1)) - 1ull) << c_lo);
   }
-  for (int c0 = 0; c0 < n; c0 += kTopkChunk) {   // n is uniform in the block
-    const int m = min(kTopkChunk, n - c0);
+  for (int c0 = 0; c0 < n; c0 += kChunk) {   // n is uniform in the block
+    const int m = min(kChunk, n - c0);
     __syncthreads();                             // previous chunk consumed
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      load_face(st + (long)(c0 + i) * kChannels, faces[i]);
-      culls[i] = cull_masks(faces[i], sqrtf(fmaxf(blur, 0.0f)), ox, oy,
-                            inv_s, tile);
+      Face f;
+      load_face(st + (long)(c0 + i) * kChannels, f);
+      faces[i] = pack(f);
+      culls[i] = cull_masks(f, sqrtf(fmaxf(blur, 0.0f)), ox, oy, inv_s,
+                            tile);
     }
     __syncthreads();
     for (int i = grp; i < m; i += S) {
       const Cull c = culls[i];                   // one face for the warp
       if (!(c.rows & wrows) || !(c.cols & wcols)) continue;
-      const float cz = priority(faces[i], px, py, blur, znear);
+      const float cz = priority(unpack(faces[i]), px, py, blur, znear);
       if (cz < list.kth) list.push<false>(cz, c0 + i);
     }
   }
@@ -442,7 +388,7 @@ topk_select_kernel(const float* __restrict__ slab,
                    float znear) {
   extern __shared__ float4 smem[];   // staging, then each thread's list
   Cull* culls = reinterpret_cast<Cull*>(smem);
-  Face* faces = reinterpret_cast<Face*>(culls + kTopkChunk);
+  FaceS* faces = reinterpret_cast<FaceS*>(culls + kChunk);
   const int nt = blockDim.x;
   float* zl = reinterpret_cast<float*>(
       reinterpret_cast<char*>(smem) + kStageBytes);
@@ -481,6 +427,203 @@ topk_select_kernel(const float* __restrict__ slab,
   for (int j = 0; j < K; ++j) o[(long)j * tp] = list.slot(j);
 }
 
+// raw[k] = src[k] for k < nk, k = t, t + nt, ...: cp.async copies that go
+// straight to shared memory, all in flight at once (a plain copy outside
+// device code); the caller waits with copy_wait.
+__device__ __forceinline__ void copy_rows(const float* __restrict__ src,
+                                          float* raw, int t, int nk,
+                                          int nt) {
+  for (int k = t; k < nk; k += nt) {
+#if defined(__CUDA_ARCH__)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(raw + k)),
+                 "l"(src + k));
+#else
+    raw[k] = src[k];
+#endif
+  }
+}
+
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Replaces torch_renderer_tpu/rasterize/pallas_hard.py _hard_kernel (reached
+// through _tile_hard_fwd; _tile_select_packed is routed here).
+// Bound: latency and issue; device memory only at the depth call's size. A
+// tile reads F * 52 bytes of candidates and writes 8 rows of tile^2
+// floats; a live pair costs ~35 operations, and only the pairs whose pixel
+// lies near the face need them. At the pose fit's 64 tiles a block's fixed
+// latency (the tile's loads, its staging, barriers, the epilogue) and the
+// serial work of the busiest tile set the time; at the depth call's 4032
+// tiles of 32^2 the instructions of the (pixel, face) tests and of the
+// epilogue do, against a bound of its 8 output rows (132 MB).
+// Design, per block = (batch, active tile, rows of the tile):
+//  * Threads are (column, row, group): blockDim = (tile, R, S), so a
+//    thread finds its pixel and group with no division. P = gridDim.z
+//    blocks of R rows share a tile, with S thread groups per pixel
+//    (k1_plan): blocks of at most kK1BlockPixels pixels, split further
+//    while the launch has fewer blocks than the card has SMs (the busiest
+//    tile's work then spreads over several SMs), then the most groups that
+//    keep every block resident at once.
+//  * Staging: the chunk's live slab rows, contiguous in device memory, are
+//    copied into shared memory by all threads at once (cp.async, every
+//    copy in flight together); then each row becomes a packed face (FaceS)
+//    and its grown box (cull_box, the margin topk_select's masks are built
+//    from).
+//  * Scan: group s takes chunk entries s, s + S, ... in ascending slot
+//    order. A warp's lanes first test as many of its entries at once
+//    against the warp's pixel span (a face whose box lies wholly above,
+//    below, left or right of every pixel of the warp covers none: its
+//    priority would be kInf); a ballot gives the warp the faces it must
+//    evaluate, in slot order, so a skipped face costs nothing. Each thread
+//    keeps (zsel, slot) in registers; strict < keeps a group's lowest slot
+//    among equal zsel.
+//  * Merge: group 0 takes the (zsel, slot) lexicographic minimum over the
+//    groups through shared memory: the lowest slot among the lowest zsel,
+//    as one pass in slot order finds.
+//  * Epilogue: group 0 interpolates the winner from its staged face and
+//    slab row where the last chunk holds it (always when the count is at
+//    most kK1Chunk), else from device memory, and writes the 8 rows (a
+//    warp's pixels are neighbours in each row).
+// Winners and values equal hard_k1_reference bit for bit: the same _rn
+// arithmetic, and the same winner.
+__global__ void __launch_bounds__(kMaxPixels)
+hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
+               const float* __restrict__ origin, float* __restrict__ out,
+               int A, int F, float inv_s, float blur, float znear,
+               int clip_bary) {
+  __shared__ float raw[kK1Chunk * kChannels];  // the chunk's slab rows
+  __shared__ FaceS faces[kK1Chunk];
+  __shared__ float4 boxes[kK1Chunk];         // x0 x1 y0 y1, grown
+  extern __shared__ float4 k1_merge[];       // the groups' entries (S > 1)
+  const int tile = blockDim.x, np = tile * blockDim.y;
+  const int nt = np * blockDim.z;            // the block's threads
+  const int t = threadIdx.x + tile * (threadIdx.y + blockDim.y * threadIdx.z);
+  const int grp = threadIdx.z;
+  const int row = blockIdx.z * blockDim.y + threadIdx.y, col = threadIdx.x;
+  const long cell = (long)blockIdx.y * A + blockIdx.x;
+  const float* st = slab + cell * F * kChannels;
+  const int n = max(0, min(count[cell], F));
+  const float ox = origin[2 * cell], oy = origin[2 * cell + 1];
+  const float px = grid_at(ox, col, inv_s);
+  const float py = grid_at(oy, row, inv_s);
+  const float sqrt_blur = sqrtf(fmaxf(blur, 0.0f));
+  // This warp's pixel span: the box of its threads' rows and columns (the
+  // launcher keeps a warp within one group).
+  const int nl = min(32, nt - (t & ~31));    // the warp's threads
+  const unsigned lanes = nl == 32 ? 0xffffffffu : (1u << nl) - 1u;
+  const float wy0 = grid_at(oy, __reduce_min_sync(lanes, row), inv_s);
+  const float wy1 = grid_at(oy, __reduce_max_sync(lanes, row), inv_s);
+  const float wx0 = grid_at(ox, __reduce_min_sync(lanes, col), inv_s);
+  const float wx1 = grid_at(ox, __reduce_max_sync(lanes, col), inv_s);
+  float best = kInf;
+  int lane = 0;
+  for (int c0 = 0; c0 < n; c0 += kK1Chunk) {   // n is uniform in the block
+    const int m = min(kK1Chunk, n - c0);     // live entries of the chunk
+    if (c0) __syncthreads();                 // previous chunk consumed
+    copy_rows(st + (long)c0 * kChannels, raw, t, m * kChannels, nt);
+    copy_wait();
+    __syncthreads();
+    for (int i = t; i < m; i += nt) {
+      Face f;
+      load_face(raw + i * kChannels, f);
+      faces[i] = pack(f);
+      boxes[i] = cull_box(f, sqrt_blur);
+    }
+    __syncthreads();
+    for (int k0 = grp; k0 < m; k0 += nl * (int)blockDim.z) {
+      // lane j tests entry k0 + j * S against the warp's pixel span
+      const int i = k0 + (t & 31) * blockDim.z;
+      bool keep = false;
+      if (i < m) {
+        const float4 b = boxes[i];
+        keep = !(wy1 < b.z || wy0 > b.w || wx1 < b.x || wx0 > b.y);
+      }
+      for (unsigned todo = __ballot_sync(lanes, keep); todo;
+           todo &= todo - 1) {
+        const int e = k0 + (__ffs(todo) - 1) * blockDim.z;
+        const float cz = priority(unpack(faces[e]), px, py, blur, znear);
+        if (cz < best) {
+          best = cz;
+          lane = c0 + e;
+        }
+      }
+    }
+  }
+  if (blockDim.z > 1) {
+    float* mz = reinterpret_cast<float*>(k1_merge);
+    int* ms = reinterpret_cast<int*>(mz + nt);
+    mz[t] = best;
+    ms[t] = lane;
+    __syncthreads();
+    if (grp == 0) {
+      for (int g = 1; g < (int)blockDim.z; ++g) {
+        const float cz = mz[t + g * np];
+        const int cl = ms[t + g * np];
+        if (cz < best || (cz == best && cl < lane)) {
+          best = cz;
+          lane = cl;
+        }
+      }
+    }
+  }
+  if (grp != 0 || row >= tile) return;
+
+  const int tp = tile * tile;
+  float* o = out + cell * 8 * tp + row * tile + col;
+  if (!(best < kInf)) {
+    o[0] = -1.0f;
+    o[tp] = 0.0f;
+    o[2 * tp] = 0.0f;
+    o[3 * tp] = 0.0f;
+    o[4 * tp] = kEmptyDist;
+    o[5 * tp] = -1.0f;
+    o[6 * tp] = 0.0f;
+    o[7 * tp] = 0.0f;
+    return;
+  }
+  const int staged = lane - (n - 1) / kK1Chunk * kK1Chunk;  // last chunk
+  Face f;
+  const float* c;
+  if (staged >= 0) {
+    f = unpack(faces[staged]);
+    c = raw + staged * kChannels;
+  } else {
+    c = st + (long)lane * kChannels;
+    load_face(c, f);
+  }
+  float wx[3], wy[3], b[3];
+  bary(f, px, py, wx, wy, b);
+  const bool inside = b[0] >= 0.0f && b[1] >= 0.0f && b[2] >= 0.0f;
+  float pc[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pc[k] = mul(b[k], f.invz[k]);
+  const float denom = fmaxf(add(add(pc[0], pc[1]), pc[2]), 1e-12f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pc[k] = dvd(pc[k], denom);
+  if (clip_bary) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pc[k] = fmaxf(pc[k], 0.0f);
+    const float rden = fmaxf(add(add(pc[0], pc[1]), pc[2]), 1e-12f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pc[k] = dvd(pc[k], rden);
+  }
+  const float zbuf = add(add(mul(pc[0], c[6]), mul(pc[1], c[7])),
+                         mul(pc[2], c[8]));
+  const float d2 = edge_dist2(f, wx, wy);
+  o[0] = zbuf;
+  o[tp] = pc[0];
+  o[2 * tp] = pc[1];
+  o[3 * tp] = pc[2];
+  o[4 * tp] = inside ? -d2 : d2;
+  o[5 * tp] = c[12];
+  o[6 * tp] = 1.0f;
+  o[7 * tp] = (float)lane;
+}
+
 int check_shape(int B, int A, int F, int tile) {
   if (B <= 0 || B > 65535 || A <= 0 || F <= 0 || tile <= 0 ||
       tile * tile > kMaxPixels) {
@@ -493,6 +636,74 @@ int check_shape(int B, int A, int F, int tile) {
 // each thread's K entries of 8 bytes.
 long topk_smem(int nt, int K) {
   return kStageBytes + (long)nt * K * (sizeof(float) + sizeof(int));
+}
+
+// The SM count of a device into *sms, read once; returns a CUDA error.
+int sm_count(int device, int* sms) {
+  static int cached[64] = {0};
+  if (device >= 0 && device < 64 && cached[device]) {
+    *sms = cached[device];
+    return 0;
+  }
+  const int err = (int)cudaDeviceGetAttribute(
+      sms, cudaDevAttrMultiProcessorCount, device);
+  if (!err && device >= 0 && device < 64) cached[device] = *sms;
+  return err;
+}
+
+// Dynamic shared memory of a hard_k1 block of `threads` threads in S > 1
+// groups: each thread's (zsel, slot) for the merge.
+size_t k1_smem(int threads, int S) {
+  return S > 1 ? (size_t)threads * (sizeof(float) + sizeof(int)) : 0;
+}
+
+// Blocks of `threads` threads of hard_k1 in several groups an SM holds at
+// once (registers and shared memory), per device and warp count, read once.
+int k1_resident(int device, int threads, int* blocks) {
+  static int cached[64][kMaxPixels / 32 + 1] = {};
+  const int w = (threads + 31) / 32;
+  if (device >= 0 && device < 64 && cached[device][w]) {
+    *blocks = cached[device][w];
+    return 0;
+  }
+  const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, hard_k1_kernel, threads, k1_smem(threads, 2));
+  if (!err && device >= 0 && device < 64) cached[device][w] = *blocks;
+  return err;
+}
+
+// A hard_k1 launch's plan for `tiles` tiles: P blocks of R rows share a
+// tile, with S thread groups per pixel. Blocks hold at most
+// kK1BlockPixels pixels (whole rows), and R halves (to two warps of
+// pixels at least) while the launch has fewer blocks than the card has
+// SMs: the busiest tile's work then spreads over several SMs. S is the
+// largest power of two up to kK1MaxGroups with S * R * tile <= 1024 for
+// which every block of the launch is resident at once; 1 where R * tile is
+// not a whole number of warps (a warp never spans two groups). The winner
+// does not depend on the plan.
+int k1_plan(int device, int tile, long long tiles, int* P, int* R,
+            int* S) {
+  int sms = 0;
+  int err = sm_count(device, &sms);
+  if (err) return err;
+  int r = min(tile, max(1, kK1BlockPixels / tile));
+  while (tiles * ((tile + r - 1) / r) < sms && r % 2 == 0 &&
+         (r / 2) * tile % 64 == 0) {
+    r /= 2;
+  }
+  const int np = r * tile;
+  int s = 1;
+  while (np % 32 == 0 && 2 * s <= kK1MaxGroups && 2 * s * np <= kMaxPixels) {
+    int resident = 0;
+    err = k1_resident(device, 2 * s * np, &resident);
+    if (err) return err;
+    if (tiles * ((tile + r - 1) / r) > (long long)resident * sms) break;
+    s *= 2;
+  }
+  *P = (tile + r - 1) / r;
+  *R = r;
+  *S = s;
+  return 0;
 }
 
 }  // namespace
@@ -510,9 +721,25 @@ int trt_hard_k1(const float* slab, const int* count, const float* origin,
   if (err) return err;
   err = (int)cudaSetDevice(device);
   if (err) return err;
-  hard_k1_kernel<<<dim3(A, B), tile * tile, 0, (cudaStream_t)stream>>>(
-      slab, count, origin, out, A, F, tile, inv_s, blur, znear, clip_bary);
+  int P = 0, R = 0, S = 0;
+  err = k1_plan(device, tile, (long long)A * B, &P, &R, &S);
+  if (err) return err;
+  hard_k1_kernel<<<dim3(A, B, P), dim3(tile, R, S),
+                   k1_smem(tile * R * S, S), (cudaStream_t)stream>>>(
+      slab, count, origin, out, A, F, inv_s, blur, znear, clip_bary);
   return (int)cudaGetLastError();
+}
+
+// The plan a hard_k1 launch over `tiles` tiles takes on `device`
+// (k1_plan): P, R and S into plan[0], plan[1], plan[2]. The card tests
+// read it to reach every plan.
+int trt_hard_k1_plan(int tile, long long tiles, int* plan, int device) {
+  if (tile <= 0 || tile * tile > kMaxPixels || tiles <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int err = (int)cudaSetDevice(device);
+  if (err) return err;
+  return k1_plan(device, tile, tiles, plan, plan + 1, plan + 2);
 }
 
 int trt_topk_select(const float* slab, const int* count, const float* origin,

@@ -16,10 +16,13 @@ gradient).
 For each kernel the module keeps its plain PyTorch version
 (``gather_tiles_reference``: index, then mask; ``gather_tiles_bwd_reference``:
 ``scatter_add_``): a wrapper uses it for a tensor on the CPU, launches the
-kernel for a CUDA tensor, and raises for anything else.
+kernel for a CUDA tensor, and raises for anything else. The forward
+kernel's launch plan (``gather_plan``) is made here, on the host.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -66,6 +69,31 @@ def gather_tiles_bwd_reference(idx: torch.Tensor, g: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The forward kernel's launch plan
+# ---------------------------------------------------------------------------
+
+MAX_FWD_THREADS = 256   # a forward block's threads at most
+
+
+class GatherPlan(NamedTuple):
+    """How the forward kernel covers the slab's rows (one row per (b, t):
+    its S * C floats, contiguous), each thread writing 4 floats with one
+    16-byte store."""
+
+    threads: int   # threads a block, a multiple of 32
+    chunks: int    # blocks sharing a row
+
+
+def gather_plan(S: int, C: int) -> GatherPlan:
+    """The forward kernel's plan for rows of S slots of C floats: as many
+    threads as the row has 16-byte units, up to MAX_FWD_THREADS (whole
+    warps, one at least), and enough blocks to cover the row."""
+    units = S * C // 4
+    threads = min(MAX_FWD_THREADS, max(32, -(-units // 32) * 32))
+    return GatherPlan(threads, max(1, -(-units // threads)))
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -102,7 +130,7 @@ def gather_tiles_fwd(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         return out.zero_()
     launch("trt_gather_tiles_fwd", idx.data_ptr(),
            int(idx.dtype == torch.int64), table.data_ptr(), out.data_ptr(), B,
-           T * S, F, C, device=idx.device)
+           T, S, F, C, *gather_plan(S, C), device=idx.device)
     GATHER_FWD_LAUNCHES += 1
     return out
 
