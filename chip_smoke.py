@@ -21,8 +21,9 @@ Drives, through the port's public entry points:
      gather_tiles_fwd at the fits' three slabs (the pallas route's K=1
      hard slab and the fragments route's K=4 one, 13 channels, and the
      pallas route's silhouette slab, 6) equal to plain, gather_tiles_bwd at
-     the silhouette slab, and the forward's launch floor (its time on a
-     one-slot input); untile_scatter on the K=4 raster's four fields in one
+     the silhouette slab, and both kernels' launch floor (their time on a
+     one-slot input; the backward's also with every kernel its wrapper
+     launches); untile_scatter on the K=4 raster's four fields in one
      launch, the shape the fits launch it at, equal to its plain version;
      and the soft kernel pair against its plain versions at the pallas
      route's silhouette slab (lane layout, tile 16, every tile active);
@@ -107,7 +108,9 @@ or per point as the OPS constants below say; the gather pair and the untile
 kernel are copies, bound by bytes alone. The hard kernels' operations count
 the full priority only for pairs whose pixel lies in the face's bounding
 box grown by sqrt(blur) (the pairs it can cover) and a box test for every
-other live pair. The soft forward's count the full pair only where its
+other live pair; points_select's count its coverage test only for pairs
+whose pixel lies in the splat's box x +- r, y +- r, and a box test for
+the rest. The soft forward's count the full pair only where its
 term is not exactly +0.0, the edge math alone where it is and the pixel
 lies in the face's box grown by sqrt(104 sigma), and a box test for every
 other live pair. Their every-pair count, as the plain versions evaluate
@@ -291,14 +294,10 @@ def time_ms(fn, reps: int = TIMING_REPS) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, name: str | None, reps: int = TIMING_REPS):
-    """Mean device time per call of fn() of the kernels whose name holds
-    `name` (of every kernel in the window with None: a library call's),
-    by torch.profiler: the kernels alone, where time_ms also sees the
-    host's launch cost when that is the longer. A window that records no
-    device event at all (seen on the card once or twice a run) is profiled
-    again, up to three windows; None if the profiler still records no such
-    kernel."""
+def _device_events(fn, reps: int = TIMING_REPS) -> list:
+    """The device events of `reps` calls of fn() in one torch.profiler
+    window. A window that records no device event at all (seen on the card
+    once or twice a run) is profiled again, up to three windows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,7 +312,17 @@ def device_ms(fn, name: str | None, reps: int = TIMING_REPS):
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
         if events:
-            break
+            return events
+    return []
+
+
+def device_ms(fn, name: str | None, reps: int = TIMING_REPS):
+    """Mean device time per call of fn() of the kernels whose name holds
+    `name` (of every kernel in the window with None: a library call's),
+    by torch.profiler: the kernels alone, where time_ms also sees the
+    host's launch cost when that is the longer. None if the profiler
+    records no such kernel."""
+    events = _device_events(fn, reps)
     us = [e.time_range.end - e.time_range.start for e in events
           if name is None or name in e.name]
     if not us:
@@ -321,6 +330,25 @@ def device_ms(fn, name: str | None, reps: int = TIMING_REPS):
               f"{sorted({e.name for e in events})}", flush=True)
         return None
     return sum(us) / 1e3 / reps
+
+
+def wrapper_device(fn, reps: int = TIMING_REPS) -> dict:
+    """Everything fn() puts on the device, by torch.profiler: device ms
+    per call of all its events (a zero fill's too), events per call and
+    their names."""
+    events = _device_events(fn, reps)
+    return {"all_device_ms": sum(e.time_range.end - e.time_range.start
+                                 for e in events) / 1e3 / reps,
+            "kernels_per_call": len(events) / reps,
+            "kernel_names": sorted({_short(e.name) for e in events})}
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, anonymous namespace and
+    argument list (its template arguments stay: a fill shows its
+    functor)."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0][:80]
 
 
 def reset_counts() -> None:
@@ -393,8 +421,9 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
     cotangent) against the plain versions at these inputs: the forward must
     be equal (a copy), the backward within 1e-6 of the largest table
     gradient (float32 atomics add a row's terms in an order that changes
-    from run to run). Times by events and by the profiler; the library
-    yardsticks are one Tensor.gather plus the mask (forward) and one
+    from run to run). Times by events and by the profiler (the backward
+    also with every kernel its wrapper launches); the library yardsticks
+    are one Tensor.gather plus the mask (forward) and one
     scatter_add_ (backward) on precomputed indices, by events and by the
     profiler (every kernel of the call: the mask and the zero fill too)."""
     from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
@@ -453,6 +482,9 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
             "ms": time_ms(lambda: cg.gather_tiles_bwd(idx, g, F)),
             "device_ms": device_ms(lambda: cg.gather_tiles_bwd(idx, g, F),
                                    "gather_bwd_kernel"),
+            # every kernel of the wrapper: on trees before the one-launch
+            # backward, a zero fill and the kernel
+            **wrapper_device(lambda: cg.gather_tiles_bwd(idx, g, F)),
             "plain_ms": time_ms(
                 lambda: cg.gather_tiles_bwd_reference(idx, g, F)),
             "library_ms": time_ms(lambda: torch.zeros_like(table).scatter_add_(
@@ -467,16 +499,23 @@ def gather_check(tag: str, idx, table, card: str, bwd: bool) -> dict:
 
 
 def gather_floor(device, card: str) -> dict:
-    """The forward gather's launch floor: its time on a one-slot input
-    (one live id, a 13-channel table), by events and alone."""
+    """The gather pair's launch floor: each kernel's time on a one-slot
+    input (one live id, a 13-channel table), by events and alone; the
+    backward's also with everything its wrapper launches."""
     from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
 
     idx = torch.zeros((1, 1, 1), dtype=torch.int64, device=device)
     table = torch.ones((1, 1, 13), device=device)
+    g = torch.ones((1, 1, 1, 13), device=device)
     rec = {"shape": [1, 1, 1, 13],
            "ms": time_ms(lambda: cg.gather_tiles_fwd(idx, table)),
            "device_ms": device_ms(lambda: cg.gather_tiles_fwd(idx, table),
-                                  "gather_fwd_kernel")}
+                                  "gather_fwd_kernel"),
+           "bwd": {"ms": time_ms(lambda: cg.gather_tiles_bwd(idx, g, 1)),
+                   "device_ms": device_ms(
+                       lambda: cg.gather_tiles_bwd(idx, g, 1),
+                       "gather_bwd_kernel"),
+                   **wrapper_device(lambda: cg.gather_tiles_bwd(idx, g, 1))}}
     print(f"[gather] launch floor, one slot ({card}): {rec}", flush=True)
     return rec
 
@@ -1461,6 +1500,45 @@ def _rim_share(frags_b, frags_d, cloud, cam, radius: float) -> dict:
             "share": n / max(covered, 1)}
 
 
+def point_box_pairs(slab, count, origin, offs, r2, znear: float) -> int:
+    """Live (pixel, candidate) pairs whose pixel lies in the splat's box
+    x +- r, y +- r (r = sqrt(r^2); none for a point at or behind znear):
+    a splat covers no pixel outside it, so only these pairs need the
+    coverage test; the others need only a box test. Pixel coordinates are
+    origin + offs, a row-major tile grid."""
+    tile = math.isqrt(offs.shape[0])
+    P = max(1, int(count.max()))
+    x, y, z = (slab[:, :, :P, c] for c in range(3))
+    rr = slab[:, :, :P, 3] if r2 is None else torch.full_like(x, r2)
+    r = torch.sqrt(rr.clamp_min(0.0))[..., None]
+    xs = (offs[:tile, 0] + origin[..., 0:1])[:, :, None, :]   # (B, A, 1, T)
+    ys = (offs[::tile, 1] + origin[..., 1:2])[:, :, None, :]
+    nx = ((xs >= x[..., None] - r) & (xs <= x[..., None] + r)).sum(-1)
+    ny = ((ys >= y[..., None] - r) & (ys <= y[..., None] + r)).sum(-1)
+    live = ((torch.arange(P, device=slab.device) < count[..., None])
+            & (z > znear) & (rr >= 0.0))
+    return int((nx * ny * live).sum())
+
+
+def points_plan(tile: int, K: int, tiles: int, device):
+    """(P, R, S) of a points_select launch over `tiles` tiles: blocks a
+    tile, rows a block, thread groups a pixel (the launcher's plan); None
+    for a library without the planner (trees before the split kernel)."""
+    import ctypes
+
+    from torch_renderer_tpu_torch import _build
+
+    lib = _build.load_kernels()
+    if not hasattr(lib, "trt_points_plan"):
+        return None
+    plan = (ctypes.c_int * 3)()
+    rc = lib.trt_points_plan(tile, K, tiles, ctypes.addressof(plan),
+                             device.index)
+    if rc:
+        raise RuntimeError(f"trt_points_plan failed: CUDA error {rc}")
+    return list(plan)
+
+
 def points_phase(device, card: str) -> dict:
     from torch_renderer_tpu_torch.rasterize import autotune, cuda_points
     from torch_renderer_tpu_torch.rasterize.binning import (
@@ -1529,12 +1607,22 @@ def points_phase(device, card: str) -> dict:
         B_, A_, P_, C_ = inp.slab.shape
         tp = inp.offs.shape[0]
         Kp = st.points_per_pixel
-        b = bound(live * (16 if inp.r2 is None else 12) + B_ * A_ * 12
-                  + tp * 8 + B_ * A_ * Kp * tp * 4, live * tp * OPS_POINTS)
+        n_bytes = (live * (16 if inp.r2 is None else 12) + B_ * A_ * 12
+                   + tp * 8 + B_ * A_ * Kp * tp * 4)
+        n_box = point_box_pairs(inp.slab, inp.count, inp.origin, inp.offs,
+                                inp.r2, st.znear)
+        b = bound(n_bytes, n_box * OPS_POINTS
+                  + (live * tp - n_box) * OPS_BOX)
+        every = bound(n_bytes, live * tp * OPS_POINTS)
         kern[name] = {
             "max_abs_err": 0.0 if same else float("inf"),
             "shape": list(inp.slab.shape), "live": live,
             "max_per_tile": int(inp.count.max()),
+            "mean_per_tile": live / (B_ * A_),
+            "plan": points_plan(math.isqrt(tp), Kp, B_ * A_, inp.slab.device),
+            "box_pairs": n_box, "pairs": live * tp,
+            "bound_every_pair_ms": every["bound_ms"],
+            "bound_every_pair_by": every["bound_by"],
             "covered_px": int((lane_k[:, :, 0] >= 0).sum()),
             "ms": time_ms(lambda: cuda_points.points_select(*args)),
             "device_ms": device_ms(lambda: cuda_points.points_select(*args),
@@ -1548,7 +1636,9 @@ def points_phase(device, card: str) -> dict:
               f"{kern[name]['ms']:.4f} ms (device {kern[name]['device_ms']} "
               f"ms), plain {kern[name]['plain_ms']:.4f} ms, bound "
               f"{b['bound_ms']:.6f} ms ({b['bound_by']}: {b['bytes']} B, "
-              f"{b['ops']} op) on {card}", flush=True)
+              f"{b['ops']} op; {n_box} of {live * tp} live pairs in a "
+              f"splat's box), every-pair bound {every['bound_ms']:.6f} ms; "
+              f"plan (P, R, S) {kern[name]['plan']} on {card}", flush=True)
         if not same:
             raise AssertionError(f"points_select ({name} r^2) disagrees with "
                                  "its plain version")
@@ -1938,7 +2028,8 @@ def main() -> None:
     ptxas = ptxas_report(log)
     for k, v in ptxas.items():
         if k.startswith(("soft_coverage", "hard_k1", "topk_select",
-                         "gather_fwd", "untile_kernel")):
+                         "points_select", "gather_fwd", "gather_bwd",
+                         "untile_kernel")):
             print(f"ptxas {k}: {v.get('registers')} registers, "
                   f"{v.get('smem')} bytes static smem, spill stores "
                   f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
@@ -2042,9 +2133,17 @@ def main() -> None:
          "ms": ku["ms"], "device_ms": ku["device_ms"],
          "plain_ms": ku["plain_ms"], "bound_ms": ku["bound_ms"],
          "bound_by": ku["bound_by"], "library_ms": None,
+         "bound_every_pair_ms": ku["bound_every_pair_ms"],
+         "box_pairs": ku["box_pairs"], "pairs": ku["pairs"],
+         "plan": ku["plan"], "max_per_tile": ku["max_per_tile"],
+         "mean_per_tile": ku["mean_per_tile"],
          "per_point_ms": kp["ms"], "per_point_device_ms": kp["device_ms"],
          "per_point_plain_ms": kp["plain_ms"],
-         "per_point_bound_ms": kp["bound_ms"]})
+         "per_point_bound_ms": kp["bound_ms"],
+         "per_point_bound_every_pair_ms": kp["bound_every_pair_ms"],
+         "per_point_box_pairs": kp["box_pairs"],
+         "per_point_plan": kp["plan"],
+         "ptxas": ptxas.get("points_select_kernel")})
     g7, gs = batch["gather"], soft_gather
     source = "torch_renderer_tpu_torch/csrc/gather_tiles.cu"
     kernels += [
@@ -2082,11 +2181,17 @@ def main() -> None:
          "library_ms": gs["bwd"]["library_ms"],
          "library_device_ms": gs["bwd"]["library_device_ms"],
          "shape": gs["shape"],
+         "all_device_ms": gs["bwd"]["all_device_ms"],
+         "kernels_per_call": gs["bwd"]["kernels_per_call"],
          "launches_pose_fit": fits["pallas"]["counts"]["gather_tiles_bwd"],
          "pallas_soft_slab": {k: hard["gathers"]["pallas_soft"]["bwd"][k]
                               for k in ("max_abs_err", "ms", "device_ms",
+                                        "all_device_ms", "kernels_per_call",
                                         "plain_ms", "bound_ms",
-                                        "library_ms", "library_device_ms")}},
+                                        "library_ms", "library_device_ms")},
+         "launch_floor": hard["gathers"]["floor"]["bwd"],
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("gather_bwd")}},
     ]
     u, uf = batch["untile"], hard["untile"]
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",

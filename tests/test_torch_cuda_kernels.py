@@ -454,6 +454,57 @@ def test_points_select_matches_plain(device, K, tile, per_point):
     assert int((lane[0, 0, 0] >= 0).sum()) > 0
 
 
+def _points_plan(tile: int, K: int, tiles: int, device):
+    """(P, R, S): the blocks a tile, rows a block and thread groups a
+    pixel of a points_select launch over `tiles` tiles with K winners on
+    this card."""
+    import ctypes
+
+    from torch_renderer_tpu_torch import _build
+
+    plan = (ctypes.c_int * 3)()
+    assert _build.load_kernels().trt_points_plan(
+        tile, K, tiles, ctypes.addressof(plan), device.index) == 0
+    return tuple(plan)
+
+
+# tests/test_torch_points_split.py's slabs (splats on pixel centres and
+# exactly on a rim, points at and behind znear, duplicates, 300 candidates:
+# two staging chunks), one tile 4x or more the mean count and an empty
+# tile, repeated over as many tiles as make the launcher take each of its
+# plans at this tile and K (1 to 8192 tiles): winners equal the plain
+# version's.
+@pytest.mark.parametrize("K", [8, 64])
+@pytest.mark.parametrize("per_point", [False, True])
+@pytest.mark.parametrize("tile", [8, 16, 32])
+def test_points_select_plans_match_plain(device, tile, per_point, K):
+    from test_torch_points_split import ZNEAR, point_slabs
+
+    from torch_renderer_tpu_torch.rasterize import cuda_points
+
+    plans = {}
+    for k in range(53):
+        tiles = max(1, round(2 ** (k / 4)))
+        plans.setdefault(_points_plan(tile, K, tiles, device), tiles)
+    assert min(S for _, _, S in plans) == 1
+    slab, count, origin, offs, r2 = point_slabs(tile + K, 1, 6, 300, tile,
+                                                per_point)
+    count = torch.tensor([[300, 37, 0, 12, 25, 6]], dtype=torch.int32)
+    assert int(count.max()) >= 4 * float(count.float().mean())
+    for (P, R, S), A in plans.items():
+        reps = -(-A // 6)
+        sl, ct, org = (t.repeat(1, reps, *([1] * (t.ndim - 2)))[:, :A]
+                       .contiguous().to(device)
+                       for t in (slab, count, origin))
+        args = (sl, ct, org, offs.to(device), K, ZNEAR, r2)
+        before = cuda_points.POINTS_LAUNCHES
+        lane = cuda_points.points_select(*args)
+        torch.cuda.synchronize()
+        assert cuda_points.POINTS_LAUNCHES == before + 1
+        assert torch.equal(lane, cuda_points.points_select_reference(*args)), \
+            (P, R, S)
+
+
 def test_binned_points_match_cpu(device):
     """rasterize_points (binned, with features riding the gather, and with
     per-point radii) and the point gradient on the card against the same
@@ -565,6 +616,72 @@ def test_gather_tiles_autograd(device):
     ref = cg.gather_tiles_bwd_reference(idx, g, 96)
     torch.testing.assert_close(t.grad, ref, rtol=0,
                                atol=1e-6 * float(ref.abs().max()))
+
+
+# The backward at every vector width (C = 6 and 13 occur; 4 and 12 take
+# 16-byte atomics, 3 and 13 single floats), with ids drawn from one row in
+# 16 slots (each repeated across many tiles: about 10 atomics to a row,
+# few enough that float32 sums in two orders stay within the tolerance),
+# one row of only dead slots, dead slots between live ones, ids outside
+# [0, F), B > 1, and a cotangent whose rows are not 16-byte aligned (a
+# view at an offset).
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("B,T,S,F,C", [(3, 8, 16, 7, 6), (1, 64, 128, 1280, 6),
+                                       (2, 9, 7, 5, 13), (4, 5, 8, 3, 4),
+                                       (2, 7, 10, 20, 12), (1, 1, 1, 1, 3)])
+def test_gather_tiles_bwd_repeated_ids(device, dtype, B, T, S, F, C):
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    rng = np.random.default_rng(B * T + S)
+    idx = rng.integers(0, max(1, min(F, T * S // 16)), size=(B, T, S))
+    idx[rng.uniform(size=idx.shape) < 0.3] = -1
+    idx[rng.uniform(size=idx.shape) < 0.05] = F + 3
+    if T > 1:
+        idx[-1, 1] = -1                             # a row of dead slots
+    idx = torch.tensor(idx, dtype=dtype, device=device)
+    base = torch.tensor(rng.standard_normal(B * T * S * C + 1),
+                        dtype=torch.float32, device=device)
+    for g in (base[:-1].reshape(B, T, S, C), base[1:].reshape(B, T, S, C)):
+        before = cg.GATHER_BWD_LAUNCHES
+        dt = cg.gather_tiles_bwd(idx, g, F)
+        torch.cuda.synchronize()
+        assert cg.GATHER_BWD_LAUNCHES == before + 1
+        ref = cg.gather_tiles_bwd_reference(idx, g, F)
+        torch.testing.assert_close(dt, ref, rtol=0,
+                                   atol=1e-6 * float(ref.abs().max()))
+
+
+# The kernel zeroes its own output: the entry point called on an output
+# full of NaN gives the plain version's sums, and the wrapper's call puts
+# one kernel on the device and no fill.
+@pytest.mark.parametrize("B,T,S,F,C", [(8, 128, 128, 1280, 6),
+                                       (1, 64, 128, 1280, 6), (2, 3, 5, 9, 13)])
+def test_gather_tiles_bwd_zeroes_its_output(device, B, T, S, F, C):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_renderer_tpu_torch._build import launch
+    from torch_renderer_tpu_torch.rasterize import cuda_gather as cg
+
+    idx, _, g = _gather_case(2, B, T, S, F, C, device, torch.int64)
+    ref = cg.gather_tiles_bwd_reference(idx, g, F)
+    dt = torch.full((B, F, C), float("nan"), device=device)
+    launch("trt_gather_tiles_bwd", idx.data_ptr(), 1, g.data_ptr(),
+           dt.data_ptr(), B, T * S, F, C, device=device)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dt, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+    cg.gather_tiles_bwd(idx, g, F)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dt = cg.gather_tiles_bwd(idx, g, F)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(dt, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "gather_bwd_kernel" in names[0], names
 
 
 def _untile_case(seed, B, TH, TW, tile, A, C, device, dtype):

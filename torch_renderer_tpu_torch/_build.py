@@ -1,7 +1,8 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface. At first use each is
-compiled by its own ``nvcc`` for Hopper (sm_90a), all started together, and
+The sources under ``csrc/`` (``*.cu``, with the headers ``*.cuh`` they
+share) have a plain C interface. At first use each ``.cu`` is compiled by
+its own ``nvcc`` for Hopper (sm_90a), all started together, and
 the objects are linked into one shared library under
 ``build/kernels/<hash of the sources and flags>/`` at the repository root,
 which is loaded with ctypes. Nothing is built or loaded when the package is
@@ -21,6 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
+HEADERS = tuple(sorted((_PKG / "csrc").glob("*.cuh")))   # part of the hash
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libtrt_torch_kernels.so"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,7 +49,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -116,6 +118,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_points_select.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                       i32, i32, f32, i32, f32, i32, vp]
     lib.trt_points_select.restype = i32
+    lib.trt_points_plan.argtypes = [i32, i32, ctypes.c_int64, vp, i32]
+    lib.trt_points_plan.restype = i32
     i64 = ctypes.c_int64
     lib.trt_texsample_fwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, i32, i32,
                                       i32, i32, i32, i32, vp]

@@ -36,6 +36,8 @@
 
 #include <cuda_runtime.h>
 
+#include "select_common.cuh"
+
 namespace {
 
 constexpr int kMaxPixels = 1024;   // threads of a block at most
@@ -45,7 +47,6 @@ constexpr int kK1BlockPixels = 128;  // a hard_k1 block's pixels at most
 constexpr int kK1MaxGroups = 4;    // and its thread groups per pixel
 constexpr int kChannels = 13;
 constexpr int kMaxK = 64;
-constexpr float kInf = 3.0e38f;
 constexpr float kEmptyDist = 1e10f;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -257,51 +258,7 @@ __device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
           grid_mask(b.x, b.y, ox, inv_s, tile)};
 }
 
-// A thread's sorted list of (zsel, slot) entries, K of them, in shared
-// memory (entry j of thread t at j * stride + t: neighbouring threads on
-// neighbouring words). A candidate is pushed only when it is below the K-th
-// entry; it enters after every entry it is not below: with slots pushed in
-// ascending order that is the stable insertion, ties to the earlier slot,
-// and with LEX it is (zsel, slot) lexicographic order, as a merge needs.
-// Entries from `fill` on are empty (kInf, -1), so a push shifts only the
-// filled entries above it.
-struct TopkList {
-  float* z;
-  int* s;
-  int stride, K;
-  float kth = kInf;   // the K-th entry's z: the bar a candidate must beat
-  int kl = -1;        // and its slot
-  int fill = 0;       // entries filled
-
-  __device__ __forceinline__ void init() {
-    for (int j = 0; j < K; ++j) {
-      z[j * stride] = kInf;
-      s[j * stride] = -1;
-    }
-  }
-  template <bool LEX>
-  __device__ __forceinline__ void push(float cz, int cl) {
-    int j = min(fill, K - 1);
-    for (; j > 0; --j) {
-      const float pz = z[(j - 1) * stride];
-      const int ps = s[(j - 1) * stride];
-      if (!(cz < pz || (LEX && cz == pz && cl < ps))) break;
-      z[j * stride] = pz;
-      s[j * stride] = ps;
-    }
-    z[j * stride] = cz;
-    s[j * stride] = cl;
-    fill = min(fill + 1, K);
-    if (fill == K) {
-      kth = z[(K - 1) * stride];
-      kl = s[(K - 1) * stride];
-    }
-  }
-  __device__ __forceinline__ int slot(int j) const { return s[j * stride]; }
-};
-
 constexpr int kStageBytes = kChunk * (int)(sizeof(Cull) + sizeof(FaceS));
-constexpr int kMaxSmem = 232448;  // the most shared memory a block may opt into
 
 // The warp-uniform cull and the scan of one group's share of the tile's
 // candidates; returns with the list filled. The block's groups each hold
@@ -407,47 +364,10 @@ topk_select_kernel(const float* __restrict__ slab,
   topk_scan(slab + cell * F * kChannels, n, S, grp, np, pb, tile, ox, oy,
             grid_at(ox, p % tile, inv_s), grid_at(oy, p / tile, inv_s),
             inv_s, blur, znear, culls, faces, list);
-  // tree merge of the S groups' lists of each pixel
-  for (int half = S / 2; half >= 1; half /= 2) {
-    __syncthreads();                             // the partners' lists done
-    if (grp < half) {
-      const int q = t + half * np;               // the partner thread
-      for (int j = 0; j < K; ++j) {
-        const float cz = zl[j * nt + q];
-        const int cl = sl[j * nt + q];
-        // the partner's list is sorted: the first entry that does not
-        // enter ends it
-        if (!(cz < list.kth || (cz == list.kth && cl < list.kl))) break;
-        list.push<true>(cz, cl);
-      }
-    }
-  }
+  merge_groups(list, S, grp, np);   // tree merge of the S groups' lists
   if (grp != 0 || p >= tp) return;
   int* o = lane + cell * K * tp + p;
   for (int j = 0; j < K; ++j) o[(long)j * tp] = list.slot(j);
-}
-
-// raw[k] = src[k] for k < nk, k = t, t + nt, ...: cp.async copies that go
-// straight to shared memory, all in flight at once (a plain copy outside
-// device code); the caller waits with copy_wait.
-__device__ __forceinline__ void copy_rows(const float* __restrict__ src,
-                                          float* raw, int t, int nk,
-                                          int nt) {
-  for (int k = t; k < nk; k += nt) {
-#if defined(__CUDA_ARCH__)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     (unsigned)__cvta_generic_to_shared(raw + k)),
-                 "l"(src + k));
-#else
-    raw[k] = src[k];
-#endif
-  }
-}
-
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
 }
 
 // Replaces torch_renderer_tpu/rasterize/pallas_hard.py _hard_kernel (reached
@@ -638,19 +558,6 @@ long topk_smem(int nt, int K) {
   return kStageBytes + (long)nt * K * (sizeof(float) + sizeof(int));
 }
 
-// The SM count of a device into *sms, read once; returns a CUDA error.
-int sm_count(int device, int* sms) {
-  static int cached[64] = {0};
-  if (device >= 0 && device < 64 && cached[device]) {
-    *sms = cached[device];
-    return 0;
-  }
-  const int err = (int)cudaDeviceGetAttribute(
-      sms, cudaDevAttrMultiProcessorCount, device);
-  if (!err && device >= 0 && device < 64) cached[device] = *sms;
-  return err;
-}
-
 // Dynamic shared memory of a hard_k1 block of `threads` threads in S > 1
 // groups: each thread's (zsel, slot) for the merge.
 size_t k1_smem(int threads, int S) {
@@ -672,38 +579,17 @@ int k1_resident(int device, int threads, int* blocks) {
   return err;
 }
 
-// A hard_k1 launch's plan for `tiles` tiles: P blocks of R rows share a
-// tile, with S thread groups per pixel. Blocks hold at most
-// kK1BlockPixels pixels (whole rows), and R halves (to two warps of
-// pixels at least) while the launch has fewer blocks than the card has
-// SMs: the busiest tile's work then spreads over several SMs. S is the
-// largest power of two up to kK1MaxGroups with S * R * tile <= 1024 for
-// which every block of the launch is resident at once; 1 where R * tile is
-// not a whole number of warps (a warp never spans two groups). The winner
-// does not depend on the plan.
+// A hard_k1 launch's plan for `tiles` tiles (rows_groups_plan): blocks of
+// at most kK1BlockPixels pixels, up to kK1MaxGroups thread groups.
 int k1_plan(int device, int tile, long long tiles, int* P, int* R,
             int* S) {
-  int sms = 0;
-  int err = sm_count(device, &sms);
-  if (err) return err;
-  int r = min(tile, max(1, kK1BlockPixels / tile));
-  while (tiles * ((tile + r - 1) / r) < sms && r % 2 == 0 &&
-         (r / 2) * tile % 64 == 0) {
-    r /= 2;
-  }
-  const int np = r * tile;
-  int s = 1;
-  while (np % 32 == 0 && 2 * s <= kK1MaxGroups && 2 * s * np <= kMaxPixels) {
-    int resident = 0;
-    err = k1_resident(device, 2 * s * np, &resident);
-    if (err) return err;
-    if (tiles * ((tile + r - 1) / r) > (long long)resident * sms) break;
-    s *= 2;
-  }
-  *P = (tile + r - 1) / r;
-  *R = r;
-  *S = s;
-  return 0;
+  return rows_groups_plan(
+      device, tile, tiles, kK1BlockPixels, kK1MaxGroups, kMaxPixels,
+      [](int) { return true; },
+      [device](int threads, int* blocks) {
+        return k1_resident(device, threads, blocks);
+      },
+      P, R, S);
 }
 
 }  // namespace

@@ -138,8 +138,8 @@ def gather_tiles_fwd(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def gather_tiles_bwd(idx: torch.Tensor, g: torch.Tensor,
                      F: int) -> torch.Tensor:
     """The backward kernel: dtable (B, F, C) from the slab cotangent g
-    (B, T, S, C); float32 atomics sum a row's terms in an order that
-    changes from run to run."""
+    (B, T, S, C), in one launch that zeroes dtable and then adds; float32
+    atomics sum a row's terms in an order that changes from run to run."""
     global GATHER_BWD_LAUNCHES
     _check_idx(idx, g, "g")
     B, T, S = idx.shape
@@ -149,8 +149,8 @@ def gather_tiles_bwd(idx: torch.Tensor, g: torch.Tensor,
     if idx.device.type == "cpu":
         return gather_tiles_bwd_reference(idx, g, F)
     C = g.shape[3]
-    dtable = g.new_zeros((B, F, C))          # the kernel accumulates
-    if g.numel() == 0 or F == 0:
+    dtable = g.new_empty((B, F, C))          # the kernel writes every element
+    if dtable.numel() == 0:
         return dtable
     launch("trt_gather_tiles_bwd", idx.data_ptr(),
            int(idx.dtype == torch.int64), g.data_ptr(), dtable.data_ptr(), B,

@@ -156,8 +156,8 @@ def points_select(slab, count, origin, offs, K: int, znear: float,
                        device=slab.device)         # the kernel writes all
     launch("trt_points_select", slab.data_ptr(), count.data_ptr(),
            origin.data_ptr(), offs.data_ptr(), lane.data_ptr(), B, A, P, C,
-           K, tp, 0.0 if r2 is None else r2, -1 if r2 is not None else 3,
-           znear, device=slab.device)
+           K, math.isqrt(tp), 0.0 if r2 is None else r2,
+           -1 if r2 is not None else 3, znear, device=slab.device)
     POINTS_LAUNCHES += 1
     return lane
 
