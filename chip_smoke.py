@@ -44,9 +44,14 @@ Drives, through the port's public entry points:
      32768 points per view at u, v uniform in [0, 1] from a seeded
      generator. Forward within 1e-6; d_wy and d_wx within 1e-5 of their
      largest; d_maps within 1e-5 of its largest (float32 atomics sum a
-     texel in an order that changes from run to run). grid_sample
-     (bilinear, border, align_corners) computes the same function and is
-     timed beside them as the library yardstick, forward and backward.
+     texel in an order that changes from run to run); one launch per
+     wrapper call. grid_sample (bilinear, border, align_corners) computes
+     the same function and is timed beside them as the library yardstick,
+     forward and backward. Each time by events and alone (the backward's
+     also with every kernel its wrapper launches); the host cost of a call
+     is the difference, and the wrappers' host parts (operand check,
+     allocation, launch) and grid_sample's call are timed by the host
+     clock. Phase E holds the pair at a second shape, its own fragments.
   E. the joint shape + UV-texture fit at the app's defaults: 128x128, a
      level-4 icosphere (5120 faces) with sphere UVs fitted to the same
      sphere scaled by (1, 0.7, 0.9) with the app's striped 128x128 texture,
@@ -58,9 +63,15 @@ Drives, through the port's public entry points:
      its start (the JAX package's tests/test_deform_color.py gates); per
      iteration exactly one texsample_fwd, texsample_bwd, topk_select and
      gather_tiles_fwd and untile_scatter launch and no other.
-     Then topk_select at the fit's K=8 shapes against its plain version,
-     and a torch.profiler window of 20 iterations (device busy share,
-     kernels per iteration, topk_select's share).
+     Then topk_select at the fit's K=8 shapes against its plain version;
+     the texture pair as phase D holds it, at the operands and the
+     cotangent (from autograd) that the sampler sees in one loss of the
+     fitted mesh on views 0 and 1 (P = 128 x 128 x shade_k 2 a view, empty
+     fragments included); and a torch.profiler window of 20 iterations
+     (device busy share, kernels per iteration, topk_select's and the
+     texture pair's device ms, and those of the kernels the pair's
+     backward brings: the zero fill inside TexSampleBackward and the sum
+     over the views in the shared map's ExpandBackward).
   F. the point stack at the JAX package's point bench scene
      (scripts/bench_points.py): B=4 clouds of 20000 points (0.8 * N(0, 1)
      from numpy seed 0, uniform [0, 1) RGB), 256x256, f = 0.8 * 256, R = I,
@@ -125,8 +136,8 @@ line is a JSON record of the kernels; the last line is
 
 The build's -Xptxas -v report is printed in full, and the registers,
 shared memory and spills of the soft pair, hard_k1_kernel,
-topk_select_kernel, gather_fwd_kernel and untile_kernel once more in a
-line each.
+topk_select_kernel, points_select_kernel, the gather pair, untile_kernel
+and the texture pair's instances once more in a line each.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -1136,10 +1147,167 @@ def pose_fit_phase(device, card: str, route: str,
 # D. texture-sampling kernels at the joint fit's shapes
 # ---------------------------------------------------------------------------
 
-def texture_phase(device, card: str) -> dict:
+def tex_bound(args, C: int) -> tuple:
+    """Bounds of the texture pair at these inputs: the map floats its taps
+    cover (each distinct texel of a tap once, per map: one for a shared
+    map), the corners, weights and outputs once each; the backward also the
+    cotangent, the weight gradients and every d_maps float."""
+    maps, y0, x0, wy, wx = args
+    B, Hm, Wm, _ = maps.shape
+    P = y0.shape[1]
+    y = y0.long().clamp(0, Hm - 2)
+    x = x0.long().clamp(0, Wm - 2)
+    t = y * Wm + x
+    taps = torch.stack([t, t + 1, t + Wm, t + Wm + 1])      # (4, B, P)
+    if maps.stride(0) != 0:
+        taps = taps + torch.arange(B, device=t.device)[:, None] * Hm * Wm
+    texels = int(torch.unique(taps).numel())
+    fwd = bound(texels * C * 4 + B * P * 16 + B * P * C * 4,
+                B * P * ops_tex_fwd(C))
+    bwd = bound(texels * C * 4 + B * P * 16 + B * P * C * 4
+                + B * Hm * Wm * C * 4 + B * P * 8, B * P * ops_tex_bwd(C))
+    return texels, fwd, bwd
+
+
+def host_us(fn, n: int = 2000) -> float:
+    """Host µs per call of fn() over n back-to-back calls (the card keeps
+    up when the host is the slower)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def tex_check(tag: str, args, g, card: str, host: bool = False) -> dict:
+    """texsample_fwd and texsample_bwd against their plain versions at the
+    inputs args = (maps, y0, x0, wy, wx) and the cotangent g: the forward
+    within 1e-6, d_maps, d_wy and d_wx each within 1e-5 of their largest
+    (float32 atomics sum a texel in an order that changes from run to
+    run). Times: by events, alone (the kernel by the profiler; for the
+    backward also every kernel its wrapper launches, the zero fill
+    included), the plain versions', and the library yardstick's:
+    grid_sample (bilinear, border, align_corners) computes the same
+    function at x = x0 + wx, y = y0 + wy, forward and backward, by events
+    and alone (every kernel of the call). The host cost of a call is its
+    events time less its device time. With host, the wrappers' host parts
+    by the host clock: the operand check, the output allocation and the
+    whole call (the launch is the rest), and grid_sample's call."""
     import torch.nn.functional as F
 
     from torch_renderer_tpu_torch.ops import cuda_texsample as ts
+
+    maps, y0, x0, wy, wx = args
+    B, Hm, Wm, C = maps.shape
+    P = y0.shape[1]
+    launches = (ts.FWD_LAUNCHES, ts.BWD_LAUNCHES)
+    out_k = ts.texsample_fwd(*args)
+    grads_k = ts.texsample_bwd(*args, g)
+    launches = (ts.FWD_LAUNCHES - launches[0], ts.BWD_LAUNCHES - launches[1])
+    out_p = ts.texsample_fwd_reference(*args)
+    grads_p = ts.texsample_bwd_reference(*args, g)
+    torch.cuda.synchronize()
+    if launches != (1, 1):
+        raise AssertionError(f"texsample ({tag}): {launches} launches for "
+                             "one call of each wrapper")
+    fwd_err = float((out_k - out_p).abs().max())
+    print(f"[tex] {tag}: texsample_fwd vs plain at maps {tuple(maps.shape)} "
+          f"(batch stride {maps.stride(0)}), P {P}: max|d| {fwd_err:.3e} "
+          "(tol 1e-6)", flush=True)
+    if not fwd_err <= 1e-6:
+        raise AssertionError(f"texsample_fwd ({tag}) disagrees with its "
+                             "plain version")
+    bwd_err = 0.0
+    for name, a, b in zip(("d_maps", "d_wy", "d_wx"), grads_k, grads_p):
+        err = float((a - b).abs().max())
+        tol = 1e-5 * float(b.abs().max())
+        print(f"[tex] {tag}: texsample_bwd {name} vs plain: max|d| "
+              f"{err:.3e} (tol {tol:.3e} = 1e-5 x max "
+              f"{float(b.abs().max()):.3e})", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"texsample_bwd {name} ({tag}) disagrees "
+                                 "with its plain version")
+        bwd_err = max(bwd_err, err)
+    live = int((g != 0).any(-1).sum())
+
+    inp = maps.permute(0, 3, 1, 2).contiguous()            # (B, C, Hm, Wm)
+    grid = torch.stack([2.0 * (x0 + wx) / (Wm - 1) - 1.0,
+                        2.0 * (y0 + wy) / (Hm - 1) - 1.0],
+                       dim=-1)[:, None]                    # (B, 1, P, 2)
+    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
+    lib = F.grid_sample(inp, grid, **kw)[:, :, 0].transpose(1, 2)
+    lib_err = float((lib - out_p).abs().max())
+    print(f"[tex] {tag}: grid_sample vs plain: max|d| {lib_err:.3e} (tol "
+          "1e-4: its weights round from the normalized grid)", flush=True)
+    if not lib_err <= 1e-4:
+        raise AssertionError("grid_sample does not compute the same function")
+    inp_r = inp.clone().requires_grad_(True)
+    grid_r = grid.clone().requires_grad_(True)
+    lib_out = F.grid_sample(inp_r, grid_r, **kw)
+    g_lib = g.transpose(1, 2)[:, :, None].contiguous()    # (B, C, 1, P)
+
+    def lib_fwd():
+        return F.grid_sample(inp, grid, **kw)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (inp_r, grid_r), g_lib,
+                                   retain_graph=True)
+
+    bwd_all = wrapper_device(lambda: ts.texsample_bwd(*args, g))
+    times = {
+        "fwd": time_ms(lambda: ts.texsample_fwd(*args)),
+        "fwd_plain": time_ms(lambda: ts.texsample_fwd_reference(*args)),
+        "fwd_library": time_ms(lib_fwd),
+        "bwd": time_ms(lambda: ts.texsample_bwd(*args, g)),
+        "bwd_plain": time_ms(lambda: ts.texsample_bwd_reference(*args, g)),
+        "bwd_library": time_ms(lib_bwd),
+        "fwd_device": device_ms(lambda: ts.texsample_fwd(*args),
+                                "texsample_fwd_kernel"),
+        "bwd_device": device_ms(lambda: ts.texsample_bwd(*args, g),
+                                "texsample_bwd_kernel"),
+        "bwd_all_device": bwd_all["all_device_ms"],
+        "bwd_kernels_per_call": bwd_all["kernels_per_call"],
+        "bwd_kernel_names": bwd_all["kernel_names"],
+        "fwd_library_device": device_ms(lib_fwd, None),
+        "bwd_library_device": device_ms(lib_bwd, None),
+    }
+    times["fwd_host"] = times["fwd"] - times["fwd_device"]
+    times["bwd_host"] = times["bwd"] - times["bwd_all_device"]
+    times["fwd_library_host"] = times["fwd_library"] \
+        - times["fwd_library_device"]
+    times["bwd_library_host"] = times["bwd_library"] \
+        - times["bwd_library_device"]
+    texels, b_fwd, b_bwd = tex_bound(args, C)
+    rec = {"shape": [B, Hm, Wm, C, P], "map_batch_stride": maps.stride(0),
+           "live_points": live, "texels": texels, "fwd_err": fwd_err,
+           "bwd_err": bwd_err, "times": times, "bound_fwd": b_fwd,
+           "bound_bwd": b_bwd}
+    if host:
+        parts = {
+            "check_fwd_us": host_us(lambda: ts._check_inputs(*args)),
+            "alloc_fwd_us": host_us(lambda: maps.new_empty((B, P, C))),
+            "call_fwd_us": host_us(lambda: ts.texsample_fwd(*args)),
+            "check_bwd_us": host_us(lambda: ts._check_inputs(*args, g)),
+            "alloc_bwd_us": host_us(lambda: (
+                maps.new_zeros((B, Hm, Wm, C)), wy.new_empty((B, P)),
+                wx.new_empty((B, P)))),
+            "call_bwd_us": host_us(lambda: ts.texsample_bwd(*args, g)),
+            "grid_sample_us": host_us(lib_fwd),
+        }
+        for k in ("fwd", "bwd"):
+            parts[f"launch_{k}_us"] = parts[f"call_{k}_us"] \
+                - parts[f"check_{k}_us"] - parts[f"alloc_{k}_us"]
+        rec["host_parts"] = parts
+    print(f"[tex] {tag} ({card}): {rec}", flush=True)
+    return rec
+
+
+def texture_phase(device, card: str) -> dict:
+    """Phase D at its uniform shape: one map shared by 2 views, 32768
+    points a view at u, v uniform in [0, 1], a random cotangent."""
     from torch_renderer_tpu_torch.structures.textures import (
         bilinear_corners,
     )
@@ -1151,87 +1319,62 @@ def texture_phase(device, card: str) -> dict:
     uv = torch.rand((B, P, 2), generator=gen, device=device)
     y0, x0, wy, wx = (a.contiguous() for a in bilinear_corners(uv, T, T))
     g = torch.randn((B, P, C), generator=gen, device=device)
-    args = (maps, y0, x0, wy, wx)
+    return tex_check("uniform uv", (maps, y0, x0, wy, wx), g, card,
+                     host=True)
 
-    out_k = ts.texsample_fwd(*args)
-    out_p = ts.texsample_fwd_reference(*args)
-    grads_k = ts.texsample_bwd(*args, g)
-    grads_p = ts.texsample_bwd_reference(*args, g)
-    torch.cuda.synchronize()
-    fwd_err = float((out_k - out_p).abs().max())
-    print(f"[tex] texsample_fwd vs plain at maps {tuple(maps.shape)} "
-          f"(batch stride 0), P {P}: max|d| {fwd_err:.3e} (tol 1e-6)",
-          flush=True)
-    if not fwd_err <= 1e-6:
-        raise AssertionError("texsample_fwd disagrees with its plain version")
-    bwd_err = 0.0
-    for name, a, b in zip(("d_maps", "d_wy", "d_wx"), grads_k, grads_p):
-        err = float((a - b).abs().max())
-        tol = 1e-5 * float(b.abs().max())
-        print(f"[tex] texsample_bwd {name} vs plain: max|d| {err:.3e} "
-              f"(tol {tol:.3e} = 1e-5 x max {float(b.abs().max()):.3e})",
-              flush=True)
-        if not err <= tol:
-            raise AssertionError(f"texsample_bwd {name} disagrees with its "
-                                 "plain version")
-        bwd_err = max(bwd_err, err)
 
-    # the library yardstick: grid_sample computes the same function for
-    # u, v in [0, 1] (x = u (W - 1), y = (1 - v)(H - 1))
-    inp = tmap.permute(2, 0, 1)[None].expand(B, C, T, T).contiguous()
-    grid = torch.stack([2.0 * uv[..., 0] - 1.0, 1.0 - 2.0 * uv[..., 1]],
-                       dim=-1)[:, None]                    # (B, 1, P, 2)
-    kw = dict(mode="bilinear", padding_mode="border", align_corners=True)
-    lib = F.grid_sample(inp, grid, **kw)[:, :, 0].transpose(1, 2)
-    lib_err = float((lib - out_p).abs().max())
-    print(f"[tex] grid_sample vs plain: max|d| {lib_err:.3e} (tol 1e-4: "
-          "its weights round from 2u - 1)", flush=True)
-    if not lib_err <= 1e-4:
-        raise AssertionError("grid_sample does not compute the same function")
-    inp_r = inp.clone().requires_grad_(True)
-    grid_r = grid.clone().requires_grad_(True)
-    lib_out = F.grid_sample(inp_r, grid_r, **kw)
-    g_lib = g.transpose(1, 2)[:, :, None].contiguous()    # (B, C, 1, P)
+@contextlib.contextmanager
+def spy_texture_samples(seen: dict):
+    """Record, in seen, the texture sampler's operands (maps, y0, x0, wy,
+    wx) of each TexturesUV.sample call and, once autograd brings it, the
+    cotangent of its samples ("g")."""
+    from torch_renderer_tpu_torch.structures import textures
 
-    times = {
-        "fwd": time_ms(lambda: ts.texsample_fwd(*args)),
-        "fwd_plain": time_ms(lambda: ts.texsample_fwd_reference(*args)),
-        "fwd_library": time_ms(lambda: F.grid_sample(inp, grid, **kw)),
-        "bwd": time_ms(lambda: ts.texsample_bwd(*args, g)),
-        "bwd_plain": time_ms(lambda: ts.texsample_bwd_reference(*args, g)),
-        "bwd_library": time_ms(lambda: torch.autograd.grad(
-            lib_out, (inp_r, grid_r), g_lib, retain_graph=True)),
-        "fwd_device": device_ms(lambda: ts.texsample_fwd(*args),
-                                "texsample_fwd_kernel"),
-        "bwd_device": device_ms(lambda: ts.texsample_bwd(*args, g),
-                                "texsample_bwd_kernel"),
-        "fwd_library_device": device_ms(
-            lambda: F.grid_sample(inp, grid, **kw), "grid_sampler"),
-        "bwd_library_device": device_ms(lambda: torch.autograd.grad(
-            lib_out, (inp_r, grid_r), g_lib, retain_graph=True),
-            "grid_sampler"),
-    }
-    b_fwd = bound(T * T * C * 4 + B * P * 16 + B * P * C * 4,
-                  B * P * ops_tex_fwd(C))
-    b_bwd = bound(T * T * C * 4 + B * P * 16 + B * P * C * 4
-                  + B * T * T * C * 4 + B * P * 8, B * P * ops_tex_bwd(C))
-    print(f"[tex] times ({card}): " + ", ".join(
-        f"{k} {v} ms" for k, v in times.items())
-        + f"; bounds fwd {b_fwd}, bwd {b_bwd}", flush=True)
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "times": times,
-            "bound_fwd": b_fwd, "bound_bwd": b_bwd}
+    saved = textures.sample_bilinear
+
+    def spy(maps, y0, x0, wy, wx):
+        out = saved(maps, y0, x0, wy, wx)
+        seen["args"] = tuple(a.detach() for a in (maps, y0, x0, wy, wx))
+        out.register_hook(lambda g: seen.update(g=g.detach().contiguous()))
+        return out
+
+    textures.sample_bilinear = spy
+    try:
+        yield seen
+    finally:
+        textures.sample_bilinear = saved
+
+
+def fit_samples(fitter, params, src, uvs, ds) -> tuple:
+    """The texture sampler's operands and its cotangent in one loss of the
+    fitted mesh and texture on views 0 and 1, as the fit computes it: the
+    app's 128x128 images, shade_k 2 slots a pixel, empty fragments
+    included; the cotangent from autograd."""
+    from torch_renderer_tpu_torch.ops.mesh_losses import build_topology
+
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    views = torch.arange(2, device=src.device)
+    with spy_texture_samples({}) as seen:
+        total, _ = fitter.loss(p, src, build_topology(src), uvs, ds, views)
+        total.backward()
+    return seen["args"], seen["g"]
 
 
 # ---------------------------------------------------------------------------
 # E. the joint shape + UV-texture fit at the app's defaults
 # ---------------------------------------------------------------------------
 
-def _busy_share(fn, iters: int, top: int = 0, named: tuple = ()) -> dict:
+def _busy_share(fn, iters: int, top: int = 0, named: tuple = (),
+                under: tuple = ()) -> dict:
     """Device busy time (union of device events) and kernels per iteration
     over fn(), which runs `iters` iterations, by torch.profiler; with top,
     also the `top` kernel names with the most device time per iteration;
     for each string in named, the device ms per iteration of the kernels
-    whose names hold it and their share of the busy time."""
+    whose names hold it and their share of the busy time; for each string
+    in under, the device ms and the count per iteration of the kernels not
+    in named that were launched inside a CPU op whose name holds it (an
+    autograd node's, "TexSampleBackward": the ops its backward runs)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1245,6 +1388,8 @@ def _busy_share(fn, iters: int, top: int = 0, named: tuple = ()) -> dict:
     # drop only the optimizer's annotation span; kernel names may hold '#'
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    cpu_ops = [e for e in prof.events()
+               if e.device_type == DeviceType.CPU and e.kernels]
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, -math.inf
     for a, b in spans:
@@ -1267,6 +1412,23 @@ def _busy_share(fn, iters: int, top: int = 0, named: tuple = ()) -> dict:
                  if n in e.name) / 1e3 / iters
         out[f"{n}_ms_per_iter"] = ms
         out[f"{n}_share_of_busy"] = ms / max(out["busy_ms_per_iter"], 1e-12)
+
+    def inside(op, n):
+        while op is not None:
+            if n in op.name:
+                return True
+            op = op.cpu_parent
+        return False
+
+    # the profiler lists each device kernel under the CPU op that
+    # launched it (FunctionEvent.kernels, durations in µs)
+    for n in under:
+        hit = [k for op in cpu_ops if inside(op, n) for k in op.kernels
+               if not any(m in k.name for m in named)]
+        out[f"under_{n}_ms_per_iter"] = sum(
+            k.duration for k in hit) / 1e3 / iters
+        out[f"under_{n}_kernels_per_iter"] = len(hit) / iters
+        out[f"under_{n}_names"] = sorted({_short(k.name) for k in hit})
     return out
 
 
@@ -1412,16 +1574,25 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
           f"box), every-pair bound {topk['bound_every_pair_ms']:.6f} ms",
           flush=True)
 
+    # the texture pair where the fit samples: 2 views of the fitted mesh
+    frag_args, frag_g = fit_samples(fitter, params, src, uvs, ds)
+    tex = tex_check("joint fit fragments", frag_args, frag_g, card)
+
+    # device time of the texture pair, and of what its backward brings:
+    # the zero fill of d_maps (inside TexSampleBackward) and the sum over
+    # the views of the shared map (the expand's backward)
     prof = _busy_share(lambda: fitter.fit(
         src, uvs, ds, torch.Generator().manual_seed(1),
         n_steps=PROFILE_ITERS, params0=params), PROFILE_ITERS,
-        named=("topk_select",))
+        named=("topk_select", "texsample"),
+        under=("TexSampleBackward", "ExpandBackward"))
     print(f"[joint] profile over {PROFILE_ITERS} iterations ({card}): "
           f"{prof}", flush=True)
     return {"counts": counts, "it_s_events": iters / events_s,
             "it_s_wall": iters / wall_s, "sil": [sil0, sil1],
             "rgb": [rgb0, rgb1], "chamfer": [c0, c1],
-            "max_deform": max_deform, "topk": topk, "profile": prof}
+            "max_deform": max_deform, "topk": topk, "tex": tex,
+            "profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -2029,7 +2200,7 @@ def main() -> None:
     for k, v in ptxas.items():
         if k.startswith(("soft_coverage", "hard_k1", "topk_select",
                          "points_select", "gather_fwd", "gather_bwd",
-                         "untile_kernel")):
+                         "untile_kernel", "texsample")):
             print(f"ptxas {k}: {v.get('registers')} registers, "
                   f"{v.get('smem')} bytes static smem, spill stores "
                   f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
@@ -2104,24 +2275,57 @@ def main() -> None:
          "pose_fit_profile": fits["fragments"]["profile"]},
     ]
     source = "torch_renderer_tpu_torch/csrc/texsample.cu"
-    t = tex["times"]
+    t, tf = tex["times"], joint["tex"]["times"]
+    frag = {"shape": joint["tex"]["shape"],
+            "live_points": joint["tex"]["live_points"],
+            "texels": joint["tex"]["texels"]}
     kernels += [
         {"name": "texsample_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/ops/pallas_texsample.py:81",
          "launches": joint["counts"]["texsample_fwd"],
-         "max_abs_err": tex["fwd_err"], "ms": t["fwd"],
-         "device_ms": t["fwd_device"], "plain_ms": t["fwd_plain"], "bound_ms": tex["bound_fwd"]["bound_ms"],
+         "max_abs_err": max(tex["fwd_err"], joint["tex"]["fwd_err"]),
+         "ms": t["fwd"], "device_ms": t["fwd_device"],
+         "host_ms": t["fwd_host"], "plain_ms": t["fwd_plain"],
+         "bound_ms": tex["bound_fwd"]["bound_ms"],
          "bound_by": tex["bound_fwd"]["bound_by"],
          "library_ms": t["fwd_library"],
-         "library_device_ms": t["fwd_library_device"]},
+         "library_device_ms": t["fwd_library_device"],
+         "library_host_ms": t["fwd_library_host"],
+         "shape": tex["shape"], "host_parts": tex["host_parts"],
+         "fit_fragments": {**frag, **{k: tf["fwd" + sfx] for k, sfx in (
+             ("ms", ""), ("device_ms", "_device"), ("host_ms", "_host"),
+             ("plain_ms", "_plain"), ("library_ms", "_library"),
+             ("library_device_ms", "_library_device"))},
+             "bound_ms": joint["tex"]["bound_fwd"]["bound_ms"],
+             "max_abs_err": joint["tex"]["fwd_err"]},
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("texsample_fwd")}},
         {"name": "texsample_bwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/ops/pallas_texsample.py:100",
          "launches": joint["counts"]["texsample_bwd"],
-         "max_abs_err": tex["bwd_err"], "ms": t["bwd"],
-         "device_ms": t["bwd_device"], "plain_ms": t["bwd_plain"], "bound_ms": tex["bound_bwd"]["bound_ms"],
+         "max_abs_err": max(tex["bwd_err"], joint["tex"]["bwd_err"]),
+         "ms": t["bwd"], "device_ms": t["bwd_device"],
+         "all_device_ms": t["bwd_all_device"],
+         "kernels_per_call": t["bwd_kernels_per_call"],
+         "host_ms": t["bwd_host"], "plain_ms": t["bwd_plain"],
+         "bound_ms": tex["bound_bwd"]["bound_ms"],
          "bound_by": tex["bound_bwd"]["bound_by"],
          "library_ms": t["bwd_library"],
-         "library_device_ms": t["bwd_library_device"]},
+         "library_device_ms": t["bwd_library_device"],
+         "library_host_ms": t["bwd_library_host"], "shape": tex["shape"],
+         "fit_fragments": {**frag, **{k: tf["bwd" + sfx] for k, sfx in (
+             ("ms", ""), ("device_ms", "_device"),
+             ("all_device_ms", "_all_device"), ("host_ms", "_host"),
+             ("plain_ms", "_plain"), ("library_ms", "_library"),
+             ("library_device_ms", "_library_device"))},
+             "bound_ms": joint["tex"]["bound_bwd"]["bound_ms"],
+             "max_abs_err": joint["tex"]["bwd_err"]},
+         "joint_fit_profile": {k: v for k, v in joint["profile"].items()
+                               if "texsample" in k or k.startswith("under_")
+                               or k in ("busy_ms_per_iter",
+                                        "kernels_per_iter")},
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("texsample_bwd")}},
     ]
     ku, kp = pts["kernel"]["uniform"], pts["kernel"]["per_point"]
     kernels.append(

@@ -13,7 +13,8 @@ for op, so they are expected to be equal). Texture sampling: the forward
 within 1e-6 (the same operations, so expected equal); d_wy and d_wx within
 1e-5 of their largest (a channel sum in another order); d_maps within 1e-5
 of its largest (float32 atomics add a texel's terms in an order that
-changes from run to run). Point selection: winners equal (the kernel
+changes from run to run), at uniform, clustered and every-alignment
+corners. Point selection: winners equal (the kernel
 repeats the plain coverage arithmetic op for op); end to end on the card
 against the CPU, point ids differ on under 0.1% of pixels (the projection
 rounds otherwise on the card, which can move a splat's rim) and values
@@ -362,6 +363,79 @@ def test_texsample_matches_plain(device, B, Hm, Wm, C, P, shared):
     for got, want in ((d_wy, r_wy), (d_wx, r_wx), (d_maps, r_maps)):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+def _tex_layout_inputs(seed, B, Hm, Wm, C, P, device, shared, layout):
+    """layout "cluster": each warp's 32 points on one texel, or on it and 2
+    to 4 neighbouring texels, a third of them empty fragments (corner
+    (Hm - 2, 0), wy 1, wx 0, cotangent 0), and some cotangent channels
+    exactly 0; "parity": corners at every x0, odd and even, on a map whose
+    rows hold an odd number of floats, with the map and the cotangent
+    starting 1 and 3 floats past a 16-byte boundary, so that the tap rows
+    and the staged cotangent run meet every alignment."""
+    rng = np.random.default_rng(seed)
+    nb = 1 if shared else B
+    off = 1 if layout == "parity" else 0
+    store = torch.tensor(rng.uniform(size=nb * Hm * Wm * C + off),
+                         dtype=torch.float32, device=device)
+    maps = store[off:].view(nb, Hm, Wm, C)
+    if shared:
+        maps = maps.expand(B, -1, -1, -1)       # batch stride 0
+    g = rng.normal(size=(B, P, C))
+    g[rng.uniform(size=g.shape) < 0.1] = 0.0
+    wy, wx = rng.uniform(size=(B, P)), rng.uniform(size=(B, P))
+    if layout == "cluster":
+        n = P // 32 + 1
+        y = np.repeat(rng.integers(0, Hm - 3, size=(B, n)), 32, 1)[:, :P]
+        x = np.repeat(rng.integers(0, Wm - 4, size=(B, n)), 32, 1)[:, :P]
+        spread = np.repeat(rng.integers(0, 2, size=(B, n)), 32, 1)[:, :P]
+        y0 = y + spread * rng.integers(0, 2, size=(B, P))
+        x0 = x + spread * rng.integers(0, 3, size=(B, P))
+        empty = rng.uniform(size=(B, P)) < 0.3
+        y0[empty], x0[empty], wy[empty], wx[empty] = Hm - 2, 0, 1.0, 0.0
+        g[empty] = 0.0
+    else:
+        y0 = rng.integers(0, Hm - 1, size=(B, P))
+        x0 = np.resize(np.arange(Wm - 1), (B, P))
+    gs = torch.zeros(B * P * C + 3, dtype=torch.float32, device=device)
+    gt = gs[3:].view(B, P, C)
+    gt.copy_(torch.tensor(g, dtype=torch.float32))
+    as_t = lambda a, dt: torch.tensor(a, dtype=dt, device=device)  # noqa
+    return (maps, as_t(y0, torch.int32), as_t(x0, torch.int32),
+            as_t(wy, torch.float32), as_t(wx, torch.float32), gt)
+
+
+@pytest.mark.parametrize("layout", ["cluster", "parity"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("C", [1, 3, 4, 8, 10])
+def test_texsample_layouts_match_plain(device, C, shared, layout):
+    """The pair at clustered fragments (the backward's warp aggregation)
+    and at every alignment of the tap rows, C in {1, 3, 4, 8} (their own
+    instances) and 10 (the scalar kernel), shared and stacked maps; one
+    launch per wrapper call."""
+    from torch_renderer_tpu_torch.ops import cuda_texsample as ts
+
+    Wm = 37 if layout == "parity" else 24
+    args = _tex_layout_inputs(4, 2, 19, Wm, C, 1000, device, shared, layout)
+    maps, y0, x0, wy, wx, g = args
+    before = ts.FWD_LAUNCHES
+    out = ts.texsample_fwd(maps, y0, x0, wy, wx)
+    assert ts.FWD_LAUNCHES == before + 1
+    before = ts.BWD_LAUNCHES
+    d_maps, d_wy, d_wx = ts.texsample_bwd(*args)
+    assert ts.BWD_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    ref = ts.texsample_fwd_reference(maps, y0, x0, wy, wx)
+    r_maps, r_wy, r_wx = ts.texsample_bwd_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    for got, want in ((d_wy, r_wy), (d_wx, r_wx), (d_maps, r_maps)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    if layout == "cluster":
+        # the empty fragments' corner gets only what live points add
+        corner = r_maps[:, -2:, :2]
+        torch.testing.assert_close(d_maps[:, -2:, :2], corner, rtol=0,
+                                   atol=1e-5 * float(r_maps.abs().max()))
 
 
 def test_textured_sample_matches_cpu(device):

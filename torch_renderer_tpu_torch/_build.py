@@ -121,12 +121,12 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_points_plan.argtypes = [i32, i32, ctypes.c_int64, vp, i32]
     lib.trt_points_plan.restype = i32
     i64 = ctypes.c_int64
-    lib.trt_texsample_fwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, i32, i32,
-                                      i32, i32, i32, i32, vp]
-    lib.trt_texsample_fwd.restype = i32
-    lib.trt_texsample_bwd.argtypes = [vp, i64, vp, vp, vp, vp, vp, vp, vp, vp,
-                                      i32, i32, i32, i32, i32, i32, vp]
-    lib.trt_texsample_bwd.restype = i32
+    # one packed argument block (bytes pass as a pointer, unconverted)
+    for fn in (lib.trt_texsample_fwd, lib.trt_texsample_bwd):
+        fn.argtypes = [ctypes.c_char_p]
+        fn.restype = i32
+    lib.trt_texsample_args_size.argtypes = []
+    lib.trt_texsample_args_size.restype = i32
     lib.trt_gather_tiles_fwd.argtypes = [vp, i32, vp, vp, i32, i32, i32, i32,
                                          i32, i32, i32, i32, vp]
     lib.trt_gather_tiles_fwd.restype = i32
@@ -141,15 +141,27 @@ def load_kernels() -> ctypes.CDLL:
     return lib
 
 
-def launch(fn_name: str, *args, device) -> None:
-    """Call entry point fn_name with args, then the device index and torch's
-    current stream on it; raise if the launch was refused (the entry
-    points return cudaGetLastError())."""
+def raw_stream(index: int) -> int:
+    """torch's current stream on CUDA device `index`, as the raw
+    cudaStream_t (no torch.cuda.Stream object is built)."""
     import torch
 
-    lib = load_kernels()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, device.index, stream)
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def check_launch(fn_name: str, rc: int) -> None:
+    """Raise if entry point fn_name returned an error (the entry points
+    return cudaGetLastError(): a refused launch never runs)."""
     if rc:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc} "
-                           f"({lib.trt_error_string(rc).decode()})")
+        raise RuntimeError(
+            f"{fn_name} launch failed: CUDA error {rc} "
+            f"({load_kernels().trt_error_string(rc).decode()})")
+
+
+def launch(fn_name: str, *args, device) -> None:
+    """Call entry point fn_name with args, then the device index and torch's
+    current raw stream on it; raise if the launch was refused."""
+    index = device.index
+    check_launch(fn_name,
+                 getattr(load_kernels(), fn_name)(*args, index,
+                                                  raw_stream(index)))

@@ -27,9 +27,12 @@ for anything else.
 
 from __future__ import annotations
 
+import functools
+import struct
+
 import torch
 
-from .._build import launch
+from .._build import check_launch, load_kernels, raw_stream
 
 # Kernel launches since import (or since a caller reset them): one per
 # launched kernel, counted where the wrapper launches it and nowhere else.
@@ -82,64 +85,109 @@ def texsample_bwd_reference(maps, y0, x0, wy, wx, g):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_inputs(maps, y0, x0, wy, wx, g=None) -> int:
-    """Validate the operands; returns the map's batch stride in elements
-    for the kernels (0 for a batch broadcast)."""
-    if maps.device.type not in ("cpu", "cuda"):
+_F32, _I32 = torch.float32, torch.int32
+# One launch's arguments in the C layout of csrc/texsample.cu's TexArgs:
+# maps, map_stride, y0, x0, wy, wx, g, out (d_maps), d_wy, d_wx, stream, then
+# B, P, Hm, Wm, C and the device index.
+_ARGS = struct.Struct("@PqPPPPPPPPPiiiiii")
+
+
+def _check_inputs(maps, y0, x0, wy, wx, g=None) -> tuple:
+    """Validate the operands; returns (the map's batch stride in elements
+    for the kernels (0 for a batch broadcast), the CUDA device's index (-1
+    on the CPU), B, P, Hm, Wm, C). Each tensor's device, dtype and shape is
+    read once, and devices are compared by index."""
+    cuda = maps.is_cuda
+    if not (cuda or maps.is_cpu):
         raise ValueError(f"no texture-sampling kernel for device {maps.device}")
-    if maps.dtype != torch.float32 or maps.ndim != 4:
+    mshape = maps.shape
+    if maps.dtype is not _F32 or len(mshape) != 4:
         raise ValueError(f"maps must be float32 (B, Hm, Wm, C), got "
-                         f"{maps.dtype} {tuple(maps.shape)}")
-    B, Hm, Wm, C = maps.shape
+                         f"{maps.dtype} {tuple(mshape)}")
+    B, Hm, Wm, C = mshape
     if Hm < 2 or Wm < 2 or C < 1:
         raise ValueError(f"maps must be at least 2x2 with a channel, got "
-                         f"{tuple(maps.shape)}")
-    if y0.ndim != 2 or y0.shape[0] != B:
-        raise ValueError(f"y0 must be (B={B}, P), got {tuple(y0.shape)}")
-    shape = tuple(y0.shape)
-    for name, t, dt in (("y0", y0, torch.int32), ("x0", x0, torch.int32),
-                        ("wy", wy, torch.float32), ("wx", wx, torch.float32)):
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {dt} {shape}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    if g is not None and (g.dtype != torch.float32
-                          or tuple(g.shape) != shape + (C,)):
-        raise ValueError(f"g must be float32 {shape + (C,)}, got {g.dtype} "
-                         f"{tuple(g.shape)}")
-    tensors = (maps, y0, x0, wy, wx) + (() if g is None else (g,))
-    if any(t.device != maps.device for t in tensors):
+                         f"{tuple(mshape)}")
+    shape = y0.shape
+    if len(shape) != 2 or shape[0] != B:
+        raise ValueError(f"y0 must be (B={B}, P), got {tuple(shape)}")
+    if not (y0.dtype is _I32 and x0.dtype is _I32 and wy.dtype is _F32
+            and wx.dtype is _F32 and x0.shape == shape and wy.shape == shape
+            and wx.shape == shape):
+        shape = tuple(shape)
+        for name, t, dt in (("y0", y0, _I32), ("x0", x0, _I32),
+                            ("wy", wy, _F32), ("wx", wx, _F32)):
+            if t.dtype != dt or tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {dt} {shape}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+    if g is not None and (g.dtype is not _F32
+                          or g.shape != (shape[0], shape[1], C)):
+        raise ValueError(f"g must be float32 {tuple(shape) + (C,)}, got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if cuda:
+        dev = maps.get_device()
+        same = (y0.is_cuda and x0.is_cuda and wy.is_cuda and wx.is_cuda
+                and y0.get_device() == dev and x0.get_device() == dev
+                and wy.get_device() == dev and wx.get_device() == dev
+                and (g is None or (g.is_cuda and g.get_device() == dev)))
+    else:
+        dev = -1
+        same = (y0.is_cpu and x0.is_cpu and wy.is_cpu and wx.is_cpu
+                and (g is None or g.is_cpu))
+    if not same:
         raise ValueError("maps, y0, x0, wy, wx and g must be on one device")
+    stride = _cuda_layout(maps, y0, x0, wy, wx, g) if cuda else Hm * Wm * C
+    return stride, dev, B, shape[1], Hm, Wm, C
+
+
+def _cuda_layout(maps, y0, x0, wy, wx, g=None) -> int:
+    """The layout the CUDA kernels take (checked for any device, so that
+    the CPU tests reach it): contiguous corners, weights and cotangent, and
+    views of the map that are each contiguous, stacked or broadcast.
+    Returns the map's batch stride in elements (0 for a broadcast)."""
+    if not (y0.is_contiguous() and x0.is_contiguous()
+            and wy.is_contiguous() and wx.is_contiguous()
+            and (g is None or g.is_contiguous())):
+        raise ValueError("the CUDA kernels take contiguous corner, "
+                         "weight and cotangent tensors")
+    B, Hm, Wm, C = maps.shape
+    sb, sy, sx, sc = maps.stride()
     stride = Hm * Wm * C
-    if maps.device.type == "cuda":
-        if not all(t.is_contiguous() for t in tensors[1:]):
-            raise ValueError("the CUDA kernels take contiguous corner, "
-                             "weight and cotangent tensors")
-        if not maps[0].is_contiguous() or (
-                B > 1 and maps.stride(0) not in (0, stride)):
-            raise ValueError("the CUDA kernels take a map whose views are "
-                             "contiguous, stacked or broadcast (batch "
-                             f"stride 0 or {stride}); got strides "
-                             f"{maps.stride()}")
-        if B > 1:
-            stride = maps.stride(0)
-    return stride
+    # maps[0] is contiguous: a channel axis of one may have any stride
+    if sy != Wm * C or sx != C or (sc != 1 and C != 1) or (
+            B > 1 and sb not in (0, stride)):
+        raise ValueError("the CUDA kernels take a map whose views are "
+                         "contiguous, stacked or broadcast (batch "
+                         f"stride 0 or {stride}); got strides "
+                         f"{maps.stride()}")
+    return sb if B > 1 else stride
+
+
+@functools.cache
+def _kernels():
+    """The kernel library, once its TexArgs is found to be _ARGS's size."""
+    lib = load_kernels()
+    if lib.trt_texsample_args_size() != _ARGS.size:
+        raise RuntimeError(f"csrc/texsample.cu's TexArgs is "
+                           f"{lib.trt_texsample_args_size()} bytes, the "
+                           f"wrapper packs {_ARGS.size}")
+    return lib
 
 
 def texsample_fwd(maps, y0, x0, wy, wx) -> torch.Tensor:
     """Bilinear samples (B, P, C) of maps (B, Hm, Wm, C) at the int32
     corners y0, x0 (B, P) with the float32 weights wy, wx (B, P)."""
     global FWD_LAUNCHES
-    stride = _check_inputs(maps, y0, x0, wy, wx)
-    if maps.device.type == "cpu":
+    stride, dev, B, P, Hm, Wm, C = _check_inputs(maps, y0, x0, wy, wx)
+    if dev < 0:
         return texsample_fwd_reference(maps, y0, x0, wy, wx)
-    B, Hm, Wm, C = maps.shape
-    P = y0.shape[1]
     out = maps.new_empty((B, P, C))           # the kernel writes every point
     if B * P == 0:
         return out
-    launch("trt_texsample_fwd", maps.data_ptr(), stride, y0.data_ptr(),
-           x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(), B, P,
-           Hm, Wm, C, device=maps.device)
+    check_launch("trt_texsample_fwd", _kernels().trt_texsample_fwd(_ARGS.pack(
+        maps.data_ptr(), stride, y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+        wx.data_ptr(), 0, out.data_ptr(), 0, 0, raw_stream(dev), B, P, Hm,
+        Wm, C, dev)))
     FWD_LAUNCHES += 1
     return out
 
@@ -149,20 +197,18 @@ def texsample_bwd(maps, y0, x0, wy, wx, g):
     contracted with the cotangent g (B, P, C). On the card d_maps is summed
     with float32 atomics, so its summation order varies from run to run."""
     global BWD_LAUNCHES
-    stride = _check_inputs(maps, y0, x0, wy, wx, g)
-    if maps.device.type == "cpu":
+    stride, dev, B, P, Hm, Wm, C = _check_inputs(maps, y0, x0, wy, wx, g)
+    if dev < 0:
         return texsample_bwd_reference(maps, y0, x0, wy, wx, g)
-    B, Hm, Wm, C = maps.shape
-    P = y0.shape[1]
     d_maps = maps.new_zeros((B, Hm, Wm, C))   # the kernel adds into it
     d_wy = wy.new_empty((B, P))               # the kernel writes every point
     d_wx = wx.new_empty((B, P))
     if B * P == 0:
         return d_maps, d_wy, d_wx
-    launch("trt_texsample_bwd", maps.data_ptr(), stride, y0.data_ptr(),
-           x0.data_ptr(), wy.data_ptr(), wx.data_ptr(), g.data_ptr(),
-           d_maps.data_ptr(), d_wy.data_ptr(), d_wx.data_ptr(), B, P, Hm, Wm,
-           C, device=maps.device)
+    check_launch("trt_texsample_bwd", _kernels().trt_texsample_bwd(_ARGS.pack(
+        maps.data_ptr(), stride, y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
+        wx.data_ptr(), g.data_ptr(), d_maps.data_ptr(), d_wy.data_ptr(),
+        d_wx.data_ptr(), raw_stream(dev), B, P, Hm, Wm, C, dev)))
     BWD_LAUNCHES += 1
     return d_maps, d_wy, d_wx
 
