@@ -6,10 +6,17 @@ Drives, through the port's public entry points:
      256x256, a level-3 icosphere of 1280 faces, sigma=1e-4): each soft
      kernel against its plain PyTorch version, step 0's alpha against the
      dense streaming oracle, the tile-gather pair against its plain
-     versions at the step's corner slab, and 100 chained render + grad steps
-     (v <- v - 1e-6 * grad) that must launch each soft kernel and each
-     gather kernel once a step; then a torch.profiler window of 20 steps
-     (device ms per step, the top kernels, the soft kernels' share);
+     versions at the step's corner slab, and the step of the port's bench
+     (torch_renderer_tpu_torch/bench.py: v <- v - 1e-6 * grad), whose
+     first pass of 10 + 100 steps must launch each soft kernel and each
+     gather kernel once a step; the bench's 5 passes give the median img/s
+     and its spread, and one profiled step its launches; then a
+     torch.profiler window of 20 steps (device ms per step, the top
+     kernels, the soft kernels' share); then the packed layout's occupancy
+     split there: a forced split that drops nothing (alpha within 1e-6 of
+     the unsplit route's, gradients within 1e-5 of their largest, the same
+     launches) and the split suggest_soft_config(split=True) sizes (alpha
+     within 2e-4 of the dense oracle, the same launches);
   B. the hard-raster kernels against their plain versions at the camera
      pose fit's shapes (B=1, 128x128, the level-3 icosphere normalized to
      the unit sphere at look_at(2.7, 15, 40), tile 16, budgets from
@@ -148,6 +155,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -161,6 +169,7 @@ LEVEL = 3            # 1280 faces
 SIGMA = 1e-4
 STEPS = 100
 WARMUP = 10
+PASSES = 5           # the bench's passes (torch_renderer_tpu_torch/bench.py)
 TIMING_REPS = 20     # launches per kernel timing
 
 POSE_IMAGE = 128
@@ -535,20 +544,71 @@ def gather_floor(device, card: str) -> dict:
 # A. soft-silhouette render + backward (the bench scene)
 # ---------------------------------------------------------------------------
 
-def bench_scene(device):
-    """The bench scene (bench.py's _scene): icosphere at t = (0, 0, 3) seen
-    with f = 0.8 * IMAGE, replicated B times."""
+def split_checks(meshes, cam, cfg, dense, card: str) -> dict:
+    """The packed layout's occupancy split at the bench scene, against the
+    unsplit route of cfg: a forced split (hi_tiles the largest multiple of
+    8 below half the active tiles, lo_lanes = faces_per_tile, so nothing
+    is dropped) gives alpha within 1e-6 of the unsplit alpha and vertex
+    gradients within 1e-5 of their largest (float32 atomics of the gather
+    backward); one step of each launches the same kernels as often; and
+    the split that suggest_soft_config(split=True) sizes there, if any,
+    gives alpha within 2e-4 of the dense oracle."""
     import torch_renderer_tpu_torch as trt
 
-    verts, faces = trt.icosphere(LEVEL)
-    f = 0.8 * IMAGE
-    K = np.array([[f, 0, IMAGE / 2.0], [0, f, IMAGE / 2.0], [0, 0, 1.0]],
-                 np.float32)
-    t = np.tile(np.array([0.0, 0.0, 3.0], np.float32), (B, 1))
-    meshes = trt.Meshes.from_single(verts, faces, device=device).extend(B)
-    cam = trt.PerspectiveCamera.from_K(np.tile(K[None], (B, 1, 1)),
-                                       (IMAGE, IMAGE), t=t, device=device)
-    return meshes, cam
+    def run(c):
+        """alpha, gradient and the launches of one render + backward."""
+        v = meshes.verts.clone().requires_grad_(True)
+        reset_counts()
+        fp = trt.setup_face_planes(meshes.update_padded(v), cam)
+        alpha = trt.soft_silhouette_fd(fp, (IMAGE, IMAGE), sigma=SIGMA,
+                                       **c.kwargs())
+        (g,) = torch.autograd.grad(alpha.sum(), v)
+        torch.cuda.synchronize()
+        return alpha.detach(), g, read_counts()
+
+    hi = cfg.active_tiles // 16 * 8
+    forced = cfg._replace(hi_tiles=hi, lo_lanes=cfg.faces_per_tile)
+    a0, g0, n0 = run(cfg)
+    a1, g1, n1 = run(forced)
+    a_err = float((a1 - a0).abs().max())
+    g_err = float((g1 - g0).abs().max())
+    g_tol = 1e-5 * float(g0.abs().max())
+    print(f"[soft] forced split (hi_tiles {hi}, lo_lanes "
+          f"{forced.lo_lanes}): max|alpha - unsplit| {a_err:.3e} (tol "
+          f"1e-6), max|grad - unsplit| {g_err:.3e} (tol {g_tol:.3e}); "
+          f"launches {n1} (unsplit {n0})", flush=True)
+    if not a_err <= 1e-6 or not g_err <= g_tol:
+        raise AssertionError("the forced split disagrees with the unsplit "
+                             "route")
+    if n1 != n0 or n0 != only(n0, soft_coverage_fwd=1, soft_coverage_bwd=1,
+                              gather_tiles_fwd=1, gather_tiles_bwd=1):
+        raise AssertionError(f"the split route launched {n1}, the unsplit "
+                             f"route {n0}")
+    with torch.no_grad():
+        fp0 = trt.setup_face_planes(meshes, cam)
+    sized = trt.suggest_soft_config(fp0, (IMAGE, IMAGE), sigma=SIGMA,
+                                    split=True)
+    out = {"forced_hi_tiles": hi, "alpha_vs_unsplit": a_err,
+           "grad_vs_unsplit": g_err, "grad_tol": g_tol, "launches": n1,
+           "suggested": sized._asdict()}
+    print(f"[soft] suggest_soft_config(split=True) at the bench scene: "
+          f"{sized}", flush=True)
+    if sized.hi_tiles is not None:
+        a2, g2, n2 = run(sized)
+        d_err = float((a2 - dense).abs().max())
+        print(f"[soft] suggested split: max|alpha - dense oracle| "
+              f"{d_err:.3e} (tol 2e-4), max|alpha - unsplit| "
+              f"{float((a2 - a0).abs().max()):.3e}; launches {n2}",
+              flush=True)
+        if not d_err <= 2e-4 or not bool(torch.isfinite(g2).all()):
+            raise AssertionError("the suggested split disagrees with the "
+                                 "dense oracle")
+        if n2 != n0:
+            raise AssertionError(f"the suggested split launched {n2}")
+        out.update(suggested_alpha_vs_dense=d_err,
+                   suggested_alpha_vs_unsplit=float((a2 - a0).abs().max()))
+    print(f"[soft] occupancy split ({card}): {out}", flush=True)
+    return out
 
 
 def soft_fwd_bound(q, count, tile: int, inv_s: float,
@@ -662,6 +722,7 @@ SOFT_FWD_PAIR_KEYS = ("pairs", "full_pairs", "edge_pairs",
 
 def soft_phase(device, card: str):
     import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch import bench
     from torch_renderer_tpu_torch.rasterize import cuda_soft
     from torch_renderer_tpu_torch.rasterize.binning import (
         bin_faces_active,
@@ -669,7 +730,7 @@ def soft_phase(device, card: str):
     )
     from torch_renderer_tpu_torch.rasterize.soft import SOFT_CUTOFF
 
-    meshes, cam = bench_scene(device)
+    meshes, cam = bench.scene(B, IMAGE, LEVEL, device)
     fp0 = trt.setup_face_planes(meshes, cam)
     cfg = trt.suggest_soft_config(fp0, (IMAGE, IMAGE), sigma=SIGMA,
                                   layout="packed")
@@ -705,49 +766,35 @@ def soft_phase(device, card: str):
     if not float(alpha0.max()) > 0.9:
         raise AssertionError("step-0 alpha covers nothing")
 
-    # chained render + grad steps
-    def step(v):
-        v = v.detach().requires_grad_(True)
-        fp = trt.setup_face_planes(meshes.update_padded(v), cam)
-        alpha = trt.soft_silhouette_fd(fp, (IMAGE, IMAGE), sigma=SIGMA,
-                                       **cfg.kwargs())
-        (grad,) = torch.autograd.grad(alpha.sum(), v)
-        return v.detach() - 1e-6 * grad, grad
-
+    # chained render + grad steps: the step of the port's bench
+    # (torch_renderer_tpu_torch/bench.py), sized there as here. The main
+    # path is its first pass (WARMUP + STEPS steps), counted; PASSES - 1
+    # more give the median and the spread, as the bench reports them.
+    step, _ = bench.make_step(meshes, cam, SIGMA, cfg)
+    v, grad = step(meshes.verts)
+    if not bool(torch.isfinite(grad).all()) or \
+            not float(grad.abs().sum()) > 0:
+        raise AssertionError("the first gradient is not finite and nonzero")
     reset_counts()
-    v = meshes.verts
-    for i in range(WARMUP):
-        v, grad = step(v)
-        if not bool(torch.isfinite(grad).all()):
-            raise AssertionError(f"non-finite gradient at step {i}")
-        if i == 0 and not float(grad.abs().sum()) > 0:
-            raise AssertionError("the first gradient is zero")
-    torch.cuda.synchronize()
-    finite = torch.ones((), dtype=torch.bool, device=device)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(STEPS):
-        v, grad = step(v)
-        finite &= torch.isfinite(grad).all()
-    stop.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    rates, v = bench.time_passes(step, meshes.verts, B, STEPS, WARMUP, 1)
     counts = read_counts()
-    step_ms = start.elapsed_time(stop) / STEPS
+    more, v = bench.time_passes(step, v, B, STEPS, WARMUP, PASSES - 1)
+    rates += more
     run = WARMUP + STEPS
     print(f"[soft] main path: {run} steps, launches {counts}", flush=True)
-    if not bool(finite) or not bool(torch.isfinite(v).all()):
-        raise AssertionError("non-finite gradient in the timed steps")
+    if not bool(torch.isfinite(v).all()):
+        raise AssertionError("non-finite vertices after the timed steps")
     if counts != only(counts, soft_coverage_fwd=run, soft_coverage_bwd=run,
                       gather_tiles_fwd=run, gather_tiles_bwd=run):
         raise AssertionError(f"expected {run} launches of each soft and "
                              f"gather kernel and none other, got {counts}")
-    print(f"[soft] main path: {B * 1000.0 / step_ms:.1f} img/s "
-          f"({step_ms:.4f} ms per step of B={B}, CUDA events over {STEPS} "
-          f"steps; host wall {wall_s * 1000.0 / STEPS:.4f} ms/step) on "
-          f"{card}", flush=True)
+    img_s = statistics.median(rates)
+    per_step = bench.launches_per_step(step, v)
+    print(f"[soft] bench passes ({STEPS} steps after {WARMUP}, CUDA "
+          f"events, B={B}): " + ", ".join(f"{r:.1f}" for r in rates)
+          + f" img/s; median {img_s:.1f}, spread {min(rates):.1f}-"
+          f"{max(rates):.1f}; launches per step {per_step} on {card}",
+          flush=True)
     prof = _busy_share(lambda: [step(v) for _ in range(PROFILE_ITERS)],
                        PROFILE_ITERS, top=5,
                        named=("soft_coverage_bwd", "soft_coverage_fwd"))
@@ -757,6 +804,7 @@ def soft_phase(device, card: str):
           f"{prof['soft_coverage_fwd_ms_per_iter']:.4f} ms per step, "
           f"{100 * prof['soft_coverage_fwd_share_of_busy']:.1f}% of "
           f"{prof['busy_ms_per_iter']:.4f} busy ms ({card})", flush=True)
+    split = split_checks(meshes, cam, cfg, dense, card)
 
     source = "torch_renderer_tpu_torch/csrc/soft_coverage.cu"
     gather["launches_bwd"] = counts["gather_tiles_bwd"]
@@ -777,7 +825,9 @@ def soft_phase(device, card: str):
                            "torch_renderer_tpu/rasterize/pallas_soft.py:362"],
          "launches": counts["soft_coverage_bwd"],
          **{k: b[k] for k in keys}, "library_ms": None,
-         "img_s": B * 1000.0 / step_ms, "step_profile": prof},
+         "img_s": img_s, "img_s_passes": rates,
+         "launches_per_step": per_step, "step_profile": prof,
+         "occupancy_split": split},
     ]
 
 

@@ -157,6 +157,86 @@ def test_wrapper_rejects_strided_input(device):
                                     1.0 / 16, 1e4)
 
 
+def _split_scene(dev):
+    """The split parity tests' second scene (tests/test_torch_occupancy_
+    split.py): 320 faces at 128^2, where suggest_soft_config sizes a
+    split."""
+    import torch_renderer_tpu_torch as trt
+
+    verts, faces = trt.icosphere(2)
+    f = 0.8 * 128
+    K = np.array([[f, 0, 64], [0, f, 64], [0, 0, 1]], np.float32)
+    t = np.array([[0.0, 0.0, 3.0], [0.3, 0.2, 3.4]], np.float32)
+    meshes = trt.Meshes.from_single(verts, faces, device=dev).extend(2)
+    cam = trt.PerspectiveCamera.from_K(K, (128, 128), t=t, device=dev)
+    return meshes, cam
+
+
+def _soft_and_grad(meshes, cam, **kw):
+    import torch_renderer_tpu_torch as trt
+
+    v = meshes.verts.clone().requires_grad_(True)
+    fp = trt.setup_face_planes(meshes.update_padded(v), cam)
+    alpha = trt.soft_silhouette_fd(fp, cam.image_size, **kw)
+    alpha.sum().backward()
+    return alpha.detach(), v.grad
+
+
+@pytest.mark.parametrize("lo", [None, 6])
+def test_split_route_matches_cpu(device, lo):
+    """soft_silhouette_fd under the occupancy split on the card against the
+    same call on the CPU (plain versions): the sized split, and lo_lanes 6,
+    under which tail tiles drop candidates."""
+    import torch_renderer_tpu_torch as trt
+
+    out = {}
+    for dev in ("cpu", device):
+        meshes, cam = _split_scene(dev)
+        with torch.no_grad():
+            fp = trt.setup_face_planes(meshes, cam)
+        cfg = trt.suggest_soft_config(fp, cam.image_size, split=True)
+        assert cfg.hi_tiles is not None
+        if lo is not None:
+            cfg = cfg._replace(lo_lanes=lo)
+        out[str(dev)] = _soft_and_grad(meshes, cam, **cfg.kwargs())
+    (a_cpu, g_cpu), (a_gpu, g_gpu) = out["cpu"], out[str(device)]
+    torch.testing.assert_close(a_gpu.cpu(), a_cpu, rtol=0, atol=1e-4)
+    torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=0,
+                               atol=1e-3 * float(g_cpu.abs().max()))
+
+
+def test_forced_split_equals_unsplit(device):
+    """A split with lo_lanes = faces_per_tile drops nothing: alpha within
+    1e-6 of the unsplit route's (each tile sums the same slots), vertex
+    gradients within 1e-5 of their largest (float32 atomics of the gather
+    backward add in another order), and the same kernels launched as
+    often."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.rasterize import cuda_gather
+
+    meshes, cam = _split_scene(device)
+    with torch.no_grad():
+        fp = trt.setup_face_planes(meshes, cam)
+    cfg = trt.suggest_soft_config(fp, cam.image_size, layout="packed")
+    runs = []
+    for hi in (None, 8):
+        kw = cfg._replace(hi_tiles=hi, lo_lanes=cfg.faces_per_tile).kwargs()
+        before = (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES,
+                  cuda_gather.GATHER_FWD_LAUNCHES,
+                  cuda_gather.GATHER_BWD_LAUNCHES)
+        a, g = _soft_and_grad(meshes, cam, **kw)
+        torch.cuda.synchronize()
+        after = (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES,
+                 cuda_gather.GATHER_FWD_LAUNCHES,
+                 cuda_gather.GATHER_BWD_LAUNCHES)
+        runs.append((a, g, tuple(x - y for x, y in zip(after, before))))
+    (a0, g0, n0), (a1, g1, n1) = runs
+    assert n0 == n1 == (1, 1, 1, 1)
+    torch.testing.assert_close(a1, a0, rtol=0, atol=1e-6)
+    torch.testing.assert_close(g1, g0, rtol=0,
+                               atol=1e-5 * float(g0.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # Hard-raster kernels (csrc/hard_raster.cu)
 # ---------------------------------------------------------------------------

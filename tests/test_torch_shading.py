@@ -222,6 +222,7 @@ def test_render_gradients_match_jax():
 def _entry_points():
     from torch_renderer_tpu_torch.cameras.perspective import PerspectiveCamera
     from torch_renderer_tpu_torch.opt import deform_color as pdc
+    from torch_renderer_tpu_torch.rasterize import soft as psoft
     from torch_renderer_tpu_torch.structures.meshes import Meshes as PMeshes
     from torch_renderer_tpu_torch.structures.pointclouds import Pointclouds
 
@@ -246,6 +247,11 @@ def _entry_points():
         "joint_params_from_arrays": lambda: interop.joint_params_from_arrays(
             np.zeros((12, 3)), np.zeros((4, 4, 3))),
         "Pointclouds.from_lists": lambda: Pointclouds.from_lists([verts]),
+        "PerspectiveCamera.from_fov": lambda: PerspectiveCamera.from_fov(
+            60.0, (8, 8)),
+        "soft_silhouette": lambda: psoft.soft_silhouette(
+            PMeshes.from_single(verts, faces),
+            PerspectiveCamera.from_fov(60.0, (8, 8))),
     }
 
 

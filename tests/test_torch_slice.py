@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import torch_renderer_tpu_torch as port
 from torch_renderer_tpu.cameras.perspective import PerspectiveCamera
@@ -132,16 +133,24 @@ def test_sources_do_not_import_jax():
 @pytest.mark.parametrize("kwargs,match", [
     pytest.param(dict(layout="packed", active_tiles=4, hi_tiles=8),
                  "hi_tiles", id="kwargs1-hi_tiles"),
-    pytest.param(dict(layout="lane", hi_tiles=8), "hi_tiles",
+    pytest.param(dict(layout="lane", hi_tiles=8), None,
                  id="kwargs2-hi_tiles"),
 ])
 def test_unported_layouts_raise(kwargs, match):
+    """The occupancy split: the packed layout rejects hi_tiles that are not
+    below the active tiles (ValueError, as in the JAX package); the lane
+    layout ignores hi_tiles."""
     verts, faces, K, R, t = _scene()
     meshes = port.Meshes.from_single(verts, faces, device="cpu").extend(B)
     cam = port.PerspectiveCamera.from_K(K, (IMG, IMG), R=R, t=t,
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        port.soft_silhouette_cuda(meshes, cam, **kwargs)
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            port.soft_silhouette_cuda(meshes, cam, **kwargs)
+        return
+    plain = {k: v for k, v in kwargs.items() if k != "hi_tiles"}
+    assert torch.equal(port.soft_silhouette_cuda(meshes, cam, **kwargs),
+                       port.soft_silhouette_cuda(meshes, cam, **plain))
 
 
 def test_packed_requires_active_tiles():

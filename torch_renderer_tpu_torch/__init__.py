@@ -3,8 +3,10 @@
 Five slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
-    camera, face setup, active-tile binning and the soft-coverage CUDA
-    kernel pair;
+    camera, face setup, active-tile binning (in raster or count order), the
+    soft-coverage CUDA kernel pair with the packed layout's occupancy
+    split, the public entry soft_silhouette and the benchmark of the
+    render + backward step (bench.py);
   * the camera pose fit: look-at poses and quaternions, the top-K mesh
     rasterizer (the K=1 and top-K hard-raster CUDA kernels for binned
     settings, plain torch for dense ones), Phong shading and blending, the
@@ -28,8 +30,17 @@ on first use, never at import. The JAX package ``torch_renderer_tpu`` stays
 the reference; this package does not import it or JAX.
 """
 
-from .cameras.look_at import look_at_view_transform
-from .cameras.perspective import PerspectiveCamera
+from .cameras.look_at import (
+    camera_position_from_spherical_angles,
+    look_at_opencv,
+    look_at_rotation_opencv,
+    look_at_view_transform,
+)
+from .cameras.perspective import (
+    PerspectiveCamera,
+    pose_opencv_to_pytorch3d,
+    pose_pytorch3d_to_opencv,
+)
 from .ops.icosphere import icosphere
 from .io.obj import load_obj, load_objs_as_meshes, save_obj
 from .ops.knn_chamfer import chamfer_distance, knn_points
@@ -63,7 +74,7 @@ from .rasterize.cuda_soft import (
     suggest_soft_config,
 )
 from .rasterize.cuda_untile import tile_slot_table, untile_scatter
-from .rasterize.fragments import Fragments
+from .rasterize.fragments import Fragments, interpolate_face_attributes
 from .rasterize.geometry import (
     FacePlanes,
     FaceRasterData,
@@ -80,7 +91,7 @@ from .rasterize.raster import (
     rasterize_face_data,
     rasterize_meshes,
 )
-from .rasterize.soft import soft_silhouette_streaming
+from .rasterize.soft import soft_silhouette, soft_silhouette_streaming
 from .renderer import (
     AlphaPointRender,
     ColorRender,
@@ -94,7 +105,7 @@ from .renderer import (
     RenderOutputs,
     SilhouetteRender,
 )
-from .shading.blending import BlendParams
+from .shading.blending import BlendParams, sigmoid_alpha, softmax_rgb_blend
 from .shading.lights import DirectionalLights, Materials, PointLights
 from .structures.meshes import Meshes
 from .structures.pointclouds import Pointclouds
@@ -146,18 +157,24 @@ __all__ = [
     "TimingResult",
     "VertexColorFitter",
     "build_topology",
+    "camera_position_from_spherical_angles",
     "chamfer_distance",
     "gather_tiles",
     "icosphere",
+    "interpolate_face_attributes",
     "knn_points",
     "load_obj",
     "load_objs_as_meshes",
+    "look_at_opencv",
+    "look_at_rotation_opencv",
     "look_at_view_transform",
     "mesh_edge_loss",
     "mesh_laplacian_smoothing",
     "mesh_normal_consistency",
+    "pose_opencv_to_pytorch3d",
     "pose_params_from_Rt",
     "pose_params_to_Rt",
+    "pose_pytorch3d_to_opencv",
     "profiler_trace",
     "rasterize_face_data",
     "rasterize_meshes",
@@ -166,9 +183,12 @@ __all__ = [
     "save_obj",
     "setup_face_planes",
     "setup_faces",
+    "sigmoid_alpha",
+    "soft_silhouette",
     "soft_silhouette_cuda",
     "soft_silhouette_fd",
     "soft_silhouette_streaming",
+    "softmax_rgb_blend",
     "sphere_uv_mapping",
     "suggest_soft_config",
     "tile_slot_table",

@@ -7,7 +7,7 @@ sphere, in calls of --view-chunk views, and prints the auto-sized budgets,
 the batched throughput, the serial single-view rate and depth statistics.
 Budgets left at 0 are sized from all N views. Every call runs the K=1
 hard-raster kernel once, the tile-gather kernel once and the untile kernel
-once per fragment field.
+once, for all four fragment fields.
 
   python -m torch_renderer_tpu_torch.apps.batch_render_bench
   python -m torch_renderer_tpu_torch.apps.batch_render_bench --device cpu --n-views 4 --view-chunk 2 --height 72 --width 128 --reps 1

@@ -10,6 +10,7 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -63,6 +64,30 @@ class PerspectiveCamera:
             R=R, t=t, image_size=(int(image_size[0]), int(image_size[1])),
         )
 
+    @staticmethod
+    def from_fov(fov_degrees: float, image_size: Tuple[int, int], R=None,
+                 t=None, device=None) -> "PerspectiveCamera":
+        """The camera of pytorch3d's FoVPerspectiveCameras (square NDC):
+        focal (min(H, W) / 2) / tan(fov / 2), principal point at the image
+        centre, one view per rotation in R (one without), on ``device``
+        (default: R's device when R is a tensor, else the card)."""
+        device = resolve_device(device, like=R)
+        H, W = int(image_size[0]), int(image_size[1])
+        f = (min(H, W) / 2.0) / math.tan(math.radians(fov_degrees) / 2.0)
+        R = torch.eye(3, device=device)[None] if R is None else \
+            _as_batched(R, 2, device)
+        B = R.shape[0]
+        t = torch.zeros((B, 3), device=device) if t is None else \
+            _as_batched(t, 1, device)
+        ones = torch.ones((B,), device=device)
+        return PerspectiveCamera(
+            fx=f * ones, fy=f * ones, cx=(W / 2.0) * ones,
+            cy=(H / 2.0) * ones, R=R, t=t, image_size=(H, W))
+
+    @property
+    def batch_size(self) -> int:
+        return max(self.fx.shape[0], self.R.shape[0])
+
     def K(self) -> torch.Tensor:
         """(B, 3, 3) pinhole matrices."""
         B = self.fx.shape[0]
@@ -111,3 +136,21 @@ class PerspectiveCamera:
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device)
                      for f in ("fx", "fy", "cx", "cy", "R", "t")})
+
+
+# ---------------------------------------------------------------------------
+# pytorch3d-convention interop
+# ---------------------------------------------------------------------------
+
+def pose_opencv_to_pytorch3d(R: torch.Tensor, t: torch.Tensor):
+    """OpenCV (R, t) -> pytorch3d (R, T): R transposed with its first two
+    columns negated, and t's first two components negated."""
+    flip = torch.tensor([-1.0, -1.0, 1.0], dtype=R.dtype, device=R.device)
+    return R.transpose(-1, -2) * flip, t * flip
+
+
+def pose_pytorch3d_to_opencv(R: torch.Tensor, T: torch.Tensor):
+    """pytorch3d-convention (R, T) (row vectors, +x left, +y up) -> OpenCV
+    (R, t): the inverse of pose_opencv_to_pytorch3d."""
+    flip = torch.tensor([-1.0, -1.0, 1.0], dtype=R.dtype, device=R.device)
+    return flip[:, None] * R.transpose(-1, -2), flip * T

@@ -1,6 +1,7 @@
-"""Icosphere generator (host-side numpy), the scene mesh of the soft-silhouette
-bench. Same construction as ``torch_renderer_tpu.ops.icosphere``, so both
-packages build bit-identical meshes."""
+"""Primitive meshes (host-side numpy): the icosphere, the scene mesh of the
+soft-silhouette bench, a cube and a quad. Same construction as
+``torch_renderer_tpu.ops.icosphere``, so both packages build bit-identical
+meshes."""
 
 from __future__ import annotations
 
@@ -56,3 +57,37 @@ def icosphere(level: int = 0, radius: float = 1.0) -> Tuple[np.ndarray, np.ndarr
         faces = np.asarray(new_faces, dtype=np.int64)
 
     return (verts * radius).astype(np.float32), faces.astype(np.int32)
+
+
+def cube(size: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Axis-aligned cube centred at the origin, 12 triangles."""
+    s = size / 2.0
+    verts = np.array(
+        [
+            [-s, -s, -s], [s, -s, -s], [s, s, -s], [-s, s, -s],
+            [-s, -s, s], [s, -s, s], [s, s, s], [-s, s, s],
+        ],
+        dtype=np.float32,
+    )
+    faces = np.array(
+        [
+            [0, 2, 1], [0, 3, 2],  # -z
+            [4, 5, 6], [4, 6, 7],  # +z
+            [0, 1, 5], [0, 5, 4],  # -y
+            [3, 6, 2], [3, 7, 6],  # +y
+            [0, 4, 7], [0, 7, 3],  # -x
+            [1, 2, 6], [1, 6, 5],  # +x
+        ],
+        dtype=np.int32,
+    )
+    return verts, faces
+
+
+def quad(size: float = 1.0, z: float = 0.0) -> Tuple[np.ndarray, np.ndarray]:
+    """One square in the plane z = const (2 triangles)."""
+    s = size / 2.0
+    verts = np.array(
+        [[-s, -s, z], [s, -s, z], [s, s, z], [-s, s, z]], dtype=np.float32
+    )
+    faces = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.int32)
+    return verts, faces

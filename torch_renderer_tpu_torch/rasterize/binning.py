@@ -9,8 +9,10 @@ radius-expanded bbox overlaps. The rules match the JAX package exactly:
 
   * a tile's candidate slots hold its overlapping faces in ascending face id;
   * faces beyond a tile's ``faces_per_tile`` slots are dropped;
-  * non-empty tiles are compacted in raster order into ``max_active`` active
-    slots; tiles beyond the budget are dropped (coverage 0);
+  * non-empty tiles are compacted into ``max_active`` active slots, in
+    raster order (order="tile") or by descending candidate count with ties
+    in raster order (order="count", the soft path's occupancy split); tiles
+    beyond the budget are dropped (coverage 0);
   * unused active slots scatter nowhere.
 
 Every table here is built with cumsum, gather and scatter on fixed-size
@@ -163,9 +165,14 @@ class ActiveBins(NamedTuple):
 
 
 def bin_ranks_active(bbox_min, bbox_max, valid, image_size, tile: int,
-                     max_active: int) -> ActiveBins:
-    """Rank-binning with the tile axis compacted to the non-empty tiles, in
-    raster order (the JAX package's order="tile")."""
+                     max_active: int, order: str = "tile") -> ActiveBins:
+    """Rank-binning with the tile axis compacted to the non-empty tiles.
+
+    order: "tile" ranks them in raster order; "count" by descending
+    candidate count, ties in raster order (a stable sort of the negated
+    count: the JAX package's (B, T, T) comparison gives the same ranks).
+    Slots at or beyond max_active are dropped either way; scatter_active
+    puts every kept tile back in its raster place."""
     overlap, (TH, TW, origin) = _overlap(bbox_min, bbox_max, valid,
                                          image_size, tile)
     B, T, F = overlap.shape
@@ -173,7 +180,15 @@ def bin_ranks_active(bbox_min, bbox_max, valid, image_size, tile: int,
     device = overlap.device
 
     nonempty = overlap.any(-1)                              # (B, T)
-    trank = torch.cumsum(nonempty.long(), dim=-1) - 1
+    if order == "count":
+        # empty tiles key +1, after every non-empty one
+        key = torch.where(nonempty, -overlap.sum(-1), 1)
+        trank = torch.argsort(torch.sort(key, dim=-1, stable=True).indices,
+                              dim=-1)
+    elif order == "tile":
+        trank = torch.cumsum(nonempty.long(), dim=-1) - 1
+    else:
+        raise ValueError(f"unknown active-tile order: {order!r}")
     rank = torch.where(nonempty, trank, torch.full_like(trank, A + 1))
 
     # invrank: tile id per active slot, through a trash column A for every
@@ -199,11 +214,11 @@ def bin_ranks_active(bbox_min, bbox_max, valid, image_size, tile: int,
 
 
 def bin_faces_active(fp, image_size, tile: int, pad_radius: float,
-                     max_active: int) -> ActiveBins:
+                     max_active: int, order: str = "tile") -> ActiveBins:
     """Active-tile rank-binning of faces by padded screen bbox."""
     fmin, fmax = _bbox_min_max(fp, pad_radius)
     return bin_ranks_active(fmin, fmax, fp.valid, image_size, tile,
-                            max_active)
+                            max_active, order=order)
 
 
 def slot_faces(bins: ActiveBins, per_tile: int,
@@ -314,10 +329,10 @@ def untile_image(per_tile: torch.Tensor, image_size, tile: int, n_tiles_hw):
 _GROUP = 8  # tiles per pack group of the JAX packed layout
 
 
-def group_counts(bins: ActiveBins, per_tile: int) -> torch.Tensor:
-    """(B, ceil(A/8)) candidates per group of 8 active tiles, each tile
-    capped at per_tile: what the JAX packed layout's group_lanes must hold."""
-    capped = bins.count.clamp(max=per_tile)                 # (B, A)
+def group_counts(capped: torch.Tensor) -> torch.Tensor:
+    """(B, ceil(A/8)) candidates per group of 8 active tiles from each
+    tile's capped count (B, A): what the JAX packed layout's group_lanes
+    must hold."""
     B, A = capped.shape
     capped = torch.cat([capped, capped.new_zeros((B, (-A) % _GROUP))], dim=1)
     return capped.reshape(B, -1, _GROUP).sum(-1)
@@ -366,12 +381,15 @@ def suggest_active_tiles_fd(fp, image_size, tile: int, pad_radius: float,
 
 def suggest_group_lanes_fd(fp, image_size, tile: int, pad_radius: float,
                            max_active: int, faces_per_tile: int,
-                           margin: float = 1.3) -> int:
+                           margin: float = 1.3, order: str = "tile") -> int:
     """The JAX packed layout's lane budget per group of 8 active tiles (max
     summed capped count, with headroom, a multiple of 128). The port's kernel
-    drops nothing for it; it is sized so both packages agree."""
-    bins = bin_faces_active(fp, image_size, tile, pad_radius, max_active)
-    n = int(group_counts(bins, faces_per_tile).max())
+    drops nothing for it; it is sized so both packages agree. Pass
+    order="count" with the occupancy split, whose count-ordered tiles group
+    otherwise."""
+    bins = bin_faces_active(fp, image_size, tile, pad_radius, max_active,
+                            order=order)
+    n = int(group_counts(bins.count.clamp(max=faces_per_tile)).max())
     want = int(math.ceil(n * margin / 128)) * 128
     return max(128, min(want, _GROUP * faces_per_tile))
 
@@ -386,15 +404,12 @@ def suggest_occupancy_split_fd(fp, image_size, tile: int, pad_radius: float,
 
     For each candidate lo, tiles whose margined count exceeds lo need the
     full max_faces_per_bin budget; the modeled work hi * full + (A - hi) *
-    lo is minimized over the candidates. The JAX package reads the counts
-    of its count-ordered active slots; the rule only sees each view's
-    multiset of counts, so this sorts each view's tile counts in
-    descending order instead and keeps the first A (empty and dropped
-    tiles count 0, as that package's unused slots do)."""
-    overlap, _ = _face_overlap(fp, image_size, tile, pad_radius)
-    counts = overlap.sum(-1)                                # (B, T)
-    A = min(max_active, counts.shape[1])
-    cnt = counts.sort(dim=-1, descending=True).values[:, :A].cpu().numpy()
+    lo is minimized over the candidates, on the counts of the count-ordered
+    active slots (unused slots count 0)."""
+    bins = bin_faces_active(fp, image_size, tile, pad_radius, max_active,
+                            order="count")
+    cnt = bins.count.cpu().numpy()                          # (B, A)
+    A = cnt.shape[1]
     full = min(max_faces_per_bin, int(fp.valid.shape[-1]))
     best, best_work = None, None
     for lo in lo_candidates:

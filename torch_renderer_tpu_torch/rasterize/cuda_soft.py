@@ -17,8 +17,10 @@ keeps the float32 arithmetic on small numbers and does not change the
 gradient with respect to the corners.
 
 All three of the JAX package's layouts ("lane", "packed", "sublane") run
-the one kernel pair here. For every kernel the module keeps its plain
-PyTorch version (``soft_coverage_fwd_reference``,
+the one kernel pair here, and so does the packed layout's occupancy split
+(hi_tiles): it ranks the active tiles by candidate count and caps the
+tail's slots, which the kernels read as a shorter count. For every kernel
+the module keeps its plain PyTorch version (``soft_coverage_fwd_reference``,
 ``soft_coverage_bwd_reference``): a wrapper uses it for a tensor on the
 CPU, launches the kernel for a CUDA tensor, and raises for anything else.
 """
@@ -32,6 +34,7 @@ import torch
 
 from .._build import launch
 from .binning import (
+    NO_SLOT,
     ActiveBins,
     bin_faces_active,
     check_budget,
@@ -241,9 +244,24 @@ def tile_slabs(fp: FacePlanes, bins: ActiveBins, per_tile: int):
             bins.count.clamp(max=per_tile).to(torch.int32))
 
 
+def _split_bins(bins: ActiveBins, hi_tiles: int, k_lo: int) -> ActiveBins:
+    """The packed layout's occupancy split on count-ordered bins: the ranks
+    from hi_tiles on keep their lowest-id k_lo candidates (slots at or
+    beyond k_lo are emptied and their counts capped), as the JAX package's
+    tail gather of k_lo slots keeps them. The kernels read min(count,
+    slots) per tile, so the split needs no kernel of its own."""
+    tail = torch.arange(bins.count.shape[1],
+                        device=bins.count.device) >= hi_tiles      # (A,)
+    return bins._replace(
+        slot=torch.where(tail[:, None] & (bins.slot >= k_lo), NO_SLOT,
+                         bins.slot),
+        count=torch.where(tail, bins.count.clamp(max=k_lo), bins.count))
+
+
 def _budget_checks(bins: ActiveBins, A: int | None, K: int, layout: str,
-                   group_lanes: int | None, mode) -> None:
-    """The opt-in overflow guards; each reads one count back to the host."""
+                   group_lanes: int | None, split, mode) -> None:
+    """The opt-in overflow guards; each reads one count back to the host.
+    split: None or (hi_tiles, k_lo) of the occupancy split."""
     if resolve_budget_check(mode) is None:
         return
     if A is not None:
@@ -251,10 +269,17 @@ def _budget_checks(bins: ActiveBins, A: int | None, K: int, layout: str,
                      hint="size with suggest_active_tiles")
     check_budget("faces_per_tile", bins.count.max(), K, mode,
                  hint="size with suggest_faces_per_tile")
+    if split is not None:
+        hi_tiles, k_lo = split
+        check_budget("occupancy_split lo_lanes",
+                     bins.count[:, hi_tiles:].max(), k_lo, mode,
+                     hint="size with suggest_occupancy_split")
+        bins = _split_bins(bins, hi_tiles, k_lo)
     if layout == "packed":
         S_g = 8 * K if group_lanes is None else group_lanes
         S_g += (-S_g) % 128
-        check_budget("group_lanes", group_counts(bins, K).max(), S_g, mode,
+        check_budget("group_lanes",
+                     group_counts(bins.count.clamp(max=K)).max(), S_g, mode,
                      hint="size with suggest_group_lanes")
 
 
@@ -287,16 +312,18 @@ def soft_silhouette_fd(
     check_budgets but drops nothing here. "sublane" computes what the JAX
     package's sublane layout computes: every tile binned (active_tiles,
     group_lanes, hi_tiles and check_budgets are not read) with the face
-    budget rounded up to a multiple of 8. ``lo_lanes`` only matters with
-    ``hi_tiles``, the packed layout's occupancy split, which is not ported:
-    it drops a tail tile's candidates beyond lo_lanes, another result.
+    budget rounded up to a multiple of 8.
+
+    hi_tiles, lo_lanes: the packed layout's occupancy split ("lane" and
+    "sublane" ignore it, as in the JAX package). With hi_tiles > 0 the
+    active tiles are ranked by descending candidate count; the first
+    hi_tiles keep faces_per_tile slots and the rest min(lo_lanes,
+    faces_per_tile), dropping their higher-id candidates beyond it. Size
+    it with suggest_occupancy_split(); hi_tiles must be a multiple of 8
+    below the active-tile count.
     """
     if layout not in ("lane", "packed", "sublane"):
         raise ValueError(f"unknown layout {layout!r}")
-    if hi_tiles is not None and layout != "sublane":
-        raise NotImplementedError(
-            "hi_tiles (the packed layout's occupancy split) is not ported "
-            "(ROADMAP Queue 2: the occupancy split)")
     if layout == "packed" and active_tiles is None:
         raise ValueError(
             "layout='packed' requires active_tiles (the pack groups follow "
@@ -308,12 +335,23 @@ def soft_silhouette_fd(
     if layout == "sublane":
         K += (-K) % 8            # the JAX sublane kernels' 8-face granule
         active_tiles = None
+    split = None              # or (hi_tiles, the tail's slots)
+    if layout == "packed" and hi_tiles is not None and hi_tiles > 0:
+        split = (hi_tiles, min(lo_lanes, K))
     pad = math.sqrt(SOFT_CUTOFF * sigma)
     bins = bin_faces_active(fp, image_size, tile, pad,
-                            T if active_tiles is None else active_tiles)
+                            T if active_tiles is None else active_tiles,
+                            order="tile" if split is None else "count")
+    A = bins.count.shape[1]
+    if split is not None and (hi_tiles % 8 or hi_tiles >= A):
+        raise ValueError(
+            f"hi_tiles must be a multiple of 8 and < active tiles ({A}); "
+            f"got {hi_tiles}")
     if layout != "sublane":
-        _budget_checks(bins, active_tiles, K, layout, group_lanes,
+        _budget_checks(bins, active_tiles, K, layout, group_lanes, split,
                        check_budgets)
+    if split is not None:
+        bins = _split_bins(bins, *split)
 
     q, count = tile_slabs(fp, bins, K)
     inv_s = 1.0 / (min(H, W) / 2.0)
@@ -372,12 +410,32 @@ def suggest_layout(faces_per_tile: int) -> str:
 def suggest_group_lanes(fp: FacePlanes, image_size, tile: int = 16,
                         sigma: float = 1e-4, active_tiles: int = 128,
                         faces_per_tile: int = 128,
-                        margin: float = 1.3) -> int:
+                        margin: float = 1.3, order: str = "tile") -> int:
     """The packed layout's per-group lane budget for this scene (sizing
-    only: the port drops no candidate for it)."""
+    only: the port drops no candidate for it). Pass order="count" with
+    hi_tiles, whose count-ordered tiles group otherwise."""
     pad = math.sqrt(SOFT_CUTOFF * sigma)
     return suggest_group_lanes_fd(fp, image_size, tile, pad, active_tiles,
-                                  faces_per_tile, margin=margin)
+                                  faces_per_tile, margin=margin, order=order)
+
+
+def suggest_occupancy_split(fp: FacePlanes, image_size, tile: int = 16,
+                            sigma: float = 1e-4, active_tiles: int = 128,
+                            lo_lanes: int = 32,
+                            margin: float = 1.3) -> int | None:
+    """hi_tiles for the packed layout's occupancy split: the count-ordered
+    active slots that hold more than lo_lanes candidates, with headroom, a
+    multiple of 8; None when the split would not help (nothing exceeds
+    lo_lanes, or most tiles do). Candidates of a tail tile beyond lo_lanes
+    are dropped, so footprints that move during a fit need margin."""
+    pad = math.sqrt(SOFT_CUTOFF * sigma)
+    bins = bin_faces_active(fp, image_size, tile, pad, active_tiles,
+                            order="count")
+    n_hi = int((bins.count > lo_lanes).sum(1).max())
+    want = int(math.ceil(n_hi * margin / 8)) * 8
+    if want <= 0 or want >= bins.count.shape[1]:
+        return None
+    return want
 
 
 class SoftKernelConfig(NamedTuple):
@@ -397,11 +455,17 @@ class SoftKernelConfig(NamedTuple):
 
 
 def suggest_soft_config(fps, image_size, tile: int = 16, sigma: float = 1e-4,
-                        margin: float = 1.3,
-                        layout: str = "auto") -> SoftKernelConfig:
+                        margin: float = 1.3, layout: str = "auto",
+                        split: bool = False) -> SoftKernelConfig:
     """One-call scene sizing. fps: one FacePlanes or several (e.g. a fit's
     start and target poses); every budget is the max over them. Call once at
-    setup: the result is a bundle of Python ints."""
+    setup: the result is a bundle of Python ints.
+
+    split=True also sizes the packed layout's occupancy split
+    (suggest_occupancy_split at lo_lanes 32; None unless every projection
+    has one), and then group_lanes in count order. It suits static scenes:
+    the split drops a tail tile's candidates beyond lo_lanes, which a moving
+    footprint can outgrow."""
     if isinstance(fps, FacePlanes):
         fps = (fps,)
     fps = tuple(fps)
@@ -415,7 +479,15 @@ def suggest_soft_config(fps, image_size, tile: int = 16, sigma: float = 1e-4,
         layout = suggest_layout(fpt)
     if layout == "lane":
         return SoftKernelConfig(tile, fpt, act, "lane", None)
+    hi, lo = None, 32
+    if split:
+        his = [suggest_occupancy_split(fp, image_size, tile, sigma,
+                                       active_tiles=act, lo_lanes=lo,
+                                       margin=margin) for fp in fps]
+        hi = None if None in his else max(his)
     gl = max(suggest_group_lanes(fp, image_size, tile, sigma,
                                  active_tiles=act, faces_per_tile=fpt,
-                                 margin=margin) for fp in fps)
-    return SoftKernelConfig(tile, fpt, act, "packed", gl)
+                                 margin=margin,
+                                 order="count" if hi else "tile")
+             for fp in fps)
+    return SoftKernelConfig(tile, fpt, act, "packed", gl, hi, lo)

@@ -52,9 +52,9 @@ class RasterizationSettings:
     beyond a tile's budget and non-empty tiles beyond active_tiles are
     dropped. Every binned call runs the CUDA kernels on a CUDA tensor,
     whatever ``impl`` says ("auto", "pallas" and "xla" are accepted), and
-    ends with the untile kernel (rasterize/cuda_untile.py), one launch per
-    fragment field, whatever ``untile_impl`` says (the JAX package's two
-    epilogues give the same bits).
+    ends with the untile kernel (rasterize/cuda_untile.py), one launch for
+    all of its fragment fields, whatever ``untile_impl`` says (the JAX
+    package's two epilogues give the same bits).
 
     Accepted and without effect here: ``layout`` ("packed" is the JAX
     package's K=1 packed-selection kernel; the port routes it to the one K=1

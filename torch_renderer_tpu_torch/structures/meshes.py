@@ -101,6 +101,25 @@ class Meshes:
         return (idx[None, :] < self.num_faces[:, None]).to(self.verts.dtype)
 
     # -- batch ops ----------------------------------------------------------
+    def __getitem__(self, idx) -> "Meshes":
+        """Batch indexing (pytorch3d's Meshes[i]): an int (kept as a batch
+        of 1), a slice (any step) or a sequence of ints. Every tensor, the
+        textures' too, is indexed along the batch axis."""
+        if isinstance(idx, (int, np.integer, slice)):
+            idx = range(self.batch_size)[idx]
+        idx = torch.as_tensor(idx, dtype=torch.long,
+                              device=self.device).reshape(-1)
+
+        def take(obj):
+            return dataclasses.replace(obj, **{
+                f.name: getattr(obj, f.name)[idx]
+                for f in dataclasses.fields(obj)
+                if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+        out = take(self)
+        return out if self.textures is None else dataclasses.replace(
+            out, textures=take(self.textures))
+
     def extend(self, n: int) -> "Meshes":
         """Repeat each mesh n times along the batch dim (item-major, like
         pytorch3d's Meshes.extend)."""
@@ -124,6 +143,13 @@ class Meshes:
     def update_padded(self, new_verts: torch.Tensor) -> "Meshes":
         return dataclasses.replace(self, verts=new_verts)
 
+    def scale(self, s, center=None) -> "Meshes":
+        """Vertices scaled by s, about ``center`` when given (else the
+        origin); padded vertices stay zero."""
+        v = self.verts * s if center is None else \
+            (self.verts - center) * s + center
+        return dataclasses.replace(self, verts=v * self.vert_mask()[..., None])
+
     def to(self, device) -> "Meshes":
         return dataclasses.replace(
             self, verts=self.verts.to(device), faces=self.faces.to(device),
@@ -141,6 +167,35 @@ class Meshes:
         faces = self.faces.cpu().numpy()
         return [(verts[b, :nv[b]], faces[b, :nf[b]])
                 for b in range(self.batch_size)]
+
+    # -- pytorch3d-style accessors -------------------------------------------
+    def verts_padded(self) -> torch.Tensor:
+        return self.verts
+
+    def faces_padded(self) -> torch.Tensor:
+        return self.faces
+
+    def verts_list(self) -> List[np.ndarray]:
+        return [v for v, _ in self.detach_to_lists()]
+
+    def faces_list(self) -> List[np.ndarray]:
+        return [f for _, f in self.detach_to_lists()]
+
+    def verts_packed(self) -> torch.Tensor:
+        """All valid vertices concatenated (V_total, 3), on the meshes'
+        device (the ragged split reads the counts back to the host)."""
+        nv = self.num_verts.tolist()
+        return torch.cat([self.verts[b, :n] for b, n in enumerate(nv)])
+
+    def get_mesh_verts_faces(self, index: int):
+        """(verts (Vi, 3), faces (Fi, 3)) numpy arrays of one mesh."""
+        return self.detach_to_lists()[index]
+
+    def num_verts_per_mesh(self) -> torch.Tensor:
+        return self.num_verts
+
+    def num_faces_per_mesh(self) -> torch.Tensor:
+        return self.num_faces
 
     # -- geometry -----------------------------------------------------------
     def face_verts(self) -> torch.Tensor:
@@ -176,6 +231,14 @@ class Meshes:
         vn = torch.zeros_like(self.verts).scatter_add(1, idx, fn.repeat(1, 3, 1))
         vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp_min(1e-12)
         return vn * self.vert_mask()[..., None]
+
+    def bounding_boxes(self) -> torch.Tensor:
+        """(B, 3, 2) per-mesh (min, max) over the valid vertices."""
+        m = self.vert_mask()[..., None] > 0
+        big = torch.tensor(1e30, dtype=self.verts.dtype, device=self.device)
+        vmin = torch.where(m, self.verts, big).amin(1)
+        vmax = torch.where(m, self.verts, -big).amax(1)
+        return torch.stack([vmin, vmax], dim=-1)
 
     def center_and_scale_to_unit_sphere(self):
         """Normalize each mesh to fit the unit sphere: returns
