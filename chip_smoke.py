@@ -101,10 +101,10 @@ Drives, through the port's public entry points:
      memory.
   G. the batched multi-view depth render: apps/batch_render_bench.main() at
      its defaults (120 look-at views of a normalized level-3 icosphere at
-     1280x720, calls of 12 views, f = 0.9 * 720, bin 32, auto budgets,
-     select_impl "affine", --check-budgets warn), which must launch per call
-     exactly one hard_k1, one gather_tiles_fwd and one untile_scatter (for
-     the four fragment fields) and nothing else. On one 12-view call: the
+     1280x720, calls of 12 views, f = 0.9 * 720, bin 32, auto budgets and
+     occupancy split, select_impl "affine", --check-budgets warn), which
+     must launch per call exactly one hard_k1, one gather_tiles_fwd and one
+     untile_scatter (for the four fragment fields) and nothing else. On one 12-view call: the
      launches of that call, the call through the untile kernel against the
      same call ending with the kernel's plain version, bit for bit (depth,
      silhouette and the four fields), gather_tiles_fwd and hard_k1 against
@@ -116,6 +116,36 @@ Drives, through the port's public entry points:
      96^2, bin 16), the kernel's wrapper against the plain epilogue
      differentiated by autograd: fragments equal, gradients within 1e-5 of
      the largest (float32 atomics downstream sum in a run-varying order).
+  H. the loops as replays of captured CUDA graphs (utils/graph.py; on the
+     card the default of the bench twin's step and of both fitters), each
+     against its eager form (capture=False, which phases A, C and E run,
+     since a replay advances no wrapper count). The bench twin's step:
+     its forward captured alone gives step 0's alpha equal to eager's; 10
+     chained steps in both forms, each step's g within 1e-5 of its
+     largest; the twin's 5 passes in each form, in turns; 20 replays with
+     any host synchronization raising (torch.cuda.set_sync_debug_mode);
+     the device kernels of 20 steps in both forms by torch.profiler (the
+     same count of each of the port's kernels, the same names of the rest,
+     copies aside: same_kernels). The
+     pose fit on both routes and the joint fit at the apps' defaults, 500
+     iterations, eager, captured, captured, eager, each held to phase C's
+     or E's gates; the first captured fit launches each of its wrappers
+     twice an iteration kind (its eager first iteration and the capture)
+     and no other; a 22-iteration captured fit whose 21 replays run with
+     host synchronization raising, and the device kernels of a
+     22-iteration fit in both forms, as for the bench. Each form's img/s
+     or it/s, busy share and peak device memory are printed.
+  I. the depth-render apps through main() on the card:
+     render_compare at its defaults (three views of the normalized level-3
+     icosphere at 180x180, rendered by the port, written as a recording,
+     read back, rendered again and held against the float64 ray caster:
+     worst interior depth difference below 2e-3, the gate of the JAX
+     package's tests/test_apps_smoke.py); quick_render (8 frames at
+     256x256, 16 PNGs, coverage between 0.1 and 0.9); and
+     object_pose_from_depth in both modes at 200 iterations (the captured
+     fit; the loss falls and the translation error falls below 0.6x its
+     start: 0.44x and 0.46x on the CPU). Each is
+     counted: its mesh raster's kernels launched at least once.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -155,6 +185,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -770,7 +801,7 @@ def soft_phase(device, card: str):
     # (torch_renderer_tpu_torch/bench.py), sized there as here. The main
     # path is its first pass (WARMUP + STEPS steps), counted; PASSES - 1
     # more give the median and the spread, as the bench reports them.
-    step, _ = bench.make_step(meshes, cam, SIGMA, cfg)
+    step, _ = bench.make_step(meshes, cam, SIGMA, cfg, capture=False)
     v, grad = step(meshes.verts)
     if not bool(torch.isfinite(grad).all()) or \
             not float(grad.abs().sum()) > 0:
@@ -1097,8 +1128,9 @@ def hard_phase(device, card: str) -> dict:
 # C. the camera pose fit, both routes
 # ---------------------------------------------------------------------------
 
-def pose_fit_phase(device, card: str, route: str,
-                   iters: int = POSE_ITERS) -> dict:
+def pose_setup(device, route: str, iters: int = POSE_ITERS):
+    """The pose app's defaults on one route: (fitter, meshes, refs,
+    params0, R_gt, t_gt, t0)."""
     from torch_renderer_tpu_torch.cameras.perspective import (
         PerspectiveCamera,
     )
@@ -1106,7 +1138,6 @@ def pose_fit_phase(device, card: str, route: str,
         CameraPoseFitter,
         PoseFitConfig,
         pose_params_from_Rt,
-        pose_params_to_Rt,
     )
     from torch_renderer_tpu_torch.rasterize.binning import (
         set_budget_check_default,
@@ -1134,42 +1165,64 @@ def pose_fit_phase(device, card: str, route: str,
                               silhouette_impl=route, device=device, **kw)
     refs = fitter.make_references(meshes, R_gt, t_gt)
     params0 = pose_params_from_Rt(R_gt, t0, device)
+    return fitter, meshes, refs, params0, R_gt, t_gt, t0
 
+
+def timed(fn):
+    """(fn(), seconds by CUDA events, seconds by the host clock), the
+    device idle at both ends."""
     torch.cuda.synchronize()
-    reset_counts()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t_start = time.perf_counter()
     start.record()
-    params, hist = fitter.fit(meshes, refs, params0)
+    out = fn()
     stop.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_start
-    counts = read_counts()
-    events_s = start.elapsed_time(stop) / 1000.0
+    return out, start.elapsed_time(stop) / 1000.0, wall_s
+
+
+def pose_gates(tag: str, params, hist, t_gt, t0, iters: int) -> dict:
+    """Phase C's gates: every loss finite, the loss and the translation
+    error below 0.1x their start."""
+    from torch_renderer_tpu_torch.opt.pose_fit import pose_params_to_Rt
 
     loss = hist["loss"].cpu().numpy()
     iou = hist["iou"].cpu().numpy()
     err0 = float(np.linalg.norm(t0 - t_gt))
     err1 = float(np.linalg.norm(pose_params_to_Rt(params)[1][0].cpu().numpy()
                                 - t_gt))
-    print(f"[fit {route}] {fitter.renderer.resolved_settings(meshes, R_gt, t_gt)}",
-          flush=True)
-    print(f"[fit {route}] loss {loss[0]:.5f} -> {loss[-1]:.5f}, iou "
+    print(f"[{tag}] loss {loss[0]:.5f} -> {loss[-1]:.5f}, iou "
           f"{iou[0]:.3f} -> {iou[-1]:.3f}, translation error {err0:.4f} -> "
-          f"{err1:.4f} m, launches {counts}", flush=True)
+          f"{err1:.4f} m", flush=True)
+    if not np.isfinite(loss).all() or loss.shape != (iters,):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    if not loss[-1] < 0.1 * loss[0]:
+        raise AssertionError(f"{tag}: the loss did not fall below 0.1x "
+                             "its start")
+    if not err1 < 0.1 * err0:
+        raise AssertionError(f"{tag}: the translation error did not fall "
+                             "below 0.1x its start")
+    return {"loss": [float(loss[0]), float(loss[-1])], "err": [err0, err1]}
+
+
+def pose_fit_phase(device, card: str, route: str,
+                   iters: int = POSE_ITERS) -> dict:
+    fitter, meshes, refs, params0, R_gt, t_gt, t0 = pose_setup(
+        device, route, iters)
+    reset_counts()
+    (params, hist), events_s, wall_s = timed(
+        lambda: fitter.fit(meshes, refs, params0, capture=False))
+    counts = read_counts()
+    st = fitter.renderer.resolved_settings(meshes, R_gt, t_gt)
+    print(f"[fit {route}] {st}", flush=True)
+    gates = pose_gates(f"fit {route}", params, hist, t_gt, t0, iters)
+    print(f"[fit {route}] launches {counts}", flush=True)
     print(f"[fit {route}] {iters} iters: {iters / events_s:.1f} it/s by "
           f"CUDA events ({events_s * 1000.0 / iters:.4f} ms/iter), "
           f"{iters / wall_s:.1f} it/s by host wall time "
           f"({wall_s * 1000.0 / iters:.4f} ms/iter) on {card}", flush=True)
-    if not np.isfinite(loss).all() or loss.shape != (iters,):
-        raise AssertionError(f"{route}: a loss is not finite")
-    if not loss[-1] < 0.1 * loss[0]:
-        raise AssertionError(f"{route}: the loss did not fall below 0.1x "
-                             "its start")
-    if not err1 < 0.1 * err0:
-        raise AssertionError(f"{route}: the translation error did not fall "
-                             "below 0.1x its start")
     # one untile launch per mesh raster: all its fields at once
     want = ({"topk_select": iters, "gather_tiles_fwd": iters,
              "untile_scatter": iters}
@@ -1182,15 +1235,14 @@ def pose_fit_phase(device, card: str, route: str,
         raise AssertionError(f"{route}: expected launches {want}, got "
                              f"{counts}")
     prof = _busy_share(lambda: fitter.fit(
-        meshes, refs, params, n_steps=PROFILE_ITERS), PROFILE_ITERS,
-        top=5, named=(("topk_select",) if route == "fragments" else
-                      ("hard_k1", "soft_coverage")) + ("gather_fwd",))
+        meshes, refs, params, n_steps=PROFILE_ITERS, capture=False),
+        PROFILE_ITERS, top=5,
+        named=(("topk_select",) if route == "fragments" else
+               ("hard_k1", "soft_coverage")) + ("gather_fwd",))
     print(f"[fit {route}] profile over {PROFILE_ITERS} iterations "
           f"({card}): {prof}", flush=True)
     return {"counts": counts, "it_s_events": iters / events_s, "profile": prof,
-            "it_s_wall": iters / wall_s, "loss": [float(loss[0]),
-                                                   float(loss[-1])],
-            "err": [err0, err1]}
+            "it_s_wall": iters / wall_s, **gates}
 
 
 # ---------------------------------------------------------------------------
@@ -1482,29 +1534,19 @@ def _busy_share(fn, iters: int, top: int = 0, named: tuple = (),
     return out
 
 
-def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
+def joint_setup(device, iters: int = JOINT_ITERS):
+    """The joint app's defaults: (fitter, src, uvs, target, dataset)."""
     from torch_renderer_tpu_torch.apps._common import pinhole_K
     from torch_renderer_tpu_torch.apps.joint_shape_texture import (
         striped_target,
     )
     from torch_renderer_tpu_torch.ops.icosphere import icosphere
-    from torch_renderer_tpu_torch.ops.knn_chamfer import chamfer_distance
-    from torch_renderer_tpu_torch.ops.sample_points import (
-        sample_points_from_meshes,
-    )
     from torch_renderer_tpu_torch.opt.deform_color import (
         JointFitConfig,
         JointShapeTextureFitter,
     )
-    from torch_renderer_tpu_torch.rasterize import cuda_hard
     from torch_renderer_tpu_torch.rasterize.binning import (
-        count_active_tiles,
-        count_overflow,
         set_budget_check_default,
-    )
-    from torch_renderer_tpu_torch.rasterize.geometry import (
-        setup_face_planes,
-        setup_faces,
     )
     from torch_renderer_tpu_torch.structures.meshes import Meshes
     from torch_renderer_tpu_torch.structures.textures import (
@@ -1526,18 +1568,18 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
     print(f"[joint] dataset: {ds['rgb'].shape[0]} views in "
           f"{time.perf_counter() - t0:.2f} s, settings "
           f"{fitter.renderer.settings}", flush=True)
+    return fitter, src, uvs, tgt, ds
 
-    reset_counts()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    t_start = time.perf_counter()
-    start.record()
-    params, hist = fitter.fit(src, uvs, ds, torch.Generator().manual_seed(0))
-    stop.record()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t_start
-    counts = read_counts()
-    events_s = start.elapsed_time(stop) / 1000.0
+
+def joint_gates(tag: str, src, tgt, params, hist, iters: int) -> dict:
+    """Phase E's gates (the JAX package's tests/test_deform_color.py):
+    every loss finite; the mean silhouette and RGB MSE of the last 20
+    steps below 0.7x those of the first 20; max |deform| < 0.5; the chamfer
+    distance to the target below 0.5x its start."""
+    from torch_renderer_tpu_torch.ops.knn_chamfer import chamfer_distance
+    from torch_renderer_tpu_torch.ops.sample_points import (
+        sample_points_from_meshes,
+    )
 
     h = {k: v.cpu().numpy() for k, v in hist.items()}
     sil, rgb = h["sil_mse"], h["rgb_mse"]
@@ -1546,17 +1588,51 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
     max_deform = float(params["deform"].abs().max())
 
     def cham(mesh):
-        gen = torch.Generator(device=device).manual_seed(7)
+        gen = torch.Generator(device=src.device).manual_seed(7)
         a = sample_points_from_meshes(mesh, 2000, gen)
         b = sample_points_from_meshes(tgt, 2000, gen)
         return float(chamfer_distance(a, b)[0])
 
-    final = src.offset_verts(params["deform"])
-    c0, c1 = cham(src), cham(final)
-    print(f"[joint] sil MSE {sil0:.5f} -> {sil1:.5f}; rgb MSE {rgb0:.5f} -> "
+    c0, c1 = cham(src), cham(src.offset_verts(params["deform"]))
+    print(f"[{tag}] sil MSE {sil0:.5f} -> {sil1:.5f}; rgb MSE {rgb0:.5f} -> "
           f"{rgb1:.5f} (means of the first / last 20 steps); max|deform| "
-          f"{max_deform:.4f}; chamfer {c0:.6f} -> {c1:.6f}; launches "
-          f"{counts}", flush=True)
+          f"{max_deform:.4f}; chamfer {c0:.6f} -> {c1:.6f}", flush=True)
+    if not all(np.isfinite(v).all() for v in h.values()) \
+            or sil.shape != (iters,):
+        raise AssertionError(f"{tag}: a loss is not finite")
+    if not (sil1 < 0.7 * sil0 and rgb1 < 0.7 * rgb0):
+        raise AssertionError(f"{tag}: the silhouette or RGB MSE did not "
+                             "fall below 0.7x its start")
+    if not max_deform < 0.5:
+        raise AssertionError(f"{tag}: vertex offsets exploded "
+                             f"({max_deform})")
+    if not c1 < 0.5 * c0:
+        raise AssertionError(f"{tag}: chamfer {c0} -> {c1} did not fall "
+                             "below 0.5x its start")
+    return {"sil": [sil0, sil1], "rgb": [rgb0, rgb1], "chamfer": [c0, c1],
+            "max_deform": max_deform}
+
+
+def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        count_active_tiles,
+        count_overflow,
+    )
+    from torch_renderer_tpu_torch.rasterize.geometry import (
+        setup_face_planes,
+        setup_faces,
+    )
+
+    size = (JOINT_IMAGE, JOINT_IMAGE)
+    fitter, src, uvs, tgt, ds = joint_setup(device, iters)
+    reset_counts()
+    (params, hist), events_s, wall_s = timed(lambda: fitter.fit(
+        src, uvs, ds, torch.Generator().manual_seed(0), capture=False))
+    counts = read_counts()
+    gates = joint_gates("joint", src, tgt, params, hist, iters)
+    final = src.offset_verts(params["deform"])
+    print(f"[joint] launches {counts}", flush=True)
     print(f"[joint] {iters} iters: {iters / events_s:.1f} it/s by CUDA "
           f"events ({events_s * 1000.0 / iters:.4f} ms/iter), "
           f"{iters / wall_s:.1f} it/s by host wall time "
@@ -1574,18 +1650,6 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
           f"{st.max_faces_per_bin}), active tiles {act} (budget "
           f"{st.active_tiles})", flush=True)
 
-    if not all(np.isfinite(v).all() for v in h.values()) \
-            or sil.shape != (iters,):
-        raise AssertionError("joint fit: a loss is not finite")
-    if not (sil1 < 0.7 * sil0 and rgb1 < 0.7 * rgb0):
-        raise AssertionError("joint fit: the silhouette or RGB MSE did not "
-                             "fall below 0.7x its start")
-    if not max_deform < 0.5:
-        raise AssertionError(f"joint fit: vertex offsets exploded "
-                             f"({max_deform})")
-    if not c1 < 0.5 * c0:
-        raise AssertionError(f"joint fit: chamfer {c0} -> {c1} did not fall "
-                             "below 0.5x its start")
     want = only(counts, texsample_fwd=iters, texsample_bwd=iters,
                 topk_select=iters, gather_tiles_fwd=iters,
                 untile_scatter=iters)
@@ -1633,15 +1697,13 @@ def joint_fit_phase(device, card: str, iters: int = JOINT_ITERS) -> dict:
     # the views of the shared map (the expand's backward)
     prof = _busy_share(lambda: fitter.fit(
         src, uvs, ds, torch.Generator().manual_seed(1),
-        n_steps=PROFILE_ITERS, params0=params), PROFILE_ITERS,
+        n_steps=PROFILE_ITERS, params0=params, capture=False), PROFILE_ITERS,
         named=("topk_select", "texsample"),
         under=("TexSampleBackward", "ExpandBackward"))
     print(f"[joint] profile over {PROFILE_ITERS} iterations ({card}): "
           f"{prof}", flush=True)
     return {"counts": counts, "it_s_events": iters / events_s,
-            "it_s_wall": iters / wall_s, "sil": [sil0, sil1],
-            "rgb": [rgb0, rgb1], "chamfer": [c0, c1],
-            "max_deform": max_deform, "topk": topk, "tex": tex,
+            "it_s_wall": iters / wall_s, **gates, "topk": topk, "tex": tex,
             "profile": prof}
 
 
@@ -1965,7 +2027,7 @@ BATCH_TILE = 32
 def _batch_chunk(device, app: dict):
     """One call's inputs at the app's defaults: the first 12 of its 120
     views of the normalized level-3 icosphere, and the app's settings with
-    the budgets it sized."""
+    the budgets and the occupancy split it sized."""
     import torch_renderer_tpu_torch as trt
     from torch_renderer_tpu_torch.apps._common import pinhole_K
 
@@ -1978,6 +2040,7 @@ def _batch_chunk(device, app: dict):
     kw = dict(pixel_chunk=1048576, bin_size=BATCH_TILE,
               max_faces_per_bin=app["max_faces_per_bin"],
               active_tiles=None if act < 0 else act,
+              occupancy_split=app["occupancy_split"],
               select_impl="affine", device=device)
     return (meshes.extend(BATCH_CHUNK), R.to(device), t.to(device),
             pinhole_K(BATCH_SIZE), kw)
@@ -2132,7 +2195,7 @@ def batch_phase(device, card: str) -> dict:
     print(f"[batch] app at its defaults ({BATCH_VIEWS} views of {W}x{H}, "
           f"chunks of {BATCH_CHUNK}, bin {BATCH_TILE}, --check-budgets warn):"
           f" max_faces_per_bin {app['max_faces_per_bin']}, active_tiles "
-          f"{app['active_tiles']}; "
+          f"{app['active_tiles']}, occupancy_split {app['occupancy_split']}; "
           f"{app['images_per_s']:.1f} depth images/s batched, "
           f"{app['serial_images_per_s']:.1f} images/s serial single-view "
           f"(host clock over synchronized calls); {calls} render calls, "
@@ -2223,6 +2286,361 @@ def batch_phase(device, card: str) -> dict:
             "peak_app_gb": peak_app, "peak_call_gb": peak_call}
 
 
+# ---------------------------------------------------------------------------
+# H. the loops as replays of captured CUDA graphs, against their eager form
+# ---------------------------------------------------------------------------
+
+# the device kernel of each wrapper count, by the name a profiler reads
+DEVICE_NAMES = {"soft_coverage_fwd": "soft_coverage_fwd_kernel",
+                "soft_coverage_bwd": "soft_coverage_bwd_kernel",
+                "hard_k1": "hard_k1_kernel",
+                "topk_select": "topk_select_kernel",
+                "texsample_fwd": "texsample_fwd",
+                "texsample_bwd": "texsample_bwd",
+                "points_select": "points_select_kernel",
+                "gather_tiles_fwd": "gather_fwd_kernel",
+                "gather_tiles_bwd": "gather_bwd_kernel",
+                "untile_scatter": "untile_kernel"}
+
+
+def kernel_counts(fn) -> dict:
+    """The device kernels of one call of fn() by torch.profiler: every
+    kernel by short name, and the port's kernels by wrapper."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    return {"all": collections.Counter(_short(n) for n in names),
+            "ours": {k: sum(v in n for n in names)
+                     for k, v in DEVICE_NAMES.items()}}
+
+
+def same_kernels(tag: str, eager: dict, captured: dict) -> dict:
+    """Gate: the captured run put the eager run's kernels on the device:
+    the port's kernels count for count, every other kernel name for name,
+    its count within the few events a profiler window drops (max(2, 1%)).
+    Copies are left out: a graph runs a device-to-device copy as a kernel
+    of another name, and the bench's captured step adds a copy into its
+    static buffer."""
+    def rest(counts):
+        return {n: c for n, c in counts.items() if "memcpy" not in n.lower()}
+
+    e, c = rest(eager["all"]), rest(captured["all"])
+    diff = {n: (e.get(n, 0), c.get(n, 0)) for n in set(e) | set(c)
+            if e.get(n, 0) != c.get(n, 0)}
+    far = {n: ec for n, ec in diff.items()
+           if abs(ec[0] - ec[1]) > max(2, 0.01 * ec[0])}
+    copies = {k: {n: v for n, v in d["all"].items() if n not in rest(d["all"])}
+              for k, d in (("eager", eager), ("captured", captured))}
+    print(f"[{tag}] device kernels: eager {sum(e.values())} of {len(e)} "
+          f"names, captured {sum(c.values())}, copies {copies}; ours eager "
+          f"{eager['ours']}, captured {captured['ours']}; counts that "
+          f"differ {dict(sorted(diff.items())[:12])}", flush=True)
+    if far or eager["ours"] != captured["ours"]:
+        raise AssertionError(f"{tag}: the captured run's kernels are not "
+                             f"the eager run's: {far}")
+    return {"eager_kernels": sum(e.values()),
+            "captured_kernels": sum(c.values()), "names": len(e),
+            "ours": captured["ours"], "count_diff": diff, "copies": copies}
+
+
+@contextlib.contextmanager
+def replays_without_sync():
+    """From the first CUDA graph replay inside the block to its end, any
+    host synchronization raises (torch.cuda.set_sync_debug_mode("error"));
+    yields the count of replays."""
+    graph_cls = torch.cuda.CUDAGraph
+    saved = graph_cls.replay
+    before = torch.cuda.get_sync_debug_mode()
+    n = [0]
+
+    def replay(self):
+        torch.cuda.set_sync_debug_mode("error")
+        n[0] += 1
+        return saved(self)
+
+    graph_cls.replay = replay
+    try:
+        yield n
+    finally:
+        graph_cls.replay = saved
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def peak_mb(fn):
+    """(fn(), the peak device memory allocated during it above what was
+    allocated before it, MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - start) / 2**20
+
+
+def captured_bench(device, card: str) -> dict:
+    """The bench twin's step, eager and captured."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch import bench
+    from torch_renderer_tpu_torch.utils.graph import StepGraph
+
+    meshes, cam = bench.scene(B, IMAGE, LEVEL, device)
+    size = (IMAGE, IMAGE)
+    cfg = trt.suggest_soft_config(trt.setup_face_planes(meshes, cam), size,
+                                  sigma=SIGMA, layout="packed")
+    steps = {"eager": bench.make_step(meshes, cam, SIGMA, cfg,
+                                      capture=False)[0],
+             "captured": bench.make_step(meshes, cam, SIGMA, cfg,
+                                         capture=True)[0]}
+
+    # step 0's alpha: the step's forward, captured alone, equals eager's
+    def alpha():
+        return trt.soft_silhouette_fd(trt.setup_face_planes(meshes, cam),
+                                      size, sigma=SIGMA, check_budgets="off",
+                                      **cfg.kwargs())
+
+    fwd = StepGraph(alpha, device, capture=True)
+    a_eager, _ = alpha(), fwd()
+    a_captured = fwd().clone()
+    if not torch.equal(a_captured, a_eager):
+        raise AssertionError("captured step 0 alpha differs from eager's: "
+                             f"{float((a_captured - a_eager).abs().max())}")
+
+    # the chained steps: each step's g within 1e-5 of its largest
+    reset_counts()
+    v = {k: meshes.verts for k in steps}
+    g_err = []
+    for _ in range(10):
+        g = {}
+        for k, step in steps.items():
+            v[k], gk = step(v[k])
+            g[k] = gk.clone()
+        g_err.append(float((g["captured"] - g["eager"]).abs().max()
+                           / g["eager"].abs().max()))
+    counts = read_counts()
+    print(f"[captured bench] 10 chained steps: max|g captured - g eager| / "
+          f"max|g eager| per step {['%.2e' % e for e in g_err]}; launches "
+          f"(10 eager steps, one captured warm-up and its capture) {counts}",
+          flush=True)
+    if not max(g_err) <= 1e-5:
+        raise AssertionError("captured bench: g differs from eager's")
+    if counts != only(counts, soft_coverage_fwd=12, soft_coverage_bwd=12,
+                      gather_tiles_fwd=12, gather_tiles_bwd=12):
+        raise AssertionError(f"captured bench: launches {counts}")
+
+    # the passes, eager and captured in turns
+    rates = {k: [] for k in steps}
+    for i in range(PASSES):
+        for k in (("eager", "captured") if i % 2 == 0
+                  else ("captured", "eager")):
+            r, v[k] = bench.time_passes(steps[k], v[k], B, STEPS, WARMUP, 1)
+            rates[k] += r
+    # the peak device memory of a new step's first pass (the capture, and
+    # the graph's pool, included)
+    peak = {}
+    for k in steps:
+        def first_pass():
+            step, _ = bench.make_step(meshes, cam, SIGMA, cfg,
+                                      capture=k == "captured")
+            return bench.time_passes(step, meshes.verts, B, STEPS, WARMUP, 1)
+
+        _, peak[k] = peak_mb(first_pass)
+    with replays_without_sync() as n:
+        for _ in range(PROFILE_ITERS):
+            v["captured"], _ = steps["captured"](v["captured"])
+    if n[0] != PROFILE_ITERS:
+        raise AssertionError(f"captured bench: {n[0]} replays")
+    kern = same_kernels("captured bench", *(kernel_counts(
+        lambda: [steps[k](v[k]) for _ in range(PROFILE_ITERS)])
+        for k in ("eager", "captured")))
+    prof = {k: _busy_share(lambda: [steps[k](v[k])
+                                    for _ in range(PROFILE_ITERS)],
+                           PROFILE_ITERS) for k in steps}
+    out = {}
+    for k in steps:
+        out[k] = {"img_s": statistics.median(rates[k]), "passes": rates[k],
+                  "peak_mb": peak[k], **prof[k]}
+        print(f"[captured bench] {k}: passes " + ", ".join(
+            f"{r:.1f}" for r in rates[k]) + f" img/s, median "
+            f"{out[k]['img_s']:.1f}, spread {min(rates[k]):.1f}-"
+            f"{max(rates[k]):.1f}; busy {prof[k]['busy_ms_per_iter']:.4f} ms "
+            f"of {prof[k]['wall_ms_per_iter']:.4f} wall ms a step (share "
+            f"{prof[k]['busy_share']:.3f}), {prof[k]['kernels_per_iter']} "
+            f"kernels a step; peak {peak[k]:.1f} MiB above the start of a "
+            f"new step's first pass ({card})", flush=True)
+    if not bool(torch.isfinite(v["captured"]).all()):
+        raise AssertionError("captured bench: non-finite vertices")
+    return {**out, "g_rel_err": g_err, "launches": counts, "kernels": kern}
+
+
+def captured_fits(device, card: str, run_fit, gates, n_profile: int,
+                  tag: str, want: dict) -> dict:
+    """One fit eager and captured in turns (eager, captured, captured,
+    eager), each at the app's iterations with phase C's or E's gates
+    (gates(params, hist)); run_fit(capture, n) runs it. The counted run:
+    the first captured fit launches each wrapper twice an iteration kind
+    (its eager warm-up iteration and the capture), and no replay counts.
+    Then the captured fit's replays without a host sync, and the kernels
+    of an n_profile-iteration fit in both forms."""
+    runs = {"eager": [], "captured": []}
+    counts = None
+    for k in ("eager", "captured", "captured", "eager"):
+        if k == "captured" and counts is None:
+            reset_counts()
+        ((params, hist), events_s, wall_s), mb = peak_mb(
+            lambda: timed(lambda: run_fit(k == "captured", None)))
+        if k == "captured" and counts is None:
+            counts = read_counts()
+        n = hist["loss"].shape[0]
+        g = gates(f"{tag} {k}", params, hist)
+        del params, hist
+        after = torch.cuda.memory_allocated() / 2**20
+        runs[k].append({"it_s_events": n / events_s, "it_s_wall": n / wall_s,
+                        "peak_mb": mb, "allocated_after_mb": after, **g})
+        print(f"[{tag} {k}] {n} iters: {n / events_s:.1f} it/s by CUDA "
+              f"events, {n / wall_s:.1f} by host wall time; peak {mb:.1f} "
+              f"MiB above its start, allocated after it {after:.1f} MiB "
+              f"({card})",
+              flush=True)
+    want = only(counts, **{key: 2 * v for key, v in want.items()})
+    if counts != want:
+        raise AssertionError(f"{tag}: captured launches {counts}, expected "
+                             f"{want}")
+    with replays_without_sync() as n_rep:
+        run_fit(True, n_profile)
+    if n_rep[0] != n_profile - 1:
+        raise AssertionError(f"{tag}: {n_rep[0]} replays of "
+                             f"{n_profile} iterations")
+    kern = same_kernels(tag, *(kernel_counts(lambda: run_fit(c, n_profile))
+                               for c in (False, True)))
+    prof = {k: _busy_share(lambda: run_fit(k == "captured", n_profile),
+                           n_profile) for k in runs}
+    # both forms run the same kernels (above), so the eager profile's busy
+    # time an iteration over each timed run's wall time an iteration is
+    # that run's busy share, warm-up and capture amortized over 500
+    busy = prof["eager"]["busy_ms_per_iter"]
+    for k in runs:
+        for r in runs[k]:
+            r["busy_share"] = busy * r["it_s_wall"] / 1e3
+        print(f"[{tag} {k}] profile of a {n_profile}-iteration fit (its "
+              f"first iteration and the capture included): busy "
+              f"{prof[k]['busy_ms_per_iter']:.4f} ms of "
+              f"{prof[k]['wall_ms_per_iter']:.4f} wall ms an iteration "
+              f"(share {prof[k]['busy_share']:.3f}), "
+              f"{prof[k]['kernels_per_iter']} kernels an iteration; timed "
+              f"runs' busy share " + ", ".join(
+                  f"{r['busy_share']:.3f}" for r in runs[k]) + f" ({card})",
+              flush=True)
+    return {"runs": runs, "launches": counts, "kernels": kern,
+            "profile": prof}
+
+
+def captured_phase(device, card: str) -> dict:
+    """H: the bench twin's step, the pose fit on both routes and the joint
+    fit, each eager and as replays of a captured CUDA graph, in turns."""
+    out = {"bench": captured_bench(device, card)}
+    for route in ("fragments", "pallas"):
+        fitter, meshes, refs, params0, _, t_gt, t0 = pose_setup(device,
+                                                                route)
+        out[f"pose_{route}"] = captured_fits(
+            device, card,
+            lambda c, n: fitter.fit(meshes, refs, params0, n_steps=n,
+                                    capture=c),
+            lambda tag, p, h: pose_gates(tag, p, h, t_gt, t0, POSE_ITERS),
+            PROFILE_ITERS + 2, f"captured pose {route}",
+            {"topk_select": 1, "gather_tiles_fwd": 1, "untile_scatter": 1}
+            if route == "fragments" else
+            {"hard_k1": 1, "soft_coverage_fwd": 1, "soft_coverage_bwd": 1,
+             "gather_tiles_fwd": 2, "gather_tiles_bwd": 1,
+             "untile_scatter": 1})
+    fitter, src, uvs, tgt, ds = joint_setup(device)
+    out["joint"] = captured_fits(
+        device, card,
+        lambda c, n: fitter.fit(src, uvs, ds, torch.Generator().manual_seed(0),
+                                n_steps=n, capture=c),
+        lambda tag, p, h: joint_gates(tag, src, tgt, p, h, JOINT_ITERS),
+        PROFILE_ITERS + 2, "captured joint",
+        {"texsample_fwd": 1, "texsample_bwd": 1, "topk_select": 1,
+         "gather_tiles_fwd": 1, "untile_scatter": 1})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# I. the depth-render apps
+# ---------------------------------------------------------------------------
+
+def depth_apps_phase(device, card: str) -> dict:
+    """I: render_compare (the port's DepthRender against the float64 ray
+    caster, at its defaults), quick_render and object_pose_from_depth (its
+    captured fit), each through main() on the card, each counted."""
+    import tempfile
+
+    from torch_renderer_tpu_torch.apps import (
+        object_pose_from_depth,
+        quick_render,
+        render_compare,
+    )
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        set_budget_check_default,
+    )
+
+    out = {}
+    reset_counts()
+    rc = render_compare.main([])
+    counts = read_counts()
+    print(f"[render_compare] worst interior |diff| {rc['worst']:.6f} (tol "
+          f"2e-3); stages {rc['stages']}; launches {counts}", flush=True)
+    if not rc["worst"] < 2e-3 or not np.isfinite(rc["ours"]).all():
+        raise AssertionError("render_compare: the port's depth is not "
+                             "within 2e-3 of the ray caster")
+    if min(counts[k] for k in ("hard_k1", "gather_tiles_fwd",
+                               "untile_scatter")) < 1:
+        raise AssertionError(f"render_compare: launches {counts}")
+    out["render_compare"] = {"worst": float(rc["worst"]),
+                             "stages_s": rc["stages"], "launches": counts}
+
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        qr = quick_render.main(["--out-dir", tmp])
+        n_png = len([f for f in os.listdir(tmp) if f.endswith(".png")])
+    counts = read_counts()
+    print(f"[quick_render] {n_png} PNGs, coverage {qr['coverage']:.3f}, "
+          f"depth max {qr['depth_max']:.3f}; launches {counts}", flush=True)
+    if n_png != 16 or not 0.1 < qr["coverage"] < 0.9 \
+            or not np.isfinite(qr["rgb"]).all() or counts["hard_k1"] < 1:
+        raise AssertionError("quick_render: no turntable")
+    out["quick_render"] = {"coverage": qr["coverage"], "launches": counts}
+
+    for extra in ([], ["--object-pose"]):
+        tag = "object_pose_from_depth" + (" --object-pose" if extra else "")
+        reset_counts()
+        op = object_pose_from_depth.main(["--iters", "200"] + extra)
+        counts = read_counts()
+        err0, err1 = op["err"]
+        print(f"[{tag}] loss {op['losses'][0]:.5f} -> {op['losses'][-1]:.5f}, "
+              f"translation error {err0:.4f} -> {err1:.4f} m, "
+              f"{op['it_s']:.1f} it/s (set-up and capture included); "
+              f"launches (the warm-up iteration and the capture) {counts} "
+              f"({card})", flush=True)
+        if not (np.isfinite(op["losses"]).all()
+                and op["losses"][-1] < op["losses"][0]
+                and err1 < 0.6 * err0) or counts["topk_select"] < 1:
+            raise AssertionError(f"{tag}: the fit did not converge")
+        out[tag] = {"err": [err0, err1], "it_s": op["it_s"],
+                    "loss": [float(op["losses"][0]),
+                             float(op["losses"][-1])], "launches": counts}
+    set_budget_check_default("off")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -2275,6 +2693,8 @@ def main() -> None:
     joint = joint_fit_phase(device, card)
     pts = points_phase(device, card)
     batch = batch_phase(device, card)
+    captured = captured_phase(device, card)
+    apps = depth_apps_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -2474,6 +2894,17 @@ def main() -> None:
         for r, f in fits.items()), flush=True)
     print(f"joint fit it/s ({card}): {joint['it_s_events']:.1f} (events) / "
           f"{joint['it_s_wall']:.1f} (wall)", flush=True)
+    cb = captured["bench"]
+    rates = {k: " / ".join(", ".join(f"{r['it_s_wall']:.1f}"
+                                      for r in captured[k]["runs"][f])
+                            for f in ("captured", "eager"))
+             for k in ("pose_fragments", "pose_pallas", "joint")}
+    print(f"captured against eager ({card}): soft step median "
+          f"{cb['captured']['img_s']:.1f} / {cb['eager']['img_s']:.1f} "
+          "img/s; " + "; ".join(f"{k} {r} it/s (wall)"
+                                for k, r in rates.items()), flush=True)
+    print(json.dumps({"captured": captured, "depth_apps": apps},
+                     default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

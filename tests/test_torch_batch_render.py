@@ -8,7 +8,7 @@ distance 2.7, elevation 15, azimuths 0/120/240, f = 0.9 * 72, bin 32, auto
 max_faces_per_bin, active_tiles and occupancy_split, select_impl="affine".
 The JAX side runs its XLA binned path (bin 32 never takes its Pallas
 kernels); the port runs its kernels' plain versions (tile gather, K=1
-selection, untile). The port ignores the split, which drops nothing here.
+selection, untile). The split, None at the app's own sizing, drops nothing.
 
 Tolerances: the budgets and the occupancy split are equal (integer
 bookkeeping). Depth within 1e-5; only pixels whose winners differ at a

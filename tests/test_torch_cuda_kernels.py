@@ -1017,3 +1017,125 @@ def test_untile_epilogue_matches_plain_on_card(monkeypatch, device, act, K):
     assert torch.equal(da, db)
     torch.testing.assert_close(ga, gb, rtol=0,
                                atol=1e-5 * float(gb.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The loops as replays of captured CUDA graphs (utils/graph.py) against
+# their eager form. Both forms launch the same kernels with the same
+# arithmetic (Adam capturable in both), so they differ only where float32
+# atomics (the gather backward, the corner gather's index_add, the texture
+# backward) add in a run-varying order: gradients within 1e-5 of their
+# largest. Adam turns such last-bit differences into a share of a step on
+# a component whose gradient is near zero, and a parameter that moved by
+# a last bit can change which faces a pixel selects, so the later losses
+# of the two forms part (by up to 1.8% at step 6 of 8 on the pose fit's
+# fragments route at 64^2, measured on the card) while the parameters
+# stay close (up to 0.054 of one step, 0.054 * lr). So the histories are
+# held equal within 1e-4 for the first two steps (the same parameters, up
+# to those last bits), the fitted parameters within a quarter of one
+# step (0.25 * lr): a replay that did not see its updated inputs would
+# miss whole steps.
+# ---------------------------------------------------------------------------
+
+def test_captured_bench_step_matches_eager(device):
+    from torch_renderer_tpu_torch import bench
+
+    p = bench.QUICK
+    meshes, cam = bench.scene(p["batch"], p["image"], p["level"], device)
+    captured, cfg = bench.make_step(meshes, cam, capture=True)
+    eager, _ = bench.make_step(meshes, cam, cfg=cfg, capture=False)
+    v_c = v_e = meshes.verts
+    for _ in range(4):            # warm-up, capture + replay, 2 replays
+        v_c, g_c = captured(v_c)
+        v_e, g_e = eager(v_e)
+        torch.testing.assert_close(g_c, g_e, rtol=0,
+                                   atol=1e-5 * float(g_e.abs().max()))
+    torch.testing.assert_close(v_c, v_e, rtol=0, atol=1e-6)
+    torch.cuda.set_sync_debug_mode("error")
+    try:                          # a replay reads nothing back
+        for _ in range(3):
+            v_c, _ = captured(v_c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(v_c).all())
+
+
+def test_step_graph_replays_without_counting(device):
+    """A replay advances no wrapper count: only the warm-up step and the
+    capture do."""
+    from torch_renderer_tpu_torch import bench
+    from torch_renderer_tpu_torch.rasterize import cuda_gather
+
+    p = bench.QUICK
+    meshes, cam = bench.scene(p["batch"], p["image"], p["level"], device)
+    step, _ = bench.make_step(meshes, cam, capture=True)
+    before = (cuda_soft.FWD_LAUNCHES, cuda_gather.GATHER_BWD_LAUNCHES)
+    v = meshes.verts
+    for _ in range(5):
+        v, _ = step(v)
+    torch.cuda.synchronize()
+    assert (cuda_soft.FWD_LAUNCHES, cuda_gather.GATHER_BWD_LAUNCHES) == \
+        (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("route", ["fragments", "pallas"])
+def test_captured_pose_fit_matches_eager(device, route):
+    from torch_renderer_tpu_torch.apps._common import pinhole_K
+    from torch_renderer_tpu_torch.cameras.look_at import (
+        look_at_view_transform,
+    )
+    from torch_renderer_tpu_torch.opt import pose_fit as pf
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+
+    meshes = Meshes.from_single(*icosphere(3), device=device)
+    meshes, _, _ = meshes.center_and_scale_to_unit_sphere()
+    R, t = look_at_view_transform(2.7, 15.0, 40.0)
+    R, t = R[0].numpy(), t[0].numpy()
+    fitter = pf.CameraPoseFitter(pinhole_K((64, 64)), (64, 64),
+                                 pf.PoseFitConfig(lr=5e-3),
+                                 silhouette_impl=route, device=device)
+    refs = fitter.make_references(meshes, R, t)
+    p0 = pf.pose_params_from_Rt(R, t + np.float32([0.06, -0.04, 0.05]),
+                                device)
+    pc, hc = fitter.fit(meshes, refs, p0, n_steps=8, capture=True)
+    pe, he = fitter.fit(meshes, refs, p0, n_steps=8, capture=False)
+    for k in pe:
+        torch.testing.assert_close(pc[k], pe[k], rtol=0, atol=0.25 * 5e-3)
+    for k in he:
+        torch.testing.assert_close(hc[k][:2], he[k][:2], rtol=1e-4,
+                                   atol=1e-6)
+    assert float(hc["loss"][-1]) < float(hc["loss"][0])
+
+
+def test_captured_joint_fit_matches_eager(device):
+    """lr_decay_steps=2: the staircase, computed in the graph from the
+    device counter, turns twice in 6 steps."""
+    from torch_renderer_tpu_torch.apps._common import pinhole_K
+    from torch_renderer_tpu_torch.opt import deform_color as dc
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+    from torch_renderer_tpu_torch.structures.textures import (
+        sphere_uv_mapping,
+    )
+
+    verts, faces = icosphere(2)
+    src = Meshes.from_single(verts, faces, device=device)
+    uvs = torch.as_tensor(sphere_uv_mapping(verts), device=device)
+    tgt = src.offset_verts(src.verts[0] * torch.tensor([0.0, -0.3, -0.1],
+                                                        device=device))
+    cfg = dc.JointFitConfig(n_views=4, views_per_step=2, texture_size=32,
+                            lr_decay_steps=2, n_steps=6)
+    fitter = dc.JointShapeTextureFitter(pinhole_K((48, 48)), (48, 48), cfg,
+                                        device=device)
+    ds = fitter.make_dataset(tgt)
+    pc, hc = fitter.fit(src, uvs, ds, torch.Generator().manual_seed(3),
+                        capture=True)
+    pe, he = fitter.fit(src, uvs, ds, torch.Generator().manual_seed(3),
+                        capture=False)
+    lr = {"deform": cfg.lr_verts, "texture_map": cfg.lr_texture}
+    for k in pe:
+        torch.testing.assert_close(pc[k], pe[k], rtol=0, atol=0.25 * lr[k])
+    for k in he:
+        torch.testing.assert_close(hc[k][:2], he[k][:2], rtol=1e-4,
+                                   atol=1e-6)

@@ -26,6 +26,22 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def resolve_app_device(args):
+    """The app's torch device, from --device (RuntimeError for a CUDA
+    device when no card is present: there is no fallback); also sets the
+    process-wide budget-check default from --check-budgets."""
+    import torch
+
+    from ..rasterize.binning import set_budget_check_default
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is "
+                           "available")
+    set_budget_check_default(args.check_budgets)
+    return device
+
+
 def pinhole_K(image_size, focal_scale: float = 0.9) -> np.ndarray:
     """(3, 3) pinhole matrix: focal focal_scale * min(H, W), principal
     point at the image center."""

@@ -12,11 +12,12 @@ once, for all four fragment fields.
   python -m torch_renderer_tpu_torch.apps.batch_render_bench
   python -m torch_renderer_tpu_torch.apps.batch_render_bench --device cpu --n-views 4 --view-chunk 2 --height 72 --width 128 --reps 1
 
+With active tiles the app sizes the occupancy split as the JAX app does
+(binning.suggest_occupancy_split_fd; --no-occupancy-split turns it off).
+
 The default --device cuda raises when no CUDA device is present (there is
 no fallback). With several cards visible it renders on --device alone: the
-JAX app's multi-chip view sharding is not ported. The port's kernels give
-every active tile the full max_faces_per_bin, so the app sizes no occupancy
-split (the JAX app's --no-occupancy-split is accepted and has no effect).
+JAX app's multi-chip view sharding is not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._common import base_parser, load_scene_mesh, pinhole_K
+from ._common import (
+    base_parser,
+    load_scene_mesh,
+    pinhole_K,
+    resolve_app_device,
+)
 
 
 def parse_args(argv=None):
@@ -53,9 +59,9 @@ def parse_args(argv=None):
                    help="accepted for CLI parity; the port has one K=1 "
                         "selection kernel")
     p.add_argument("--no-occupancy-split", action="store_true",
-                   help="accepted for CLI parity; the port sizes no "
-                        "occupancy split (its kernels give every active "
-                        "tile the full max_faces_per_bin)")
+                   help="disable the two-budget occupancy split (auto-sized "
+                        "via suggest_occupancy_split_fd when active tiles "
+                        "are compacted)")
     return p.parse_args(argv)
 
 
@@ -63,23 +69,19 @@ def main(argv=None) -> dict:
     """Run the benchmark; returns its numbers and the number of render
     calls it made."""
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "available")
+    device = resolve_app_device(args)
 
     from ..cameras.look_at import look_at_view_transform
     from ..cameras.perspective import PerspectiveCamera
     from ..rasterize.binning import (
         count_overflow,
-        set_budget_check_default,
         suggest_active_tiles_fd,
+        suggest_occupancy_split_fd,
     )
     from ..rasterize.geometry import setup_faces
     from ..renderer import DepthRender
     from ..utils.timing import StageTimer, time_fn
 
-    set_budget_check_default(args.check_budgets)
     H, W = args.height, args.width
     N = args.n_views
     meshes = load_scene_mesh(args)
@@ -90,6 +92,7 @@ def main(argv=None) -> dict:
 
     mfb = args.max_faces_per_bin
     act = args.active_tiles
+    split = None
     if mfb == 0 or act == 0:
         # size budgets from ALL views (a single chunk's azimuth range can
         # under-count an asymmetric scene's densest tiles; overflowing
@@ -105,6 +108,10 @@ def main(argv=None) -> dict:
         if act == 0:
             act = suggest_active_tiles_fd(fd0, (H, W), args.bin_size, 0.0)
             print(f"auto active_tiles = {act}")
+        if act > 0 and not args.no_occupancy_split:
+            split = suggest_occupancy_split_fd(fd0, (H, W), args.bin_size,
+                                               0.0, act, mfb)
+            print(f"auto occupancy_split = {split}")
         del fd0, cam0
 
     renderer = DepthRender(
@@ -112,6 +119,7 @@ def main(argv=None) -> dict:
         bin_size=args.bin_size, max_faces_per_bin=mfb,
         impl=args.raster_impl,
         active_tiles=None if act < 0 else act,
+        occupancy_split=split if act > 0 else None,
         select_impl=args.select_impl,
         device=device,
     )
@@ -161,6 +169,7 @@ def main(argv=None) -> dict:
           float((depth > 0).mean()), "max", float(depth.max()))
     print(f"stages: {timer.report()}")
     return {"max_faces_per_bin": mfb, "active_tiles": act,
+            "occupancy_split": split if act > 0 else None,
             "images_per_s": fps, "serial_images_per_s": 1.0 / r1.mean_s,
             "calls": calls[0], "coverage": float((depth > 0).mean()),
             "depth_max": float(depth.max())}

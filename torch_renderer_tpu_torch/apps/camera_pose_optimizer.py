@@ -22,7 +22,12 @@ import time
 import numpy as np
 import torch
 
-from ._common import base_parser, load_scene_mesh, pinhole_K
+from ._common import (
+    base_parser,
+    load_scene_mesh,
+    pinhole_K,
+    resolve_app_device,
+)
 
 
 def parse_args(argv=None):
@@ -58,10 +63,7 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "available")
+    device = resolve_app_device(args)
 
     from ..cameras.look_at import look_at_view_transform
     from ..cameras.perspective import PerspectiveCamera
@@ -71,14 +73,9 @@ def main(argv=None):
         pose_params_from_Rt,
         pose_params_to_Rt,
     )
-    from ..rasterize.binning import (
-        set_budget_check_default,
-        suggest_active_tiles_fd,
-        tile_grid,
-    )
+    from ..rasterize.binning import suggest_active_tiles_fd, tile_grid
     from ..rasterize.geometry import setup_faces
 
-    set_budget_check_default(args.check_budgets)
     H = W = args.image_size
     meshes = load_scene_mesh(args)
     K = pinhole_K((H, W))

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ._common import pinhole_K
+from ._common import pinhole_K, resolve_app_device
 
 
 def striped_target(verts: np.ndarray, faces: np.ndarray, verts_uvs, device):
@@ -72,19 +72,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is "
-                           "available")
+    device = resolve_app_device(args)
 
     from ..io.obj import load_objs_as_meshes, save_obj
     from ..ops.icosphere import icosphere
     from ..opt.deform_color import JointFitConfig, JointShapeTextureFitter
-    from ..rasterize.binning import set_budget_check_default
     from ..structures.meshes import Meshes
     from ..structures.textures import sphere_uv_mapping
 
-    set_budget_check_default(args.check_budgets)
     H = W = args.image_size
     verts, faces = icosphere(args.level)
     src = Meshes.from_single(verts, faces, device=device)

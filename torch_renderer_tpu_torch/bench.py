@@ -5,11 +5,13 @@ Scene: B=8 views of a level-3 icosphere (1280 faces) at t = (0, 0, 3), seen
 with f = 0.8 * 256 at 256x256, sigma 1e-4. Sizing: suggest_soft_config(...,
 layout="packed") once, on the start projection. Step: v <- v - 1e-6 *
 d sum(alpha) / dv through soft_silhouette_fd with the budget checks off, so
-nothing in a step reads a device value back to the host. Timing: 10 warm-up
-steps, then 100 steps timed by CUDA events (by the host clock on the CPU),
-in each of 5 passes; the result is the median img/s of the passes, with
-their min-max spread. One profiled step gives the kernels launched per
-step.
+nothing in a step reads a device value back to the host; on the card the
+step is captured once in a CUDA graph and replayed (bench.py runs its
+steps as one jitted lax.scan), with --eager its kernels are launched from
+the host each step. Timing: 10 warm-up steps, then 100 steps timed by CUDA
+events (by the host clock on the CPU), in each of 5 passes; the result is
+the median img/s of the passes, with their min-max spread. One profiled
+step gives the kernels launched per step.
 
 --quick: B=2, 128x128, a level-2 icosphere, 5 timed steps after 1 warm-up
 step, 3 passes.
@@ -22,6 +24,7 @@ the full scene, read here and never written), and null under --quick,
 whose scene that reference is not of.
 
   python -m torch_renderer_tpu_torch.bench
+  python -m torch_renderer_tpu_torch.bench --eager
   python -m torch_renderer_tpu_torch.bench --quick --device cpu
 """
 
@@ -43,6 +46,7 @@ from .ops.icosphere import icosphere
 from .rasterize import cuda_gather, cuda_soft
 from .rasterize.geometry import setup_face_planes
 from .structures.meshes import Meshes
+from .utils.graph import StepGraph
 
 SIGMA = 1e-4
 METRIC = "softsil_256_render_backward_fps_per_chip"
@@ -66,10 +70,17 @@ def scene(batch: int, image: int, level: int, device):
 
 
 def make_step(meshes: Meshes, cam: PerspectiveCamera, sigma: float = SIGMA,
-              cfg: cuda_soft.SoftKernelConfig | None = None):
+              cfg: cuda_soft.SoftKernelConfig | None = None, capture=None):
     """The chained step and its sizing: step(v) -> (v - 1e-6 * g, g) with g
     = d sum(alpha) / dv. cfg defaults to suggest_soft_config(layout=
-    "packed") of the start projection, sized here once."""
+    "packed") of the start projection, sized here once.
+
+    capture (utils/graph.py): False gives the eager step, which returns a
+    new v each call. Otherwise v lives in a static buffer that the step
+    updates in place, v.copy_(v - 1e-6 * g), and returns: captured in a
+    CUDA graph and replayed on the card by default (one host call a step,
+    the counterpart of bench.py's jitted lax.scan), run eagerly on the CPU.
+    A v other than the buffer is copied into it first."""
     size = cam.image_size
     if cfg is None:
         with torch.no_grad():
@@ -77,14 +88,35 @@ def make_step(meshes: Meshes, cam: PerspectiveCamera, sigma: float = SIGMA,
         cfg = cuda_soft.suggest_soft_config(fp0, size, sigma=sigma,
                                             layout="packed")
 
-    def step(v):
+    def grad(v):
         v = v.detach().requires_grad_(True)
         fp = setup_face_planes(meshes.update_padded(v), cam)
         alpha = cuda_soft.soft_silhouette_fd(fp, size, sigma=sigma,
                                              check_budgets="off",
                                              **cfg.kwargs())
         (g,) = torch.autograd.grad(alpha.sum(), v)
-        return v.detach() - 1e-6 * g, g
+        return g
+
+    if capture is False:
+        def step(v):
+            g = grad(v)
+            return v.detach() - 1e-6 * g, g
+
+        return step, cfg
+
+    buf = meshes.verts.detach().clone()
+
+    def body():
+        g = grad(buf)
+        buf.copy_(buf - 1e-6 * g)
+        return g
+
+    graph = StepGraph(body, buf.device, capture)
+
+    def step(v):
+        if v is not buf:
+            buf.copy_(v)
+        return buf, graph()
 
     return step, cfg
 
@@ -123,15 +155,24 @@ def _counters() -> dict:
             "gather_tiles_bwd": cuda_gather.GATHER_BWD_LAUNCHES}
 
 
+# the device kernels of the step's wrappers, by the names a profiler reads
+DEVICE_NAMES = {"soft_coverage_fwd": "soft_coverage_fwd_kernel",
+                "soft_coverage_bwd": "soft_coverage_bwd_kernel",
+                "gather_tiles_fwd": "gather_fwd_kernel",
+                "gather_tiles_bwd": "gather_bwd_kernel"}
+
+
 def launches_per_step(step, v) -> dict:
-    """The port's kernels launched by one step (their wrappers' counts),
-    and on the card every kernel the step puts on the device, by
-    torch.profiler (None on the CPU)."""
+    """The port's kernels launched by one step, by their wrappers' counts
+    (an eager step's: a replay of a captured step advances none), and on
+    the card, by torch.profiler, every kernel the step puts on the device
+    and those of the port's kernels by name (None on the CPU)."""
     before = _counters()
     step(v)
     ours = {k: n - before[k] for k, n in _counters().items()}
     if not v.is_cuda:
-        return {"kernels": ours, "device_kernels": None}
+        return {"kernels": ours, "device_kernels": None,
+                "device_by_name": None}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,10 +182,13 @@ def launches_per_step(step, v) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             step(v)
             torch.cuda.synchronize(v.device)
-        n = sum(e.device_type == DeviceType.CUDA for e in prof.events())
-        if n:
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
             break
-    return {"kernels": ours, "device_kernels": n}
+    return {"kernels": ours, "device_kernels": len(names),
+            "device_by_name": {k: sum(n in e for e in names)
+                               for k, n in DEVICE_NAMES.items()}}
 
 
 def card_line() -> str:
@@ -172,6 +216,10 @@ def main(argv=None) -> dict:
                     help="B=2, 128x128, level 2, 5 steps")
     ap.add_argument("--device", default=None,
                     help="default: the current card (cpu to run there)")
+    ap.add_argument("--eager", action="store_true",
+                    help="launch each step's kernels from the host (default: "
+                         "replay the step as a captured CUDA graph on the "
+                         "card; the CPU runs eagerly either way)")
     args = ap.parse_args(argv)
     p = QUICK if args.quick else FULL
     device = resolve_device(args.device)
@@ -180,10 +228,11 @@ def main(argv=None) -> dict:
           flush=True)
 
     meshes, cam = scene(p["batch"], p["image"], p["level"], device)
-    step, cfg = make_step(meshes, cam)
+    step, cfg = make_step(meshes, cam, capture=False if args.eager else None)
+    form = "eager" if args.eager or not on_card else "captured CUDA graph"
     print(f"scene: B={p['batch']}, {p['image']}x{p['image']}, "
-          f"{meshes.max_faces} faces, sigma {SIGMA}; config {cfg}",
-          flush=True)
+          f"{meshes.max_faces} faces, sigma {SIGMA}; config {cfg}; step: "
+          f"{form}", flush=True)
     rates, v = time_passes(step, meshes.verts, p["batch"], p["steps"],
                            p["warmup"], p["passes"])
     if not bool(torch.isfinite(v).all()):
@@ -203,7 +252,7 @@ def main(argv=None) -> dict:
               "n_chips": 1}
     print(json.dumps(record), flush=True)
     return {**record, "passes": rates, "launches": launches,
-            "config": cfg._asdict()}
+            "config": cfg._asdict(), "step": form}
 
 
 if __name__ == "__main__":

@@ -4,22 +4,21 @@ save_obj), including an MTL's map_Kd texture image.
 
 The parser is pure Python; the JAX package's native fast path waits for the
 port's native loader. Texture images are read with PIL where it is
-importable (None otherwise); save_obj writes its PNG with zlib and struct
-from the standard library, so saving needs no imaging package.
+importable (None otherwise); save_obj writes its PNG with io/png.py (zlib and
+struct from the standard library), so saving needs no imaging package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import struct
-import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..structures.meshes import Meshes
 from ..structures.textures import TexturesUV, TexturesVertex
+from .png import write_png
 
 
 @dataclasses.dataclass
@@ -164,19 +163,7 @@ def load_objs_as_meshes(paths: List[str], load_textures: bool = True,
 def _write_png(path: str, image: np.ndarray) -> None:
     """Write an (H, W, 3) image in [0, 1] as an 8-bit RGB PNG (values
     clipped, scaled by 255 and truncated, as the JAX package writes them)."""
-    rgb = (np.clip(image, 0, 1) * 255).astype(np.uint8)
-    H, W = rgb.shape[:2]
-    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(H))
-
-    def chunk(tag: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + tag + body
-                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+    write_png(path, (np.clip(image, 0, 1) * 255).astype(np.uint8))
 
 
 def save_obj(path: str, verts: np.ndarray, faces: np.ndarray,

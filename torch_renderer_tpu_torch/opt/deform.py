@@ -109,7 +109,7 @@ class MeshDeformer:
         deform = self.init_params().requires_grad_(True)
         opt = torch.optim.SGD([deform], lr=cfg.lr, momentum=cfg.momentum)
         snapshots: List[Meshes] = []
-        history = MetricHistory()
+        history = MetricHistory(n, deform.device)
         for i in range(n):
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(deform, generator)
@@ -190,7 +190,7 @@ class VertexColorFitter:
                                   Rs, ts)
         rgb = verts_rgb0.detach().clone().requires_grad_(True)
         opt = torch.optim.SGD([rgb], lr=cfg.lr, momentum=cfg.momentum)
-        history = MetricHistory()
+        history = MetricHistory(n, rgb.device)
         for _ in range(n):
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(rgb, meshes, Rs, ts, refs)

@@ -8,11 +8,13 @@ Adam parameter groups with staircase learning-rate decay, silhouette + RGB
 MSE over a few random views per step, the mesh shape priors and a clamp
 penalty that keeps the texture in [0, 1].
 
-The fit is a Python loop: each step renders views_per_step views through
-the top-K raster kernel, shades them with the texture-sampling kernel pair
-and steps Adam. The view subsets are drawn from a torch.Generator before the
-loop and moved to the device once; the metrics stay on the device, stacked,
-so nothing in the loop reads a value back to the host.
+Each step renders views_per_step views through the top-K raster kernel,
+shades them with the texture-sampling kernel pair and steps Adam; on the
+card each step is a replay of a captured CUDA graph. The view subsets are
+drawn from a torch.Generator before the loop and moved to the device once;
+the step picks its row, and its learning rates, by a step counter on the
+device, and the metrics stay on the device, so nothing in the loop reads a
+value back to the host.
 """
 
 from __future__ import annotations
@@ -32,9 +34,11 @@ from ..ops.mesh_losses import (
     mesh_laplacian_smoothing,
     mesh_normal_consistency,
 )
+from ..rasterize.binning import deferred_budget_checks
 from ..renderer import MeshRenderer
 from ..structures.meshes import Meshes
 from ..structures.textures import TexturesUV
+from ..utils.graph import StepGraph
 from .history import MetricHistory
 
 
@@ -221,11 +225,21 @@ class JointShapeTextureFitter:
     def fit(self, src_mesh: Meshes, verts_uvs, dataset: Dict,
             generator: Optional[torch.Generator] = None,
             n_steps: Optional[int] = None,
-            params0: Optional[Dict] = None):
+            params0: Optional[Dict] = None, capture=None):
         """Run the joint optimization; returns (params, history): history
         maps each metric name to its (n_steps,) tensor on the device, each
         step's metrics taken before its update. generator (a CPU
-        torch.Generator; seed 0 when None) draws the view subsets."""
+        torch.Generator; seed 0 when None) draws the view subsets.
+
+        capture (utils/graph.py): None runs each iteration as a replay of
+        one captured CUDA graph on the card (the JAX package's jitted scan
+        segments) and eagerly on the CPU; True requires the card; False
+        runs it eagerly. Either way the step reads its index from the
+        device counter of its MetricHistory: its view subset is that row of
+        the precomputed schedule, and the learning rates (float64 tensors,
+        so the staircase lr * rate ** (i // lr_decay_steps) is the host's
+        double arithmetic) are computed from it in the step. On the card
+        Adam is capturable on either route."""
         cfg = self.config
         n = int(n_steps if n_steps is not None else cfg.n_steps)
         verts_uvs = torch.as_tensor(verts_uvs, dtype=torch.float32,
@@ -237,25 +251,40 @@ class JointShapeTextureFitter:
         p0 = params0 if params0 is not None else self.init_params(src_mesh)
         params = {k: v.detach().clone().to(self.device).requires_grad_(True)
                   for k, v in p0.items()}
-        opt = torch.optim.Adam([
-            {"params": [params["deform"]], "lr": cfg.lr_verts},
-            {"params": [params["texture_map"]], "lr": cfg.lr_texture}])
         base = (cfg.lr_verts, cfg.lr_texture)
+        lrs = [torch.tensor(lr, dtype=torch.float64, device=self.device)
+               for lr in base]
+        opt = torch.optim.Adam([
+            {"params": [params["deform"]], "lr": lrs[0]},
+            {"params": [params["texture_map"]], "lr": lrs[1]}],
+            capturable=self.device.type == "cuda")
+        rate = torch.tensor(cfg.lr_decay_rate, dtype=torch.float64,
+                            device=self.device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         views = self.view_schedule(generator, n)
-        history = MetricHistory()
-        for i in range(n):
+        history = MetricHistory(n, self.device)
+
+        def iteration():
+            i = history.step
             # optax.exponential_decay(staircase=True) at the update count
-            scale = cfg.lr_decay_rate ** (i // cfg.lr_decay_steps)
-            for group, lr in zip(opt.param_groups, base):
-                group["lr"] = lr * scale
+            scale = rate ** torch.div(i, cfg.lr_decay_steps,
+                                      rounding_mode="floor")
+            for lr_t, lr in zip(lrs, base):
+                lr_t.copy_(lr * scale)
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(params, src_mesh, topo, verts_uvs,
-                                       dataset, views[i])
+                                       dataset,
+                                       views.index_select(0, i.view(1))[0])
             total.backward()
             opt.step()
             history.add(metrics)
+
+        step = StepGraph(iteration, self.device, capture)
+        with deferred_budget_checks():
+            for _ in range(n):
+                step()
+        step.release()
         return {k: v.detach() for k, v in params.items()}, history.result()
 
     def textured_mesh(self, src_mesh: Meshes, verts_uvs,

@@ -8,21 +8,30 @@ import torch
 
 
 class MetricHistory:
-    """Collects each step's dict of 0-dim metric tensors without reading
-    them back to the host, so the loop never waits for the device;
-    ``result()`` stacks them into {name: (steps,) tensor}."""
+    """Each step's dict of 0-dim metric tensors, written without a read
+    back to the host into column ``step`` of a preallocated (n_metrics,
+    n_steps) buffer on the device; ``step`` is a 0-dim int64 counter on the
+    device that each ``add`` advances, so a CUDA graph of the step (which
+    replays the same write) fills the next column each replay. A step that
+    needs its own index reads ``step`` before its ``add``. ``result()``
+    gives {name: (n_steps,) tensor}, names sorted."""
 
-    def __init__(self):
+    def __init__(self, n_steps: int, device):
+        self.n_steps = int(n_steps)
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
         self._keys = None
-        self._rows = []
+        self._buf = None
 
     def add(self, metrics: Dict[str, torch.Tensor]) -> None:
-        self._keys = self._keys or sorted(metrics)
-        self._rows.append(torch.stack([metrics[k].detach()
-                                       for k in self._keys]))
+        if self._buf is None:
+            self._keys = sorted(metrics)
+            self._buf = torch.zeros((len(self._keys), self.n_steps),
+                                    device=self.step.device)
+        row = torch.stack([metrics[k].detach() for k in self._keys])
+        self._buf.index_copy_(1, self.step.view(1), row[:, None])
+        self.step.add_(1)
 
     def result(self) -> Dict[str, torch.Tensor]:
-        if not self._rows:
+        if self._buf is None:
             return {}
-        hist = torch.stack(self._rows, dim=1)
-        return {k: hist[i] for i, k in enumerate(self._keys)}
+        return {k: self._buf[i] for i, k in enumerate(self._keys)}

@@ -5,11 +5,12 @@ A 7-DoF camera (translation + quaternion) is fitted to reference depth,
 silhouette and RGB images with silhouette L1 + masked depth Huber + RGB MSE
 and Adam. One rasterization per step feeds every loss term.
 
-The fit is a Python loop over ``torch.optim.Adam``, whose defaults (betas
-0.9/0.999, eps 1e-8 added outside the square root) equal optax.adam's. The
-per-step metrics stay on the device and come back stacked; nothing in the
-loop reads a value back to the host, so the step never waits for the
-device (unless a budget check asks for "warn").
+The fit is a loop over ``torch.optim.Adam``, whose defaults (betas
+0.9/0.999, eps 1e-8 added outside the square root) equal optax.adam's; on
+the card each iteration is a replay of a captured CUDA graph (the JAX
+package's jitted lax.scan). The per-step metrics stay on the device;
+nothing in the loop reads a value back to the host ("warn" budget checks
+report after it), so the step never waits for the device.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from .._device import resolve_device
 from ..renderer import MeshRenderer
-from .history import MetricHistory
+from ..rasterize.binning import deferred_budget_checks
 from ..structures.meshes import Meshes
 from ..transforms.so3 import (
     matrix_to_quaternion,
@@ -31,6 +32,8 @@ from ..transforms.so3 import (
     quaternion_normalize,
     quaternion_to_matrix,
 )
+from ..utils.graph import StepGraph
+from .history import MetricHistory
 
 
 def huber_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -233,23 +236,39 @@ class CameraPoseFitter:
                                   grow=True, margin=2.0)
 
     def fit(self, meshes: Meshes, refs, params0: Dict[str, torch.Tensor],
-            n_steps: Optional[int] = None):
+            n_steps: Optional[int] = None, capture=None):
         """Run the Adam loop. Returns (final params, metrics history dict
         of (n_steps,) tensors on the device); each step's metrics are those
-        of the parameters before its update."""
+        of the parameters before its update.
+
+        capture (utils/graph.py): None runs each iteration as a replay of
+        one captured CUDA graph on the card (the JAX package's one jitted
+        lax.scan) and eagerly on the CPU; True requires the card; False
+        runs it eagerly. On the card Adam is capturable (its step count on
+        the device) on either route, so both run the same arithmetic. The
+        parameters are updated in place; "warn" budget checks report once,
+        after the loop (binning.deferred_budget_checks)."""
         cfg = self.config
         n = int(n_steps if n_steps is not None else cfg.n_steps)
         params = {k: v.detach().clone().to(self.device).requires_grad_(True)
                   for k, v in params0.items()}
         self.prepare(meshes, params)
-        opt = torch.optim.Adam(list(params.values()), lr=cfg.lr)
-        history = MetricHistory()
-        for _ in range(n):
+        opt = torch.optim.Adam(list(params.values()), lr=cfg.lr,
+                               capturable=self.device.type == "cuda")
+        history = MetricHistory(n, self.device)
+
+        def iteration():
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(params, meshes, refs)
             total.backward()
             opt.step()
             history.add(metrics)
+
+        step = StepGraph(iteration, self.device, capture)
+        with deferred_budget_checks():
+            for _ in range(n):
+                step()
+        step.release()
         return {k: v.detach() for k, v in params.items()}, history.result()
 
 

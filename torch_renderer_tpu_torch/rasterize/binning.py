@@ -25,6 +25,7 @@ device values back.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import NamedTuple, Tuple
@@ -44,9 +45,14 @@ NO_SLOT = 2**31 - 1
 # silently DROPS overflowing work. check_budget() is the opt-in guard: the
 # binned path calls it with the true counts it already computed. Mode "warn"
 # reads the count back to the host (one device sync) and warns; None is a
-# no-op, so the default path never syncs.
+# no-op, so the default path never syncs. Inside deferred_budget_checks()
+# (a fit's or the bench's loop, whose steps a CUDA graph may replay) "warn"
+# keeps each count's running max on the device instead, and the loop reads
+# it back once at its end: the counterpart of the JAX package's
+# asynchronous jax.debug.callback.
 
 _BUDGET_CHECK_DEFAULT = [None]
+_DEFERRED: list = []        # the active BudgetRecords, innermost last
 
 
 def set_budget_check_default(mode) -> None:
@@ -62,22 +68,71 @@ def resolve_budget_check(mode):
     return None if mode == "off" else mode
 
 
+def _overflow_warning(name: str, actual: int, budget: int, hint: str,
+                      stacklevel: int) -> None:
+    warnings.warn(
+        f"{name} overflow: max count {actual} > budget {budget} — "
+        f"overflowing work is silently dropped. {hint}".rstrip(),
+        RuntimeWarning, stacklevel=stacklevel + 1,
+    )
+
+
+class BudgetRecord:
+    """The deferred "warn" checks of one loop: per (budget name, budget,
+    hint), the running max of the true count, on the device. The first
+    record of a budget is made by an eager step (a captured loop's
+    warm-up); later ones, replays included, update it in place."""
+
+    def __init__(self):
+        self.max: dict = {}
+
+    def record(self, name: str, actual: torch.Tensor, budget: int,
+               hint: str) -> None:
+        key = (name, budget, hint)
+        seen = self.max.get(key)
+        if seen is None:
+            self.max[key] = actual.detach().clone()
+        else:
+            torch.maximum(seen, actual.detach(), out=seen)
+
+    def warn(self) -> None:
+        """One host read per budget; warn as check_budget does."""
+        for (name, budget, hint), seen in self.max.items():
+            a = int(seen)
+            if a > budget:
+                _overflow_warning(name, a, budget, hint, stacklevel=3)
+
+
+@contextlib.contextmanager
+def deferred_budget_checks():
+    """Defer the "warn" checks made inside to the end of the block: one
+    warning per overflowing budget, with its largest count."""
+    record = BudgetRecord()
+    _DEFERRED.append(record)
+    try:
+        yield record
+    finally:
+        _DEFERRED.remove(record)
+    record.warn()
+
+
 def check_budget(name: str, actual, budget: int, mode, hint: str = "") -> None:
     """Warn when `actual` (the true max count, a scalar tensor or int)
     exceeds the static `budget`. mode None (after the process default) is a
-    no-op and touches no device value."""
+    no-op and touches no device value; inside deferred_budget_checks() a
+    tensor count is recorded on the device and checked at the block's
+    end."""
     mode = resolve_budget_check(mode)
     if mode is None:
         return
     if mode != "warn":
         raise ValueError(f"unknown budget check mode {mode!r}")
+    if _DEFERRED and isinstance(actual, torch.Tensor):
+        _DEFERRED[-1].record(name, actual, budget, hint)
+        return
     a = int(actual)
     if a > budget:
-        warnings.warn(
-            f"{name} overflow: max count {a} > budget {budget} — overflowing "
-            f"work is silently dropped. {hint}".rstrip(),
-            RuntimeWarning, stacklevel=2,
-        )
+        _overflow_warning(name, a, budget, hint, stacklevel=2)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +276,20 @@ def bin_faces_active(fp, image_size, tile: int, pad_radius: float,
                             max_active, order=order)
 
 
+def split_bins(bins: ActiveBins, hi_tiles: int, k_lo: int) -> ActiveBins:
+    """The occupancy split on count-ordered bins: the ranks from hi_tiles
+    on keep their lowest-id k_lo candidates (slots at or beyond k_lo are
+    emptied and their counts capped), as the JAX package's tail gather of
+    k_lo slots keeps them. The soft and hard kernels read min(count, slots)
+    per tile, so the split needs no kernel of its own."""
+    tail = torch.arange(bins.count.shape[1],
+                        device=bins.count.device) >= hi_tiles      # (A,)
+    return bins._replace(
+        slot=torch.where(tail[:, None] & (bins.slot >= k_lo), NO_SLOT,
+                         bins.slot),
+        count=torch.where(tail, bins.count.clamp(max=k_lo), bins.count))
+
+
 def slot_faces(bins: ActiveBins, per_tile: int,
                empty: int = 0) -> torch.Tensor:
     """(B, A, per_tile) contiguous face id held by each candidate slot.
@@ -259,8 +328,11 @@ def gather_rows_bg(values: torch.Tensor, slot: torch.Tensor,
     per-tile slot table)."""
     B, A = values.shape[:2]
     trail = tuple(values.shape[2:])
-    bg_row = torch.as_tensor(bg, dtype=values.dtype, device=values.device)
-    padded = torch.cat([values, bg_row.expand((B, 1) + trail)], dim=1)
+    if isinstance(bg, torch.Tensor):
+        bg_row = bg.to(values.dtype).expand((B, 1) + trail)
+    else:   # a fill: no host-to-device copy
+        bg_row = values.new_full((B, 1) + trail, bg)
+    padded = torch.cat([values, bg_row], dim=1)
     idx = slot.long().clamp(max=A)                            # (B, T)
     T = idx.shape[1]
     idx = idx.reshape((B, T) + (1,) * len(trail)).expand((B, T) + trail)

@@ -52,6 +52,7 @@ from .binning import (
     bin_faces_active,
     check_budget,
     face_channel_planes,
+    split_bins,
     tile_channel_slabs,
     tile_grid,
 )
@@ -318,15 +319,24 @@ def binned_inputs(fd, settings) -> BinnedInputs:
     """Bin fd (FacePlanes or FaceRasterData) into the tiles of resolved
     settings (bin_size > 0), run the opt-in budget checks, and gather the
     kernels' inputs. Faces beyond max_faces_per_bin in a tile and non-empty
-    tiles beyond active_tiles are dropped."""
+    tiles beyond active_tiles are dropped.
+
+    occupancy_split (hi, lo), as the JAX package's binned path applies it:
+    the active tiles are ranked by descending candidate count; the first
+    max(1, hi) keep max_faces_per_bin slots and the rest min(lo,
+    max_faces_per_bin), dropping their higher-id candidates beyond it
+    (binning.split_bins). hi at or above the active-tile count means no
+    split."""
     H, W = settings.image_size
     tile = settings.bin_size
     blur = settings.blur_radius
     TH, TW, _ = tile_grid((H, W), tile)
     A = TH * TW if settings.active_tiles is None else settings.active_tiles
     Fmax = min(settings.max_faces_per_bin, fd.num_faces)
+    split = settings.occupancy_split
     bins = bin_faces_active(fd, (H, W), tile,
-                            math.sqrt(blur) if blur > 0 else 0.0, A)
+                            math.sqrt(blur) if blur > 0 else 0.0, A,
+                            order="tile" if split is None else "count")
     if settings.active_tiles is not None:
         check_budget("active_tiles", bins.n_active.max(),
                      settings.active_tiles, settings.check_budgets,
@@ -334,6 +344,12 @@ def binned_inputs(fd, settings) -> BinnedInputs:
     check_budget("max_faces_per_bin", bins.count.max(), Fmax,
                  settings.check_budgets,
                  hint="size with cuda_soft.suggest_faces_per_tile")
+    if split is not None and int(split[0]) < bins.count.shape[1]:
+        hi, lo = max(1, int(split[0])), int(split[1])
+        check_budget("occupancy_split lo_lanes", bins.count[:, hi:].max(),
+                     lo, settings.check_budgets,
+                     hint="size with binning.suggest_occupancy_split_fd")
+        bins = split_bins(bins, hi, min(lo, Fmax))
     planes = face_channel_planes(fd)
     slab, count, table = tile_channel_slabs(planes.detach(), bins, Fmax)
     return BinnedInputs(bins, planes, slab, count, table,

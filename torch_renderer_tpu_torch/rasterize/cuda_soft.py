@@ -34,7 +34,6 @@ import torch
 
 from .._build import launch
 from .binning import (
-    NO_SLOT,
     ActiveBins,
     bin_faces_active,
     check_budget,
@@ -43,6 +42,7 @@ from .binning import (
     resolve_budget_check,
     scatter_active,
     slot_faces,
+    split_bins,
     suggest_active_tiles_fd,
     suggest_group_lanes_fd,
     untile_image,
@@ -244,23 +244,10 @@ def tile_slabs(fp: FacePlanes, bins: ActiveBins, per_tile: int):
             bins.count.clamp(max=per_tile).to(torch.int32))
 
 
-def _split_bins(bins: ActiveBins, hi_tiles: int, k_lo: int) -> ActiveBins:
-    """The packed layout's occupancy split on count-ordered bins: the ranks
-    from hi_tiles on keep their lowest-id k_lo candidates (slots at or
-    beyond k_lo are emptied and their counts capped), as the JAX package's
-    tail gather of k_lo slots keeps them. The kernels read min(count,
-    slots) per tile, so the split needs no kernel of its own."""
-    tail = torch.arange(bins.count.shape[1],
-                        device=bins.count.device) >= hi_tiles      # (A,)
-    return bins._replace(
-        slot=torch.where(tail[:, None] & (bins.slot >= k_lo), NO_SLOT,
-                         bins.slot),
-        count=torch.where(tail, bins.count.clamp(max=k_lo), bins.count))
-
-
 def _budget_checks(bins: ActiveBins, A: int | None, K: int, layout: str,
                    group_lanes: int | None, split, mode) -> None:
-    """The opt-in overflow guards; each reads one count back to the host.
+    """The opt-in overflow guards; each reads one count back to the host
+    (inside binning.deferred_budget_checks, records it on the device).
     split: None or (hi_tiles, k_lo) of the occupancy split."""
     if resolve_budget_check(mode) is None:
         return
@@ -274,7 +261,7 @@ def _budget_checks(bins: ActiveBins, A: int | None, K: int, layout: str,
         check_budget("occupancy_split lo_lanes",
                      bins.count[:, hi_tiles:].max(), k_lo, mode,
                      hint="size with suggest_occupancy_split")
-        bins = _split_bins(bins, hi_tiles, k_lo)
+        bins = split_bins(bins, hi_tiles, k_lo)
     if layout == "packed":
         S_g = 8 * K if group_lanes is None else group_lanes
         S_g += (-S_g) % 128
@@ -351,7 +338,7 @@ def soft_silhouette_fd(
         _budget_checks(bins, active_tiles, K, layout, group_lanes, split,
                        check_budgets)
     if split is not None:
-        bins = _split_bins(bins, *split)
+        bins = split_bins(bins, *split)
 
     q, count = tile_slabs(fp, bins, K)
     inv_s = 1.0 / (min(H, W) / 2.0)

@@ -56,14 +56,17 @@ class RasterizationSettings:
     all of its fragment fields, whatever ``untile_impl`` says (the JAX
     package's two epilogues give the same bits).
 
+    occupancy_split (hi, lo) ranks the active tiles by descending
+    candidate count and gives the first hi of them max_faces_per_bin slots
+    and the rest lo, dropping what the JAX package's binned path drops
+    (cuda_hard.binned_inputs); size it with
+    binning.suggest_occupancy_split_fd.
+
     Accepted and without effect here: ``layout`` ("packed" is the JAX
     package's K=1 packed-selection kernel; the port routes it to the one K=1
-    kernel), ``group_lanes``, ``occupancy_split`` (the port's kernels give
-    every active tile the full max_faces_per_bin, so a split sized by
-    binning.suggest_occupancy_split_fd drops nothing in either package),
-    ``select_impl="affine"`` (selection keys of the JAX XLA path) and
-    ``untile_impl``. The combinations the JAX package rejects are rejected
-    here too.
+    kernel), ``group_lanes``, ``select_impl="affine"`` (selection keys of
+    the JAX XLA path) and ``untile_impl``. The combinations the JAX package
+    rejects are rejected here too.
 
     check_budgets: None (the process default of
     binning.set_budget_check_default), "off", or "warn" (reads each true

@@ -5,6 +5,7 @@ pytorch3d's BlendParams / hard_rgb_blend / softmax_rgb_blend)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -34,12 +35,23 @@ def sigmoid_alpha(fragments: Fragments, sigma: float) -> torch.Tensor:
     return 1.0 - torch.exp(-terms.sum(-1))
 
 
+@functools.lru_cache(maxsize=16)
+def background(color: tuple, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """The background color as a (3,) tensor on device, made once by fills
+    (no host-to-device copy, which a captured step cannot hold) and shared
+    by every blend; callers do not write to it."""
+    bg = torch.empty(len(color), dtype=dtype, device=device)
+    for i, c in enumerate(color):
+        bg[i].fill_(c)
+    return bg
+
+
 def hard_rgb_blend(colors: torch.Tensor, fragments: Fragments,
                    blend: BlendParams) -> torch.Tensor:
     """Nearest-fragment color with background fill: (B, H, W, K, 3) ->
     RGBA (B, H, W, 4)."""
-    bg = torch.tensor(blend.background_color, dtype=colors.dtype,
-                      device=colors.device)
+    bg = background(tuple(blend.background_color), colors.dtype, colors.device)
     m = fragments.mask[..., 0:1]
     rgb = torch.where(m, colors[..., 0, :], bg)
     return torch.cat([rgb, m.to(colors.dtype)], dim=-1)
@@ -60,8 +72,7 @@ def softmax_rgb_blend(colors: torch.Tensor, fragments: Fragments,
     w = prob * torch.exp((zinv - zmax) / blend.gamma)
     delta = torch.exp((eps - zmax[..., 0]) / blend.gamma)
     denom = w.sum(-1) + delta
-    bg = torch.tensor(blend.background_color, dtype=colors.dtype,
-                      device=colors.device)
+    bg = background(tuple(blend.background_color), colors.dtype, colors.device)
     rgb = (torch.einsum("...k,...kc->...c", w, colors)
            + delta[..., None] * bg) / denom[..., None]
     alpha = sigmoid_alpha(fragments, blend.sigma)

@@ -124,7 +124,9 @@ class Meshes:
         """Repeat each mesh n times along the batch dim (item-major, like
         pytorch3d's Meshes.extend)."""
         def rep(a):
-            return torch.repeat_interleave(a, n, dim=0)
+            # an expand, not repeat_interleave: no host read of the size
+            return a.unsqueeze(1).expand((a.shape[0], n) + a.shape[1:]) \
+                .reshape((a.shape[0] * n,) + a.shape[1:])
 
         return Meshes(verts=rep(self.verts), faces=rep(self.faces),
                       num_verts=rep(self.num_verts),

@@ -31,7 +31,9 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _repeat(a: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.repeat_interleave(a, n, dim=0)
+    # an expand, not repeat_interleave: no host read of the size
+    return a.unsqueeze(1).expand((a.shape[0], n) + a.shape[1:]).reshape(
+        (a.shape[0] * n,) + a.shape[1:])
 
 
 @dataclasses.dataclass(frozen=True)
