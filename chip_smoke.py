@@ -146,6 +146,34 @@ Drives, through the port's public entry points:
      fit; the loss falls and the translation error falls below 0.6x its
      start: 0.44x and 0.46x on the CPU). Each is
      counted: its mesh raster's kernels launched at least once.
+  J. registration, pose search and the finite-difference pose fit, new in
+     the slice that ported them: the icp_registration app at its defaults
+     through main() (300 objects of 500 points sampled from the normalized
+     level-3 icosphere, 100 iterations, captured: svd3 launched in each
+     registration's eager first step and its capture, 4 in all, and no
+     other kernel); its data eager and captured in turns, each with
+     tests/test_pose_search.py::TestRegistration's gates (mean translation
+     error < 1e-3 m, rotation error < 1e-2 rad), the eager run launching
+     svd3 once a step and nothing else, the captured R, t, s within 1e-6
+     of eager's, objects 0 and 1 within 1e-3 of the numpy solver; svd3 on
+     the covariances of the first step against its plain Jacobi (u, s, vt
+     within 1e-4) and torch.linalg.svd (the library call: the Umeyama
+     rotation within 1e-5); replays without a host read, busy share and
+     peak memory. The pose_search app at its defaults (400 hypotheses,
+     elite 100, 10 iterations, its lobed 500-point cloud; no kernel of the
+     port on this path): its best-score history non-increasing, its pose
+     error printed; the search eager and captured in turns (equal within
+     1e-5); search_batch on tests/test_pose_search.py's three targets
+     (scores < 0.12); chamfer_eval at its defaults (1000 poses,
+     corr(chamfer, translation error) > 0.3). The FD pose fit at 128^2
+     (level-3 icosphere, tests/test_component_parity.py's start, step
+     0.02, eps 2e-3, 100 steps) eager, captured, captured, eager: the
+     final loss below the start's and the translation error down in each,
+     captured params within 1e-6 of eager's, exactly two launches a step
+     of hard_k1, gather_tiles_fwd and untile_scatter (the 12-view
+     difference call and the 2-view accept call) counted eager and read
+     off the profiler for the replays; then the three kernels against
+     their plain versions at the 12-view call.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -166,15 +194,18 @@ it, is reported beside it as bound_every_pair_ms. A library yardstick is
 one PyTorch call computing the same function where there is one:
 grid_sample for the texture pair, Tensor.gather plus the mask and
 scatter_add_ for the gather pair, one torch.take per field for the untile
-kernel; each is timed by events and alone (the profiler's sum of every
+kernel, torch.linalg.svd for svd3; each is timed by events and alone (the profiler's sum of every
 kernel of the call). Any failure raises (exit code 1). The second-to-last
 line is a JSON record of the kernels; the last line is
 {"ok": true, "device": {...}}.
 
 The build's -Xptxas -v report is printed in full, and the registers,
 shared memory and spills of the soft pair, hard_k1_kernel,
-topk_select_kernel, points_select_kernel, the gather pair, untile_kernel
-and the texture pair's instances once more in a line each.
+topk_select_kernel, points_select_kernel, the gather pair, untile_kernel,
+the texture pair's instances and svd3_kernel once more in a line each.
+svd3 replaces no Pallas kernel (JAX's ICP takes XLA's SVD at
+torch_renderer_tpu/ops/icp.py:68); its bound counts OPS_SVD3 operations
+and BYTES_SVD3 bytes a matrix.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -403,7 +434,7 @@ def _short(name: str) -> str:
 
 
 def reset_counts() -> None:
-    from torch_renderer_tpu_torch.ops import cuda_texsample
+    from torch_renderer_tpu_torch.ops import cuda_svd3, cuda_texsample
     from torch_renderer_tpu_torch.rasterize import (
         cuda_gather,
         cuda_hard,
@@ -418,10 +449,11 @@ def reset_counts() -> None:
     cuda_points.POINTS_LAUNCHES = 0
     cuda_gather.GATHER_FWD_LAUNCHES = cuda_gather.GATHER_BWD_LAUNCHES = 0
     cuda_untile.UNTILE_LAUNCHES = 0
+    cuda_svd3.SVD3_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from torch_renderer_tpu_torch.ops import cuda_texsample
+    from torch_renderer_tpu_torch.ops import cuda_svd3, cuda_texsample
     from torch_renderer_tpu_torch.rasterize import (
         cuda_gather,
         cuda_hard,
@@ -439,7 +471,8 @@ def read_counts() -> dict:
             "points_select": cuda_points.POINTS_LAUNCHES,
             "gather_tiles_fwd": cuda_gather.GATHER_FWD_LAUNCHES,
             "gather_tiles_bwd": cuda_gather.GATHER_BWD_LAUNCHES,
-            "untile_scatter": cuda_untile.UNTILE_LAUNCHES}
+            "untile_scatter": cuda_untile.UNTILE_LAUNCHES,
+            "svd3": cuda_svd3.SVD3_LAUNCHES}
 
 
 def only(counts: dict, **want) -> dict:
@@ -2300,7 +2333,8 @@ DEVICE_NAMES = {"soft_coverage_fwd": "soft_coverage_fwd_kernel",
                 "points_select": "points_select_kernel",
                 "gather_tiles_fwd": "gather_fwd_kernel",
                 "gather_tiles_bwd": "gather_bwd_kernel",
-                "untile_scatter": "untile_kernel"}
+                "untile_scatter": "untile_kernel",
+                "svd3": "svd3_kernel"}
 
 
 def kernel_counts(fn) -> dict:
@@ -2641,6 +2675,454 @@ def depth_apps_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# J. registration, pose search and the finite-difference pose fit
+# ---------------------------------------------------------------------------
+
+ICP_ITERS = 100          # the icp_registration app's --icp-iters
+FD_IMAGE = 128
+FD_STEPS = 100
+# svd3 per matrix: 8 sweeps of 3 Jacobi rotations of ~66 operations (three
+# 3-dots, the angle's 17, 12 column updates of 3) and ~70 to sort and
+# complete u; inputs 36 bytes, outputs 84.
+OPS_SVD3 = 8 * 3 * 66 + 70
+BYTES_SVD3 = 36 + 84
+SVD_TOL = 1e-4           # s, u and vt against the plain Jacobi
+ROT_TOL = 1e-5           # the Umeyama rotation against the plain versions'
+# u and vt are compared where the singular values lie apart by this share
+# of the largest: a singular vector of two nearly equal singular values
+# turns with the last bits of its input
+SVD_GAP = 1e-2
+
+
+def _umeyama_rotation(U, Vt):
+    from torch_renderer_tpu_torch.ops.cuda_svd3 import det3
+
+    d = torch.sign(det3(U @ Vt))
+    D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+    return U @ (D[..., None] * Vt)
+
+
+def svd3_check(cov, card: str) -> dict:
+    """svd3 on the ICP's covariances (those its first step hands the
+    kernel) against the plain Jacobi on the card (s within SVD_TOL, u and
+    vt within SVD_TOL where the singular values lie SVD_GAP apart, the
+    Umeyama rotation u D vt within ROT_TOL) and torch.linalg.svd, the
+    library call (s within SVD_TOL, the rotation within ROT_TOL); u diag(s)
+    vt rebuilds cov within 1e-5 of its largest. Times by events and by
+    the profiler."""
+    from torch_renderer_tpu_torch.ops import cuda_svd3
+
+    got = cuda_svd3.svd3(cov)
+    plain = cuda_svd3.svd3_jacobi(cov)
+    lib = torch.linalg.svd(cov)
+    torch.cuda.synchronize()
+    s = plain[1]
+    apart = ((s[:, :2] - s[:, 1:]).amin(-1) > SVD_GAP * s[:, 0])
+    vec = max(float((a - b)[apart].abs().max()) if bool(apart.any())
+              else 0.0 for a, b in ((got[0], plain[0]), (got[2], plain[2])))
+    rot = _umeyama_rotation(got[0], got[2])
+    err = max(vec, float((got[1] - s).abs().max()),
+              float((rot - _umeyama_rotation(plain[0], plain[2])).abs()
+                    .max()))
+    rot_lib = float((rot - _umeyama_rotation(lib[0], lib[2])).abs().max())
+    s_lib = float((got[1] - lib[1]).abs().max())
+    rec_err = float(((got[0] * got[1][..., None, :]) @ got[2] - cov).abs()
+                    .max() / cov.abs().max())
+    n = cov.shape[0]
+    rec = {"shape": list(cov.shape), "max_abs_err": err,
+           "apart": int(apart.sum()),
+           "rotation_err_vs_library": rot_lib, "s_err_vs_library": s_lib,
+           "reconstruction_rel_err": rec_err,
+           "ms": time_ms(lambda: cuda_svd3.svd3(cov)),
+           "device_ms": device_ms(lambda: cuda_svd3.svd3(cov), "svd3_kernel"),
+           "plain_ms": time_ms(lambda: cuda_svd3.svd3_jacobi(cov)),
+           "library_ms": time_ms(lambda: torch.linalg.svd(cov)),
+           "library_device_ms": device_ms(lambda: torch.linalg.svd(cov),
+                                          None),
+           **bound(n * BYTES_SVD3, n * OPS_SVD3)}
+    print(f"[svd3] {n} covariances of the ICP's first step ({card}): "
+          f"{rec}", flush=True)
+    if not (err <= SVD_TOL and rot_lib <= ROT_TOL and s_lib <= SVD_TOL
+            and rec_err <= 1e-5):
+        raise AssertionError("svd3 disagrees with its plain version or "
+                             "with torch.linalg.svd")
+    return rec
+
+
+def icp_data(device):
+    """TestRegistration's kind of data at the app's scale: 300 objects of
+    500 points, the points sampled from the normalized level-3 icosphere
+    and made asymmetric as the pose_search app makes its cloud (squashed,
+    a lobe on a sixth of them), from one generator seeded 0; the
+    registration config's defaults (angle up to 0.3 rad, translation std
+    0.05 m)."""
+    from torch_renderer_tpu_torch.apps import pose_search
+    from torch_renderer_tpu_torch.apps._common import load_scene_mesh
+    from torch_renderer_tpu_torch.opt.registration import (
+        RegisterDataConfig,
+        create_register_data,
+    )
+
+    args = pose_search.parse_args([])
+    gen = torch.Generator(device=device).manual_seed(0)
+    cloud = pose_search.app_cloud(load_scene_mesh(args), 500, gen, True)
+    return create_register_data(gen, cloud, RegisterDataConfig())
+
+
+def icp_phase(device, card: str) -> dict:
+    """The icp_registration app at its defaults (300 objects of 500 points
+    from the level-3 icosphere, 100 iterations) through main(), counted:
+    on a sphere some objects' rotations stay unobserved (the JAX app at
+    its defaults on the CPU: mean rotation error 0.022 rad, the port on
+    the same data the same within 6e-7; the port's own data: 3-14% of
+    objects stuck, by the seed), so its gates are the medians (errors
+    below 1e-3 m and 1e-2 rad) and every object converged. Then icp_data eager and captured in turns, each held
+    to tests/test_pose_search.py::TestRegistration's gates (means below
+    1e-3 m and 1e-2 rad), two objects against the numpy solver, svd3
+    against its plain version, replays without a host read, busy share
+    and peak memory."""
+    from torch_renderer_tpu_torch.apps import icp_registration
+    from torch_renderer_tpu_torch.ops import icp
+    from torch_renderer_tpu_torch.opt.registration import (
+        evaluate_registration,
+        icp_cpu_reference,
+        register_batch,
+    )
+
+    reset_counts()
+    app = icp_registration.main([])
+    counts = read_counts()
+    print(f"[icp app] {app}; launches {counts} ({card})", flush=True)
+    # captured: each of the app's two registrations launches svd3 in its
+    # eager first step and once more while it is captured
+    if counts != only(counts, svd3=4):
+        raise AssertionError(f"icp app: launches {counts}")
+    med = (float(np.median(app["trans_err"])),
+           float(np.median(app["rot_err"])))
+    stuck = float((app["rot_err"] > 1e-2).mean())
+    print(f"[icp app] median errors {med[0]:.3e} m, {med[1]:.3e} rad; "
+          f"share of objects above 1e-2 rad {stuck:.4f}", flush=True)
+    if not (med[0] < 1e-3 and med[1] < 1e-2 and app["converged"] == 300):
+        raise AssertionError("icp app: registration errors above the gates")
+    app = {k: v for k, v in app.items() if k not in ("trans_err", "rot_err")}
+    app.update(median_trans_err=med[0], median_rot_err=med[1],
+               stuck_share=stuck)
+
+    data = icp_data(device)
+    runs = {"eager": [], "captured": []}
+    sols = {}
+    counted = None
+    for k in ("eager", "captured", "captured", "eager"):
+        if k == "eager" and counted is None:
+            reset_counts()
+        (sol, events_s, wall_s), mb = peak_mb(lambda: timed(
+            lambda: register_batch(data, ICP_ITERS,
+                                   capture=k == "captured")))
+        if k == "eager" and counted is None:
+            counted = read_counts()
+        m = evaluate_registration(sol, data["gt_R"], data["gt_t"])
+        r = {"events_s": events_s, "wall_s": wall_s, "peak_mb": mb,
+             "mean_trans_err": float(m["mean_trans_err"]),
+             "mean_rot_err": float(m["mean_rot_err"]),
+             "converged": int(sol.converged.sum())}
+        runs[k].append(r)
+        sols.setdefault(k, sol)
+        print(f"[icp {k}] 300 x 500 points, {ICP_ITERS} iterations: "
+              f"{events_s:.4f} s by CUDA events, {wall_s:.4f} s wall; "
+              f"{r} ({card})", flush=True)
+        if not (r["mean_trans_err"] < 1e-3 and r["mean_rot_err"] < 1e-2):
+            raise AssertionError(f"icp {k}: errors above the gates")
+    if counted != only(counted, svd3=ICP_ITERS):
+        raise AssertionError(f"icp eager: launches {counted}, expected one "
+                             "svd3 a step")
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        sols["captured"].RTs, sols["eager"].RTs))
+    print(f"[icp] captured against eager: max |R, t, s diff| {diff:.3e}",
+          flush=True)
+    if not diff <= 1e-6:
+        raise AssertionError("icp: the captured registration differs from "
+                             "the eager one")
+    cpu = []
+    for b in range(2):
+        R, t, _ = icp_cpu_reference(data["source"][b].cpu().numpy(),
+                                    data["target"][b].cpu().numpy(),
+                                    ICP_ITERS)
+        cpu.append(max(float(np.abs(sols["captured"].RTs.R[b].cpu().numpy()
+                                    - R).max()),
+                       float(np.abs(sols["captured"].RTs.t[b].cpu().numpy()
+                                    - t).max())))
+    print(f"[icp] objects 0, 1 against the numpy solver: max |diff| {cpu}",
+          flush=True)
+    if not max(cpu) <= 1e-3:
+        raise AssertionError("icp: disagrees with icp_cpu_reference")
+
+    # the kernel on the first step's covariances (recorded by a spy)
+    seen = []
+    saved = icp.svd3
+
+    def spy(a):
+        seen.append(a.clone())
+        return saved(a)
+
+    icp.svd3 = spy
+    try:
+        register_batch(data, 1, capture=False)
+    finally:
+        icp.svd3 = saved
+    kern = svd3_check(seen[0], card)
+
+    with replays_without_sync() as n_rep:
+        register_batch(data, ICP_ITERS, capture=True)
+    if n_rep[0] != ICP_ITERS - 1:
+        raise AssertionError(f"icp: {n_rep[0]} replays")
+    prof = {k: _busy_share(lambda: register_batch(
+        data, ICP_ITERS, capture=k == "captured"), ICP_ITERS, top=5,
+        named=("svd3",)) for k in runs}
+    for k, p in prof.items():
+        print(f"[icp {k}] profile ({card}): {p}", flush=True)
+    return {"app": app, "app_launches": counts, "runs": runs,
+            "launches_eager": counted, "captured_vs_eager": diff,
+            "cpu_reference_err": cpu, "svd3": kern, "profile": prof}
+
+
+SEARCH_TARGETS = (([0.3, -0.2, 0.5], [0.1, 0.0, 0.1]),
+                  ([0.0, 0.4, -0.6], [0.0, 0.15, -0.05]),
+                  ([-0.5, 0.1, 0.2], [-0.1, 0.05, 0.0]))
+
+
+def search_phase(device, card: str) -> dict:
+    """The pose_search app at its defaults (400 hypotheses, elite 100, 10
+    iterations, 500 points of its squashed, lobed cloud) through main(),
+    counted; its search eager and captured in turns; search_batch on
+    tests/test_pose_search.py's three targets and cloud; and the
+    chamfer_eval app at its defaults (1000 poses)."""
+    from torch_renderer_tpu_torch.apps import chamfer_eval, pose_search
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt.pose_search import (
+        GMMPoseSearch,
+        PoseSearchConfig,
+    )
+    from torch_renderer_tpu_torch.transforms.so3 import (
+        euler_angles_to_matrix,
+        transform_points,
+    )
+
+    out = {}
+    reset_counts()
+    app, mb = peak_mb(lambda: pose_search.main([]))
+    counts = read_counts()
+    hist = app["best_history"]
+    print(f"[pose_search app] best {app['score']:.5f}, pose error "
+          f"{app['trans_err']:.4f} m, {math.degrees(app['rot_err']):.2f} "
+          f"deg; history {hist.tolist()}; peak {mb:.1f} MiB; launches "
+          f"{counts} ({card})", flush=True)
+    if not (np.isfinite(hist).all() and (np.diff(hist) <= 0).all()):
+        raise AssertionError("pose_search app: the best score rose")
+    if counts != only(counts):
+        raise AssertionError(f"pose_search app: launches {counts}")
+    out["app"] = {"score": app["score"], "trans_err": app["trans_err"],
+                  "rot_err": app["rot_err"], "best_history": hist.tolist(),
+                  "peak_mb": mb}
+
+    args = pose_search.parse_args([])
+    _, ref, _, _, target = pose_search.app_scene(args, device)
+    searcher = GMMPoseSearch(ref, PoseSearchConfig())
+    runs = {"eager": [], "captured": []}
+    res = {}
+    for k in ("eager", "captured", "captured", "eager"):
+        gen = torch.Generator(device=device).manual_seed(1)
+        (o, events_s, wall_s), mb = peak_mb(lambda: timed(
+            lambda: searcher.search(gen, target, capture=k == "captured")))
+        res.setdefault(k, o)
+        runs[k].append({"events_s": events_s, "wall_s": wall_s,
+                        "peak_mb": mb, "score": float(o["score"])})
+        print(f"[search {k}] 10 iterations x 400 hypotheses: "
+              f"{events_s:.4f} s by CUDA events, {wall_s:.4f} s wall, "
+              f"best {float(o['score']):.5f}, peak {mb:.1f} MiB ({card})",
+              flush=True)
+    diff = max(float((res["captured"][n] - res["eager"][n]).abs().max())
+               for n in ("pose6d", "score", "best_history"))
+    print(f"[search] captured against eager: max |diff| {diff:.3e}",
+          flush=True)
+    if not diff <= 1e-5:
+        raise AssertionError("search: the captured search differs from "
+                             "the eager one")
+    with replays_without_sync() as n_rep:
+        searcher.search(torch.Generator(device=device).manual_seed(1),
+                        target, capture=True)
+    if n_rep[0] != PoseSearchConfig().n_iters - 1:
+        raise AssertionError(f"search: {n_rep[0]} replays")
+    prof = {k: _busy_share(lambda: searcher.search(
+        torch.Generator(device=device).manual_seed(1), target,
+        capture=k == "captured"), PoseSearchConfig().n_iters, top=5)
+        for k in runs}
+    for k, p in prof.items():
+        print(f"[search {k}] profile ({card}): {p}", flush=True)
+    out.update(runs=runs, captured_vs_eager=diff, profile=prof)
+
+    # search_batch: tests/test_pose_search.py's cloud, config and targets,
+    # the draws from a CPU generator (those of the CPU test)
+    verts, _ = icosphere(2)
+    cloud = torch.as_tensor(verts * np.array([1.0, 0.6, 0.3], np.float32),
+                            device=device)
+    cloud[:40] += torch.tensor([0.8, 0.0, 0.0], device=device)
+    targets = torch.stack([transform_points(
+        euler_angles_to_matrix(torch.tensor(r, device=device), "XYZ"),
+        torch.tensor(t, device=device), cloud) for r, t in SEARCH_TARGETS])
+    cfg = PoseSearchConfig(n_hypotheses=192, n_elite=48, n_iters=5,
+                           translation_std=0.25)
+    (ob, events_s, wall_s), mb = peak_mb(lambda: timed(
+        lambda: GMMPoseSearch(cloud, cfg).search_batch(
+            torch.Generator().manual_seed(0), targets)))
+    scores = ob["score"].cpu().numpy()
+    print(f"[search_batch] B=3: scores {scores.tolist()} (gate < 0.12), "
+          f"{events_s:.4f} s by CUDA events, peak {mb:.1f} MiB ({card})",
+          flush=True)
+    if not (np.isfinite(scores).all() and (scores < 0.12).all()):
+        raise AssertionError("search_batch: a target was not aligned")
+    out["batch"] = {"scores": scores.tolist(), "events_s": events_s,
+                    "peak_mb": mb}
+
+    reset_counts()
+    land, mb = peak_mb(lambda: chamfer_eval.main([]))
+    print(f"[chamfer_eval] 1000 poses: corr(chamfer, trans_err) "
+          f"{land['corr_trans']:.3f} (gate > 0.3), corr(chamfer, rot_err) "
+          f"{land['corr_rot']:.3f}; peak {mb:.1f} MiB; launches "
+          f"{read_counts()} ({card})", flush=True)
+    if not land["corr_trans"] > 0.3:
+        raise AssertionError("chamfer landscape: no correlation")
+    out["landscape"] = {"corr_trans": land["corr_trans"],
+                        "corr_rot": land["corr_rot"], "peak_mb": mb}
+    return out
+
+
+def fd_setup(device):
+    """tests/test_component_parity.py's FD fit at 128^2 on the level-3
+    icosphere (1280 faces: the binned raster; budget checks off, as in
+    phases C and E): the fitter, meshes, reference depth, start and
+    truth."""
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt.pose_fit_fd import (
+        FDPoseFitConfig,
+        FiniteDifferencePoseFitter,
+    )
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+
+    f = 0.9 * FD_IMAGE
+    K = np.array([[f, 0, FD_IMAGE / 2], [0, f, FD_IMAGE / 2], [0, 0, 1]],
+                 np.float32)
+    fitter = FiniteDifferencePoseFitter(
+        K, (FD_IMAGE, FD_IMAGE), FDPoseFitConfig(step_size=0.02, eps=2e-3),
+        check_budgets="off", device=device)
+    meshes = Meshes.from_single(*icosphere(LEVEL), device=device)
+    gt = fitter.pack([0.0, 0.0, 0.0], [0.0, 0.0, 3.0], device=device)
+    start = fitter.pack([0.05, -0.04, 0.0], [0.08, -0.06, 3.15],
+                        device=device)
+    return fitter, meshes, fitter.render_depth(meshes, gt), start, gt
+
+
+def fd_kernel_checks(fitter, meshes, start, card: str) -> dict:
+    """hard_k1, gather_tiles_fwd and untile_scatter against their plain
+    versions at the FD fit's 12-view call at the start pose, with the
+    fit's resolved settings."""
+    from torch_renderer_tpu_torch.opt.pose_fit_fd import _fd_rows
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+
+    rows = _fd_rows(start, fitter.config.eps)
+    R, t = fitter.unpack(rows)
+    st = fitter.renderer.resolved_settings(meshes, R[:1], t[:1])
+    fp = setup_face_planes(meshes.extend(rows.shape[0]),
+                           fitter.renderer.camera_with_pose(R, t))
+    print(f"[fd] the 12-view call's settings: {st}", flush=True)
+    with torch.no_grad():
+        inp = cuda_hard.binned_inputs(fp, st)
+        out = {"hard_k1": hard_k1_check("FD fit", inp, st, card),
+               "gather": gather_check("FD fit slab",
+                                      *_slab_gather_inputs(inp), card,
+                                      bwd=False)}
+        del inp
+        bins, fields = cuda_hard.binned_tile_fields(fp, st)
+        out["untile"], _ = untile_check("FD fit", bins, fields,
+                                        (FD_IMAGE, FD_IMAGE), st.bin_size,
+                                        card)
+    return out
+
+
+def fd_phase(device, card: str) -> dict:
+    """The FD pose fit at 128^2, 100 steps, eager and captured in turns,
+    each held to tests/test_component_parity.py's gates; the eager run
+    counted (two launches a step of hard_k1, gather_tiles_fwd and
+    untile_scatter, nothing else), the captured run's replays profiled
+    (the same two a step on the device) and without a host read; the
+    three kernels at the fit's 12-view call."""
+    fitter, meshes, ref, start, gt = fd_setup(device)
+    loss0 = float(fitter.loss(start, meshes, ref))
+    err0 = float(torch.linalg.norm(start[3:] - gt[3:]))
+    runs = {"eager": [], "captured": []}
+    params = {}
+    counted = None
+    for k in ("eager", "captured", "captured", "eager"):
+        if counted is None:
+            reset_counts()
+        ((p, hist), events_s, wall_s), mb = peak_mb(lambda: timed(
+            lambda: fitter.fit(meshes, ref, start, capture=k == "captured")))
+        if counted is None:
+            counted = read_counts()
+        params.setdefault(k, p)
+        loss = hist["loss"].cpu().numpy()
+        err1 = float(torch.linalg.norm(p[3:] - gt[3:]))
+        r = {"steps_s_events": FD_STEPS / events_s,
+             "steps_s_wall": FD_STEPS / wall_s, "peak_mb": mb,
+             "loss": [loss0, float(loss[-1])], "err": [err0, err1]}
+        runs[k].append(r)
+        print(f"[fd {k}] {FD_STEPS} steps: {r} ({card})", flush=True)
+        if not (np.isfinite(loss).all() and loss[-1] < loss0
+                and err1 < err0):
+            raise AssertionError(f"fd {k}: the fit did not improve")
+    want = only(counted, hard_k1=2 * FD_STEPS,
+                gather_tiles_fwd=2 * FD_STEPS, untile_scatter=2 * FD_STEPS)
+    print(f"[fd eager] launches {counted}", flush=True)
+    if counted != want:
+        raise AssertionError(f"fd: launches {counted}, expected {want}")
+    diff = float((params["captured"] - params["eager"]).abs().max())
+    print(f"[fd] captured params against eager: max |diff| {diff:.3e}",
+          flush=True)
+    if not diff <= 1e-6:
+        raise AssertionError("fd: the captured fit differs from the eager "
+                             "one")
+    n = PROFILE_ITERS + 2
+    with replays_without_sync() as n_rep:
+        fitter.fit(meshes, ref, start, n_steps=n, capture=True)
+    if n_rep[0] != n - 1:
+        raise AssertionError(f"fd: {n_rep[0]} replays of {n} steps")
+    kern = kernel_counts(lambda: fitter.fit(meshes, ref, start, n_steps=n,
+                                            capture=True))
+    print(f"[fd captured] the port's kernels on the device in a {n}-step "
+          f"fit: {kern['ours']}", flush=True)
+    if kern["ours"] != only(kern["ours"], hard_k1=2 * n,
+                            gather_tiles_fwd=2 * n, untile_scatter=2 * n):
+        raise AssertionError("fd captured: not two launches a step")
+    prof = {k: _busy_share(lambda: fitter.fit(
+        meshes, ref, start, n_steps=n, capture=k == "captured"), n, top=5,
+        named=("hard_k1", "gather_fwd", "untile")) for k in runs}
+    for k, p in prof.items():
+        print(f"[fd {k}] profile of a {n}-step fit ({card}): {p}",
+              flush=True)
+    checks = fd_kernel_checks(fitter, meshes, start, card)
+    return {"runs": runs, "launches_eager": counted, "captured_diff": diff,
+            "captured_kernels": kern["ours"], "profile": prof, **checks}
+
+
+def registration_phase(device, card: str) -> dict:
+    """J: ICP registration, the GMM pose search and its landscape, and the
+    FD pose fit."""
+    return {"icp": icp_phase(device, card),
+            "search": search_phase(device, card),
+            "fd": fd_phase(device, card)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -2668,7 +3150,7 @@ def main() -> None:
     for k, v in ptxas.items():
         if k.startswith(("soft_coverage", "hard_k1", "topk_select",
                          "points_select", "gather_fwd", "gather_bwd",
-                         "untile_kernel", "texsample")):
+                         "untile_kernel", "texsample", "svd3")):
             print(f"ptxas {k}: {v.get('registers')} registers, "
                   f"{v.get('smem')} bytes static smem, spill stores "
                   f"{v.get('spill_stores')} / loads {v.get('spill_loads')} "
@@ -2695,6 +3177,7 @@ def main() -> None:
     batch = batch_phase(device, card)
     captured = captured_phase(device, card)
     apps = depth_apps_phase(device, card)
+    reg = registration_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -2713,6 +3196,10 @@ def main() -> None:
              "shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
              "bound_every_pair_ms", "box_pairs", "pairs", "diff_px")},
          "launches_depth_app": batch["counts"]["hard_k1"],
+         "launches_fd_fit": reg["fd"]["launches_eager"]["hard_k1"],
+         "fd_fit_call": {k: reg["fd"]["hard_k1"][k] for k in (
+             "shape", "live", "max_abs_err", "ms", "device_ms", "plain_ms",
+             "bound_ms", "bound_by", "bound_every_pair_ms")},
          "ptxas": ptxas.get("hard_k1_kernel"),
          "pose_fit_profile": fits["pallas"]["profile"]},
         {"name": "topk_select", "route": "cuda", "source": source,
@@ -2842,6 +3329,10 @@ def main() -> None:
              "library_ms", "library_device_ms")}
              for k, g in hard["gathers"].items() if k != "floor"},
          "launch_floor": hard["gathers"]["floor"],
+         "launches_fd_fit": reg["fd"]["launches_eager"]["gather_tiles_fwd"],
+         "fd_fit_call": {k: reg["fd"]["gather"][k] for k in (
+             "shape", "live", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms")},
          "ptxas": {k: v for k, v in ptxas.items()
                    if k.startswith("gather_fwd")}},
         {"name": "gather_tiles_bwd", "route": "cuda", "source": source,
@@ -2881,7 +3372,22 @@ def main() -> None:
          "launches_fits": {r: f["counts"]["untile_scatter"]
                            for r, f in fits.items()},
          "fits_shape": {k: uf[k] for k in keys},
+         "launches_fd_fit": reg["fd"]["launches_eager"]["untile_scatter"],
+         "fd_fit_call": {k: reg["fd"]["untile"][k] for k in keys},
          "ptxas": ptxas.get("untile_kernel")})
+    sv = reg["icp"]["svd3"]
+    kernels.append(
+        {"name": "svd3", "route": "cuda",
+         "source": "torch_renderer_tpu_torch/csrc/svd3.cu",
+         "replaces": "torch_renderer_tpu/ops/icp.py:68",
+         "pallas_site": None,
+         "launches": reg["icp"]["app_launches"]["svd3"],
+         "launches_eager_icp": reg["icp"]["launches_eager"]["svd3"],
+         **{k: sv[k] for k in (
+             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_device_ms", "shape",
+             "rotation_err_vs_library", "s_err_vs_library")},
+         "ptxas": ptxas.get("svd3_kernel")})
     app = batch["app"]
     print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
           f"batched, {app['serial_images_per_s']:.1f} serial; one call "
@@ -2903,8 +3409,17 @@ def main() -> None:
           f"{cb['captured']['img_s']:.1f} / {cb['eager']['img_s']:.1f} "
           "img/s; " + "; ".join(f"{k} {r} it/s (wall)"
                                 for k, r in rates.items()), flush=True)
-    print(json.dumps({"captured": captured, "depth_apps": apps},
-                     default=float), flush=True)
+    icp_r, fd_r = reg["icp"]["runs"], reg["fd"]["runs"]
+    print(f"registration ({card}): ICP 300 x 500 x {ICP_ITERS} "
+          + " / ".join(", ".join(f"{r['events_s']:.4f}" for r in icp_r[f])
+                       for f in ("captured", "eager"))
+          + " s (captured / eager, events); FD fit "
+          + " / ".join(", ".join(f"{r['steps_s_events']:.1f}"
+                                 for r in fd_r[f])
+                       for f in ("captured", "eager"))
+          + " steps/s (captured / eager, events)", flush=True)
+    print(json.dumps({"captured": captured, "depth_apps": apps,
+                      "registration": reg}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1139,3 +1139,150 @@ def test_captured_joint_fit_matches_eager(device):
     for k in he:
         torch.testing.assert_close(hc[k][:2], he[k][:2], rtol=1e-4,
                                    atol=1e-6)
+
+
+# 3x3 SVD (csrc/svd3.cu), and the slice-5 loops captured ---------------------
+
+def _covariances(device, kind: str, n: int):
+    rng = np.random.default_rng({"random": 1, "rank2": 2, "reflected": 3}[
+        kind])
+    U, _, Vt = np.linalg.svd(rng.normal(size=(n, 3, 3)))
+    S = np.abs(rng.normal(size=(n, 3))) + 0.1
+    if kind == "rank2":
+        S[:, 2] = 0.0
+    if kind == "reflected":
+        U = np.where(np.linalg.det(U @ Vt)[:, None, None] > 0,
+                     U * np.array([1.0, 1.0, -1.0]), U)
+    A = U * S[:, None, :] @ Vt
+    return torch.tensor(A.astype(np.float32), device=device)
+
+
+@pytest.mark.parametrize("kind", ["random", "rank2", "reflected"])
+@pytest.mark.parametrize("n", [1, 127, 300, 5000])
+def test_svd3_kernel_matches_plain(device, kind, n):
+    """The kernel against its plain Jacobi (the same sweeps, rounded
+    otherwise): s within 1e-4, u and vt within 1e-4 where the singular
+    values lie 1e-2 of the largest apart (a singular vector of two nearly
+    equal singular values turns with the last bits of its input; at rank
+    2 the last column of u also takes its sign from a rounded zero), and
+    torch.linalg.svd (u diag(s) vt rebuilds the input within 1e-5 of its
+    largest; the Umeyama rotation within 1e-5 where s1 - s2 > 0.05 s0,
+    its float32 error growing as s0 / (s1 - s2)); one launch a call."""
+    from torch_renderer_tpu_torch.ops import cuda_svd3
+
+    A = _covariances(device, kind, n)
+    before = cuda_svd3.SVD3_LAUNCHES
+    got = cuda_svd3.svd3(A)
+    assert cuda_svd3.SVD3_LAUNCHES == before + 1
+    plain = cuda_svd3.svd3_jacobi(A)
+    U, S, Vt = got
+    torch.testing.assert_close(S, plain[1], rtol=0, atol=1e-4)
+    s = plain[1]
+    gaps = s[:, :2] - s[:, 1:]
+    apart = (gaps > 1e-2 * s[:, :1]).all(-1)
+    if kind == "rank2":
+        torch.testing.assert_close(U[apart][..., :2], plain[0][apart][..., :2],
+                                   rtol=0, atol=1e-4)
+        torch.testing.assert_close(U[apart][..., 2].abs(),
+                                   plain[0][apart][..., 2].abs(), rtol=0,
+                                   atol=1e-4)
+    else:
+        torch.testing.assert_close(U[apart], plain[0][apart], rtol=0,
+                                   atol=1e-4)
+    torch.testing.assert_close(Vt[apart], plain[2][apart], rtol=0, atol=1e-4)
+    scale = float(A.abs().max())
+    torch.testing.assert_close((U * S[:, None, :]) @ Vt, A, rtol=0,
+                               atol=1e-5 * scale)
+    eye = torch.eye(3, device=device).expand(n, 3, 3)
+    torch.testing.assert_close(U.transpose(1, 2) @ U, eye, rtol=0,
+                               atol=1e-6)
+    lib = torch.linalg.svd(A)
+    torch.testing.assert_close(S, lib[1], rtol=0, atol=1e-5 * scale)
+
+    def rotation(U, Vt):
+        d = torch.sign(cuda_svd3.det3(U @ Vt))
+        D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)
+        return U @ (D[..., None] * Vt)
+
+    apart = (lib[1][:, 1] - lib[1][:, 2]) > 0.05 * lib[1][:, 0]
+    torch.testing.assert_close(rotation(U, Vt)[apart],
+                               rotation(lib[0], lib[2])[apart], rtol=0,
+                               atol=1e-5)
+
+
+def test_svd3_rejects_other_inputs(device):
+    from torch_renderer_tpu_torch.ops import cuda_svd3
+
+    with pytest.raises(ValueError):
+        cuda_svd3.svd3(torch.zeros(4, 3, 3, device=device,
+                                   dtype=torch.float64))
+    with pytest.raises(ValueError):
+        cuda_svd3.svd3(torch.zeros(4, 2, 3, device=device))
+
+
+def test_captured_icp_matches_eager(device):
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt import registration as reg
+
+    verts, _ = icosphere(3)
+    data = reg.create_register_data(
+        torch.Generator().manual_seed(0), torch.tensor(verts, device=device),
+        reg.RegisterDataConfig(n_objects=16, crop_fraction=0.3,
+                               noise_std=0.005))
+    sc = reg.register_batch(data, 20, capture=True)
+    se = reg.register_batch(data, 20, capture=False)
+    for a, b in zip(sc.RTs, se.RTs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+    torch.testing.assert_close(sc.rmse_history, se.rmse_history, rtol=0,
+                               atol=1e-6)
+    assert torch.equal(sc.converged, se.converged)
+
+
+def test_captured_pose_search_matches_eager(device):
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt import pose_search as ps
+
+    verts, _ = icosphere(2)
+    cloud = torch.tensor(verts * np.float32([1.0, 0.6, 0.3]), device=device)
+    cfg = ps.PoseSearchConfig(n_hypotheses=128, n_elite=32, n_iters=4)
+    s = ps.GMMPoseSearch(cloud, cfg)
+    target = cloud + torch.tensor([0.1, 0.0, -0.1], device=device)
+    oc = s.search(torch.Generator(device=device).manual_seed(0), target,
+                  capture=True)
+    oe = s.search(torch.Generator(device=device).manual_seed(0), target,
+                  capture=False)
+    for k in oe:
+        torch.testing.assert_close(oc[k], oe[k], rtol=1e-5, atol=1e-6)
+
+
+def test_captured_fd_fit_matches_eager(device):
+    """Two launches a step of hard_k1, the gather and the untile kernel
+    eager; the captured fit's parameters equal eager's within 1e-6."""
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt import pose_fit_fd as fd
+    from torch_renderer_tpu_torch.rasterize import (
+        cuda_gather,
+        cuda_hard,
+        cuda_untile,
+    )
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+
+    K = np.float32([[57.6, 0, 32], [0, 57.6, 32], [0, 0, 1]])
+    fitter = fd.FiniteDifferencePoseFitter(
+        K, (64, 64), fd.FDPoseFitConfig(step_size=0.02, eps=2e-3),
+        device=device)
+    meshes = Meshes.from_single(*icosphere(3), device=device)
+    ref = fitter.render_depth(meshes, fitter.pack([0, 0, 0], [0, 0, 3.0],
+                                                  device=device))
+    start = fitter.pack([0.05, -0.04, 0], [0.08, -0.06, 3.15],
+                        device=device)
+    counts = (cuda_hard.HARD_LAUNCHES, cuda_gather.GATHER_FWD_LAUNCHES,
+              cuda_untile.UNTILE_LAUNCHES)
+    pe, he = fitter.fit(meshes, ref, start, n_steps=6, capture=False)
+    after = (cuda_hard.HARD_LAUNCHES, cuda_gather.GATHER_FWD_LAUNCHES,
+             cuda_untile.UNTILE_LAUNCHES)
+    assert [a - b for a, b in zip(after, counts)] == [12, 12, 12]
+    pc, hc = fitter.fit(meshes, ref, start, n_steps=6, capture=True)
+    torch.testing.assert_close(pc, pe, rtol=0, atol=1e-6)
+    torch.testing.assert_close(hc["loss"], he["loss"], rtol=0, atol=1e-6)
+    assert float(he["loss"][-1]) < float(fitter.loss(start, meshes, ref))

@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Five slices are ported:
+Six slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning (in raster or count order), the
@@ -22,7 +22,13 @@ Five slices are ported:
   * the batched multi-view depth render (apps/batch_render_bench.py): the
     tile-gather kernel pair that loads every binned path's candidate slabs,
     the fused untile kernel that ends every binned mesh raster, and the
-    timing harness (utils.timing).
+    timing harness (utils.timing);
+  * registration and search: batched ICP (ops.icp, with the batched 3x3
+    SVD CUDA kernel of ops.cuda_svd3) and its workload
+    (opt.registration), the diagonal GMM (ops.gmm) and the chamfer-scored
+    GMM pose search with its loss landscape (opt.pose_search), the
+    finite-difference depth pose fit (opt.pose_fit_fd), the rest of
+    transforms.so3, and the model registry (models.MODEL_FAMILIES).
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
@@ -43,6 +49,7 @@ from .cameras.perspective import (
 )
 from .ops.icosphere import icosphere
 from .io.obj import load_obj, load_objs_as_meshes, save_obj
+from .ops.icp import ICPSolution, SimilarityTransform, iterative_closest_point
 from .ops.knn_chamfer import chamfer_distance, knn_points
 from .ops.mesh_losses import (
     build_topology,
@@ -58,6 +65,9 @@ from .opt.deform import (
     VertexColorFitter,
 )
 from .opt.deform_color import JointFitConfig, JointShapeTextureFitter
+from .opt.pose_fit_fd import FDPoseFitConfig, FiniteDifferencePoseFitter
+from .opt.pose_search import GMMPoseSearch, PoseSearchConfig
+from .opt.registration import RegisterDataConfig, register_batch
 from .opt.pose_fit import (
     CameraPoseFitter,
     DepthPoseFitter,
@@ -116,6 +126,8 @@ from .structures.textures import (
 )
 from .utils.timing import StageTimer, TimingResult, profiler_trace, time_fn
 
+from . import models, opt  # noqa: E402,F401 namespaces
+
 __all__ = [
     "AlphaPointRender",
     "BlendParams",
@@ -127,9 +139,13 @@ __all__ = [
     "DepthPoseFitter",
     "DepthRender",
     "DirectionalLights",
+    "FDPoseFitConfig",
     "FacePlanes",
     "FaceRasterData",
+    "FiniteDifferencePoseFitter",
     "Fragments",
+    "GMMPoseSearch",
+    "ICPSolution",
     "JointFitConfig",
     "JointShapeTextureFitter",
     "Materials",
@@ -145,11 +161,14 @@ __all__ = [
     "PointsRasterizationSettings",
     "PointsRenderer",
     "PoseFitConfig",
+    "PoseSearchConfig",
     "PulsarPointRender",
     "PulsarRenderer",
     "RasterizationSettings",
+    "RegisterDataConfig",
     "RenderOutputs",
     "SilhouetteRender",
+    "SimilarityTransform",
     "SoftKernelConfig",
     "StageTimer",
     "TexturesUV",
@@ -162,6 +181,7 @@ __all__ = [
     "gather_tiles",
     "icosphere",
     "interpolate_face_attributes",
+    "iterative_closest_point",
     "knn_points",
     "load_obj",
     "load_objs_as_meshes",
@@ -179,6 +199,7 @@ __all__ = [
     "rasterize_face_data",
     "rasterize_meshes",
     "rasterize_points",
+    "register_batch",
     "sample_points_from_meshes",
     "save_obj",
     "setup_face_planes",

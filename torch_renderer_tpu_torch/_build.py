@@ -136,6 +136,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_untile_scatter_fields.argtypes = [vp, i32, vp, i32, i32, i32,
                                               i32, i32, i32, i32, i32, vp]
     lib.trt_untile_scatter_fields.restype = i32
+    lib.trt_svd3.argtypes = [vp, vp, vp, vp, i32, i32, vp]
+    lib.trt_svd3.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib

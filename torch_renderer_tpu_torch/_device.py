@@ -24,3 +24,10 @@ def resolve_device(device=None, like=None) -> torch.device:
             "no CUDA device is visible: the port runs on the card by "
             "default; pass device='cpu' to run on the CPU")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def draw(fn, generator: torch.Generator, shape, device) -> torch.Tensor:
+    """fn(shape) (torch.rand or torch.randn) drawn from ``generator`` on
+    its own device, then moved to ``device``: a seeded CPU generator gives
+    the same draws whatever device the work runs on."""
+    return fn(shape, generator=generator, device=generator.device).to(device)

@@ -89,3 +89,35 @@ def chamfer_pointclouds(a: Pointclouds, b: Pointclouds,
     """Chamfer distance between two Pointclouds (masks applied)."""
     return chamfer_distance(a.points, b.points, a.mask(), b.mask(),
                             batch_reduction=batch_reduction)
+
+
+def nn_points_chunked(x, y, x_mask=None, y_mask=None, chunk: int = 4096
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """nn_points without the whole (B, N, M) distance matrix: x in chunks
+    of ``chunk`` rows, each its own (B, chunk, M) block; peak memory
+    O(B * chunk * M), for scan-size clouds (100k+ points)."""
+    d, idx = zip(*(nn_points(xc, y, None, y_mask)
+                   for xc in x.split(chunk, dim=1)))
+    dmin, idx = torch.cat(d, dim=1), torch.cat(idx, dim=1)
+    if x_mask is not None:
+        dmin = dmin * x_mask
+    return dmin, idx
+
+
+def chamfer_distance_chunked(x, y, x_mask=None, y_mask=None,
+                             batch_reduction: Optional[str] = "mean",
+                             chunk: int = 4096):
+    """chamfer_distance (point_reduction "mean", both directions) through
+    nn_points_chunked."""
+    def one_way(a, b, a_mask, b_mask):
+        d, _ = nn_points_chunked(a, b, a_mask, b_mask, chunk)
+        n = a_mask.sum(-1) if a_mask is not None else \
+            torch.full((a.shape[0],), float(a.shape[1]), device=a.device)
+        return d.sum(-1) / n.clamp_min(1.0)
+
+    cham = one_way(x, y, x_mask, y_mask) + one_way(y, x, y_mask, x_mask)
+    if batch_reduction == "mean":
+        return cham.mean(), None
+    if batch_reduction == "sum":
+        return cham.sum(), None
+    return cham, None
