@@ -174,6 +174,32 @@ Drives, through the port's public entry points:
      difference call and the 2-view accept call) counted eager and read
      off the profiler for the replays; then the three kernels against
      their plain versions at the 12-view call.
+  K. the COCO data generator (datagen/coco.py), new in the slice that
+     ported it: the coco_data_generator app through main() at its defaults
+     (4 scenes x 25 views at 480x640, 2-5 primitives a scene, random
+     materials, rest placement, normals, outputs packed on the card) and
+     with --material-mode texture --room --placement physics --edge-maps
+     --min-visible-px 200 at 2 scenes, each counted: exactly one hard_k1,
+     gather_tiles_fwd and untile_scatter launch a chunk of 8 views and a
+     visibility render, texsample_fwd at most once a chunk and at least
+     once in the textured run; every annotation's area at least
+     min_visible_px and its RLE covering 480 x 640 pixels; images/s, s a
+     scene, the annotations, peak memory. Then one scene of the defaults
+     profiled (busy share, the kernels' device ms), one chunk of a
+     textured room scene (its kernels and device ms by the profiler) and
+     at that chunk hard_k1 (all 8 rows bit for bit; its plain version 2
+     views at a time), gather_tiles_fwd and untile_scatter (equal) and
+     texsample_fwd (within 1e-6; the backward on a seeded cotangent within
+     1e-5 of its largest) against their plain versions, each timed with
+     its bound and library call; the settle sim (5 bodies, 1500 steps)
+     captured, captured, eager, eager (one Settler a form): within 1e-6,
+     each form's repeat equal to its first run, no host read inside a
+     replay nor in an eager settle; canny_edges on the card against the CPU on the chunk's rgb
+     (grad_magnitude within 1e-4 of its largest, thresholded equal except
+     where a comparison sits within that of its threshold, counted). The
+     native library (native/*.cpp) is built by g++ into build/native/ and
+     the run says whether it loaded; the app writes into build/coco_smoke/,
+     removed afterwards.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -2409,6 +2435,19 @@ def replays_without_sync():
         torch.cuda.set_sync_debug_mode(before)
 
 
+@contextlib.contextmanager
+def host_reads_raise():
+    """Any host synchronization inside the block raises
+    (torch.cuda.set_sync_debug_mode("error")); yields [0], the replay
+    count of an eager block, for symmetry with replays_without_sync."""
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield [0]
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
 def peak_mb(fn):
     """(fn(), the peak device memory allocated during it above what was
     allocated before it, MiB)."""
@@ -3123,6 +3162,378 @@ def registration_phase(device, card: str) -> dict:
             "fd": fd_phase(device, card)}
 
 
+# ---------------------------------------------------------------------------
+# K. the COCO data generator at 480x640
+# ---------------------------------------------------------------------------
+
+COCO_SIZE = (480, 640)
+COCO_CHUNK = 8           # DataGenConfig.view_chunk
+COCO_TILE = 32           # DataGenConfig.bin_size
+COCO_SEED = 0
+CANNY_TOL = 1e-4         # of the largest magnitude
+
+
+@contextlib.contextmanager
+def count_coco_calls():
+    """Count the generator's chunk renders and visibility renders (each one
+    binned K=1 raster)."""
+    from torch_renderer_tpu_torch.datagen import coco
+
+    calls = {"chunks": 0, "vis": 0}
+    saved = (coco.COCODataGenerator._render_views,
+             coco.COCODataGenerator._vis_counts)
+
+    def chunk(self, *a, **k):
+        calls["chunks"] += 1
+        return saved[0](self, *a, **k)
+
+    def vis(self, *a, **k):
+        calls["vis"] += 1
+        return saved[1](self, *a, **k)
+
+    coco.COCODataGenerator._render_views = chunk
+    coco.COCODataGenerator._vis_counts = vis
+    try:
+        yield calls
+    finally:
+        (coco.COCODataGenerator._render_views,
+         coco.COCODataGenerator._vis_counts) = saved
+
+
+def _rle_area(rle) -> int:
+    return sum(rle["counts"][1::2])
+
+
+def coco_app_run(tag: str, argv: list, out_dir: str, card: str) -> dict:
+    """One run of the app through main(), counted: every chunk and every
+    visibility render launches hard_k1, gather_tiles_fwd and
+    untile_scatter once; every annotation clears min_visible_px and its
+    RLE covers the image."""
+    from torch_renderer_tpu_torch.apps import coco_data_generator as app
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_coco_calls() as calls:
+        out = app.main(argv + ["--out-dir", out_dir])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rasters = calls["chunks"] + calls["vis"]
+    anns = out["coco"]["annotations"]
+    floor = int(argv[argv.index("--min-visible-px") + 1]) \
+        if "--min-visible-px" in argv else 0
+    H, W = COCO_SIZE
+    bad = [a["id"] for a in anns
+           if a["area"] < floor or sum(a["segmentation"]["counts"]) != H * W
+           or _rle_area(a["segmentation"]) != a["area"]]
+    rec = {"images": out["images"], "annotations": len(anns),
+           "seconds": out["seconds"], "images_per_s": out["images_per_s"],
+           "s_per_scene": out["s_per_scene"], "chunks": calls["chunks"],
+           "vis_renders": calls["vis"], "launches": counts,
+           "max_faces_per_bin": out["max_faces_per_bin"],
+           "peak_gb": peak, "min_area": min((a["area"] for a in anns),
+                                            default=None)}
+    print(f"[coco] {tag}: {rec} ({card})", flush=True)
+    want = {"hard_k1": rasters, "gather_tiles_fwd": rasters,
+            "untile_scatter": rasters}
+    for k in counts:
+        if k not in want and k != "texsample_fwd" and counts[k]:
+            raise AssertionError(f"coco {tag}: unexpected launches {counts}")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"coco {tag}: expected {want} launches (one a "
+                             f"chunk or visibility render), got {counts}")
+    if counts["texsample_fwd"] > calls["chunks"]:
+        raise AssertionError(f"coco {tag}: texsample_fwd {counts}")
+    if bad or not anns or out["images"] == 0:
+        raise AssertionError(f"coco {tag}: annotations {bad} fail the "
+                             f"min_visible_px {floor} or RLE checks")
+    return rec
+
+
+def coco_scene(device, **kw):
+    """A generator and one sampled scene (COCO_SEED), with its views and
+    lights drawn and bins sized as render_scene draws and sizes them."""
+    from torch_renderer_tpu_torch.datagen import coco
+
+    gen = coco.COCODataGenerator(coco.ObjectLibrary.primitives(),
+                                 coco.DataGenConfig(**kw), device=device)
+    rng = np.random.default_rng(COCO_SEED)
+    scene, _ = gen.sample_scene(rng)
+    return gen, scene, rng
+
+
+def coco_chunk_inputs(gen, scene, rng):
+    """One chunk of a scene as render_scene sees it: the first 8 views
+    (bins sized for all of the scene's views), the lights, the batch."""
+    from torch_renderer_tpu_torch.shading.lights import PointLights
+
+    n = gen.config.views_per_scene
+    Rs, ts = gen._sample_view_poses(rng, n, gen._object_centers(scene))
+    gen._ensure_bin_capacity(scene.meshes.extend(n), Rs, ts)
+    lights = PointLights.make(location=((0.5, -0.4, 1.8),),
+                              device=gen.device)
+    R = torch.as_tensor(Rs[:COCO_CHUNK], device=gen.device)
+    t = torch.as_tensor(ts[:COCO_CHUNK], device=gen.device)
+    return scene.meshes.extend(COCO_CHUNK), R, t, lights
+
+
+def coco_hard_k1(inp, st, card: str) -> dict:
+    """hard_k1 against its plain version at the chunk's slab, all 8 rows
+    bit for bit; the plain version runs 2 views at a time (its (B, A,
+    tile^2, Fmax) priority of all 8 would take ~30 GB)."""
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    args = (inp.slab, inp.count, inp.origin, st.bin_size, inp.inv_s,
+            st.blur_radius, st.znear, st.clip_bary)
+
+    def plain():
+        return torch.cat([cuda_hard.hard_k1_reference(
+            inp.slab[b:b + 2], inp.count[b:b + 2], inp.origin[b:b + 2],
+            *args[3:]) for b in range(0, inp.slab.shape[0], 2)])
+
+    o_k, o_p = cuda_hard.hard_k1(*args), plain()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(o_k, o_p))
+    live_px = int((o_p[:, :, 6] > 0).sum())
+    print(f"[coco] hard_k1 at the chunk slab {tuple(inp.slab.shape)} "
+          f"({int(inp.count.sum())} live slots, {live_px} covered pixels): "
+          f"all 8 rows equal to plain: {same}", flush=True)
+    if not same:
+        raise AssertionError("hard_k1 (COCO chunk) disagrees with its plain "
+                             "version")
+    rec = {"shape": list(inp.slab.shape), "live": int(inp.count.sum()),
+           "max_count": int(inp.count.max()), "max_abs_err": 0.0,
+           "ms": time_ms(lambda: cuda_hard.hard_k1(*args)),
+           "device_ms": device_ms(lambda: cuda_hard.hard_k1(*args),
+                                  "hard_k1_kernel"),
+           "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+           **hard_bound(inp.slab, inp.count, inp.origin, 8, OPS_HARD_K1,
+                        st.bin_size, inp.inv_s, st.blur_radius)}
+    print(f"[coco] hard_k1 (COCO chunk) ({card}): {rec}", flush=True)
+    return rec
+
+
+def coco_texture_args(gen, batched, R, t, lights, f2o) -> tuple:
+    """The texture sampler's operands in the chunk's shading (one
+    TexturesUV.sample call)."""
+    from torch_renderer_tpu_torch.structures import textures
+
+    seen, saved = [], textures.sample_bilinear
+
+    def spy(*a):
+        seen.append(tuple(x.detach() for x in a))
+        return saved(*a)
+
+    textures.sample_bilinear = spy
+    try:
+        gen._render_views(batched, R, t, lights, f2o)
+    finally:
+        textures.sample_bilinear = saved
+    if len(seen) != 1:
+        raise AssertionError(f"a textured chunk sampled {len(seen)} times")
+    return seen[0]
+
+
+def canny_check(rgb, card: str) -> dict:
+    """canny_edges on the card against the same call on the CPU for one
+    chunk's rgb * 255 (low threshold 20, as the generator calls it):
+    grad_magnitude within CANNY_TOL of its largest; thresholded's edge
+    mask equal, and its values within that tolerance, except at pixels
+    where a comparison it makes is within that of its threshold: the
+    magnitude against the threshold or against a neighbour, or the
+    orientation on a rounding boundary (counted)."""
+    from torch_renderer_tpu_torch.ops.canny import canny_edges
+
+    x = rgb * 255.0
+    g = canny_edges(x, low_threshold=20.0)
+    c = canny_edges(x.cpu(), low_threshold=20.0)
+    mag, cmag = g.grad_magnitude.cpu(), c.grad_magnitude
+    tol = CANNY_TOL * float(cmag.abs().max())
+    err = float((mag - cmag).abs().max())
+    p = torch.nn.functional.pad(cmag, (1, 1, 1, 1), value=-1e9)
+    H, W = cmag.shape[1:]
+    tie = torch.zeros_like(cmag, dtype=torch.bool)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                tie |= (cmag - p[:, 1 + dy:1 + dy + H,
+                                 1 + dx:1 + dx + W]).abs() <= tol
+    # a neighbour tie matters only where the magnitude clears the threshold
+    near = ((cmag - 20.0).abs() <= tol) | (tie & (cmag > 20.0 - tol)) \
+        | (g.grad_orientation.cpu() != c.grad_orientation)
+    thr, cthr = g.thresholded.cpu(), c.thresholded
+    diff = (thr > 0) != (cthr > 0)
+    far = int((diff & ~near).sum())
+    val_err = float(((thr - cthr).abs() * ~near).max())
+    rec = {"shape": list(x.shape), "grad_err": err, "tol": tol,
+           "thresholded_err": val_err,
+           "edge_mask_diff_px": int(diff.sum()),
+           "near_threshold_px": int(near.sum()), "diff_outside": far,
+           "edge_px": int((c.thresholded > 0).sum()),
+           "ms": time_ms(lambda: canny_edges(x, low_threshold=20.0))}
+    print(f"[coco] canny on the card vs the CPU, one chunk: {rec} ({card})",
+          flush=True)
+    if not err <= tol or far or not val_err <= tol:
+        raise AssertionError("canny_edges on the card disagrees with the CPU")
+    return rec
+
+
+def settle_check(device, card: str) -> dict:
+    """The settle sim captured (replays of a StepGraph) against eager on
+    one scene's drop, in the order captured, captured, eager, eager, one
+    Settler for each form: R and t within 1e-6, each form's second run
+    equal to its first, and no host read inside a replay
+    (set_sync_debug_mode "error" during the warm-up and from the first
+    replay on) nor anywhere in an eager settle (the same mode throughout)."""
+    from torch_renderer_tpu_torch.datagen import coco
+    from torch_renderer_tpu_torch.datagen.physics import Settler, drop_poses
+
+    gen = coco.COCODataGenerator(
+        coco.ObjectLibrary.primitives(),
+        coco.DataGenConfig(placement_mode="physics"), device=device)
+    n_max = gen.config.objects_per_scene[1]
+    picks = [0, 1, 2, 1, 0]
+    pts = np.stack([gen._proxies[j][0] for j in picks])
+    radii = np.array([gen._proxies[j][2] for j in picks], np.float32)
+    xy = np.array([[0, 0], [0.25, 0.05], [-0.2, 0.2], [0.1, -0.28],
+                   [-0.3, -0.2]], np.float32)
+    p0, q0 = drop_poses(np.random.default_rng(COCO_SEED), n_max, xy, radii)
+    active = np.array([1, 1, 1, 1, 0], np.float32)
+    inputs = [torch.as_tensor(a, device=device)
+              for a in (pts, radii, p0, q0, active)]
+    sims, out, secs = {}, {}, {}
+    for form in ("captured", "captured_2", "eager", "eager_2"):
+        kind = form.split("_")[0]
+        captured = kind == "captured"
+        if kind not in sims:
+            sims[kind] = Settler(n_max, pts.shape[1], gen._settle_cfg,
+                                 device, capture=captured)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (replays_without_sync() if captured
+              else host_reads_raise()) as n:
+            R, tt, res = sims[kind].settle(*inputs)
+        torch.cuda.synchronize()
+        secs[form] = time.perf_counter() - t0
+        out[form] = (R, tt, float(res), n[0])
+    err = max(float((out["captured"][i] - out["eager"][i]).abs().max())
+              for i in (0, 1))
+    again = max(float((out[f"{f}_2"][i] - out[f][i]).abs().max())
+                for f in ("eager", "captured") for i in (0, 1))
+    replays = [out[f][3] for f in ("captured", "captured_2")]
+    t = out["eager"][1].cpu().numpy()
+    rec = {"bodies": n_max, "steps": gen._settle_cfg.sim_steps,
+           "steps_per_replay": sims["captured"].unroll,
+           "replays": replays, "max_abs_err": err, "repeat_err": again,
+           "residual": out["eager"][2], "seconds": secs,
+           "min_z": float(t[:4, 2].min())}
+    print(f"[coco] settle captured vs eager: {rec} ({card})", flush=True)
+    want = gen._settle_cfg.sim_steps // sims["captured"].unroll
+    if not err <= 1e-6 or again != 0.0 or not np.isfinite(t).all() \
+            or replays != [want - 1, want]:
+        raise AssertionError("the captured settle disagrees with eager")
+    return rec
+
+
+def coco_phase(device, card: str) -> dict:
+    """K: the COCO data generator through the app's main() at its defaults
+    (4 scenes x 25 views at 480x640) and at --material-mode texture --room
+    --placement physics --edge-maps --min-visible-px 200 (2 scenes), both
+    counted; a scene's profile (busy share, kernels and device ms of one
+    chunk); #7, #11, #13 and #14 at the chunk of a textured room scene
+    against their plain versions; the settle sim captured against eager;
+    Canny on the card against the CPU."""
+    import shutil
+
+    from torch_renderer_tpu_torch.io import native
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        set_budget_check_default,
+    )
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+    from torch_renderer_tpu_torch.shading.phong import hard_phong_shader
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "coco_smoke")
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"[coco] native library (g++): {lib} in "
+          f"{time.perf_counter() - t0:.2f} s (None: the pure-Python "
+          "fallbacks run)", flush=True)
+    out = {"native": lib is not None}
+    try:
+        out["defaults"] = coco_app_run("app defaults", [], out_dir, card)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        out["textured"] = coco_app_run(
+            "textured room, physics, edges", [
+                "--material-mode", "texture", "--room", "--placement",
+                "physics", "--edge-maps", "--min-visible-px", "200",
+                "--scenes", "2"], out_dir, card)
+        if out["textured"]["launches"]["texsample_fwd"] < 1:
+            raise AssertionError("the textured run launched no texsample_fwd")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    set_budget_check_default(None)
+
+    # one scene of the app's defaults, profiled
+    gen, scene, rng = coco_scene(device)
+    gen.render_scene(scene, np.random.default_rng(1))     # warm
+    out["scene_profile"] = _busy_share(
+        lambda: gen.render_scene(scene, np.random.default_rng(1)), 1, top=8,
+        named=("hard_k1_kernel", "gather_fwd_kernel", "untile_kernel",
+               "texsample_fwd"))
+    print(f"[coco] one scene of the defaults (25 views), profiled: "
+          f"{out['scene_profile']} ({card})", flush=True)
+
+    # a textured room scene: one chunk and its kernels
+    gen, scene, rng = coco_scene(device, material_mode="texture", room=True,
+                                 min_visible_px=200, edge_maps=True)
+    batched, R, t, lights = coco_chunk_inputs(gen, scene, rng)
+    f2o = scene.face_to_object
+    chunk = kernel_counts(lambda: gen._render_views(batched, R, t, lights,
+                                                    f2o))
+    chunk_ms = device_ms(lambda: gen._render_views(batched, R, t, lights,
+                                                   f2o), None, reps=5)
+    out["chunk"] = {"ours": chunk["ours"], "kernels": sum(
+        chunk["all"].values()), "device_ms": chunk_ms,
+        "ms": time_ms(lambda: gen._render_views(batched, R, t, lights, f2o),
+                      reps=5),
+        "top": dict(chunk["all"].most_common(8)),
+        "max_faces_per_bin": gen._mfb, "vis_max_faces_per_bin": gen._vis_mfb}
+    print(f"[coco] one chunk (8 views, textured room, edges): "
+          f"{out['chunk']} ({card})", flush=True)
+    want = {"hard_k1": 1, "gather_tiles_fwd": 1, "untile_scatter": 1,
+            "texsample_fwd": 1}
+    if any(chunk["ours"][k] != v for k, v in want.items()):
+        raise AssertionError(f"a chunk's kernels {chunk['ours']}")
+    st = gen.renderer.settings
+    with torch.no_grad():
+        fd = setup_face_planes(batched, gen.renderer.camera_with_pose(R, t))
+        inp = cuda_hard.binned_inputs(fd, st)
+        out["hard_k1"] = coco_hard_k1(inp, st, card)
+        out["gather"] = gather_check("coco chunk", *_slab_gather_inputs(inp),
+                                     card, bwd=False)
+        bins, fields = cuda_hard.binned_tile_fields(fd, st)
+    out["untile"], _ = untile_check("coco chunk", bins, fields, COCO_SIZE,
+                                    COCO_TILE, card)
+    del fields, inp
+    args = coco_texture_args(gen, batched, R, t, lights, f2o)
+    gcot = torch.randn(args[1].shape + (args[0].shape[-1],),
+                       generator=torch.Generator(device=device).manual_seed(3),
+                       device=device)
+    out["tex"] = tex_check("coco chunk", args, gcot, card)
+    with torch.no_grad():
+        frags, cam = gen.renderer.rasterize(batched, R, t)
+        rgb = hard_phong_shader(batched, frags, cam, lights,
+                                gen.renderer.materials,
+                                gen.renderer.blend)[..., :3]
+        out["canny"] = canny_check(rgb, card)
+    del frags, rgb
+    out["settle"] = settle_check(device, card)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -3178,6 +3589,7 @@ def main() -> None:
     captured = captured_phase(device, card)
     apps = depth_apps_phase(device, card)
     reg = registration_phase(device, card)
+    cocok = coco_phase(device, card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -3388,6 +3800,55 @@ def main() -> None:
              "bound_by", "library_ms", "library_device_ms", "shape",
              "rotation_err_vs_library", "s_err_vs_library")},
          "ptxas": ptxas.get("svd3_kernel")})
+    byname = {k["name"]: k for k in kernels}
+    runs = ("defaults", "textured")
+
+    def coco_launches(name):
+        return {r: cocok[r]["launches"][name] for r in runs}
+
+    def pick(rec, keys):
+        return {k: rec[k] for k in keys}
+
+    hk = cocok["hard_k1"]
+    byname["hard_k1"]["coco_chunk"] = {
+        **pick(hk, ("shape", "live", "max_count", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_every_pair_ms", "box_pairs", "pairs")),
+        "library_ms": None, "launches": coco_launches("hard_k1")}
+    gk = cocok["gather"]
+    byname["gather_tiles_fwd"]["coco_chunk"] = {
+        **pick(gk, ("shape", "live", "rows", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")),
+        "launches": coco_launches("gather_tiles_fwd")}
+    uk = cocok["untile"]
+    byname["untile_scatter"]["coco_chunk"] = {
+        **pick(uk, ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")),
+        "max_abs_err": 0.0, "per_call_of": "the 4 fields of one 8-view "
+        "480x640 chunk", "launches": coco_launches("untile_scatter")}
+    tk = cocok["tex"]
+    byname["texsample_fwd"]["coco_chunk"] = {
+        "shape": tk["shape"], "map_batch_stride": tk["map_batch_stride"],
+        "live_points": tk["live_points"], "texels": tk["texels"],
+        "max_abs_err": tk["fwd_err"], "ms": tk["times"]["fwd"],
+        "device_ms": tk["times"]["fwd_device"],
+        "plain_ms": tk["times"]["fwd_plain"],
+        "bound_ms": tk["bound_fwd"]["bound_ms"],
+        "bound_by": tk["bound_fwd"]["bound_by"],
+        "library_ms": tk["times"]["fwd_library"],
+        "library_device_ms": tk["times"]["fwd_library_device"],
+        "launches": coco_launches("texsample_fwd")}
+    d, tx = cocok["defaults"], cocok["textured"]
+    print(f"coco data generator ({card}): defaults {d['images']} images in "
+          f"{d['seconds']:.2f} s = {d['images_per_s']:.1f} images/s, "
+          f"{d['s_per_scene']:.3f} s a scene, {d['annotations']} "
+          f"annotations, peak {d['peak_gb']:.3f} GiB; textured room "
+          f"{tx['images']} images, {tx['images_per_s']:.1f} images/s, "
+          f"{tx['s_per_scene']:.3f} s a scene, {tx['annotations']} "
+          f"annotations (min area {tx['min_area']}), peak "
+          f"{tx['peak_gb']:.3f} GiB; a scene's busy share "
+          f"{cocok['scene_profile']['busy_share']:.3f}", flush=True)
     app = batch["app"]
     print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
           f"batched, {app['serial_images_per_s']:.1f} serial; one call "
@@ -3419,7 +3880,8 @@ def main() -> None:
                        for f in ("captured", "eager"))
           + " steps/s (captured / eager, events)", flush=True)
     print(json.dumps({"captured": captured, "depth_apps": apps,
-                      "registration": reg}, default=float), flush=True)
+                      "registration": reg, "coco": cocok}, default=float),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1286,3 +1286,121 @@ def test_captured_fd_fit_matches_eager(device):
     torch.testing.assert_close(pc, pe, rtol=0, atol=1e-6)
     torch.testing.assert_close(hc["loss"], he["loss"], rtol=0, atol=1e-6)
     assert float(he["loss"][-1]) < float(fitter.loss(start, meshes, ref))
+
+
+# -- the COCO data generator (datagen/) ---------------------------------------
+
+def _coco_generator(device, **kw):
+    from torch_renderer_tpu_torch.datagen import coco
+
+    cfg = coco.DataGenConfig(image_size=(96, 128), views_per_scene=4,
+                             view_chunk=2, **kw)
+    return coco.COCODataGenerator(coco.ObjectLibrary.primitives(), cfg,
+                                  device=device)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(material_mode="texture",
+                                             room=True, edge_maps=True)])
+def test_coco_scene_on_card_matches_cpu(device, kw):
+    """One scene through the generator on the card and on the CPU (the
+    kernels' plain versions), from one seed: the same draws; seg equal
+    except on under 0.1% of covered pixels (the card's face setup rounds
+    otherwise, which can flip a selection-depth tie); rgb within 1 level,
+    depth within 1 mm, normals within 1 where seg agrees; one hard_k1,
+    gather and untile launch a chunk."""
+    from torch_renderer_tpu_torch.rasterize import cuda_hard, cuda_untile
+
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        gen = _coco_generator(dev, **kw)
+        rng = np.random.default_rng(3)
+        scene, poses = gen.sample_scene(rng)
+        before = (cuda_hard.HARD_LAUNCHES, cuda_untile.UNTILE_LAUNCHES)
+        outs[dev.type] = (gen.render_scene(scene, rng), poses, rng.uniform())
+        if dev.type == "cuda":
+            assert (cuda_hard.HARD_LAUNCHES - before[0],
+                    cuda_untile.UNTILE_LAUNCHES - before[1]) == (2, 2)
+    (g, gp, gn), (c, cp, cn) = outs["cuda"], outs["cpu"]
+    assert gn == cn and [p["category_id"] for p in gp] == \
+        [p["category_id"] for p in cp]
+    same = g["segmentation"] == c["segmentation"]
+    covered = int((c["segmentation"] != 255).sum())
+    assert (~same).sum() <= 1e-3 * covered
+    i = lambda a: a.astype(np.int64)  # noqa: E731
+    assert np.abs(i(g["rgb"]) - i(c["rgb"]))[same].max() <= 1
+    assert np.abs(i(g["depth"]) - i(c["depth"]))[same].max() <= 1
+    assert np.abs(i(g["normals"]) - i(c["normals"]))[same].max() <= 1
+
+
+def test_coco_room_chunk_hard_k1_matches_plain(device):
+    """hard_k1 at a textured room chunk whose bin budget exceeds 128 slots
+    (the kernel streams them in chunks of 128) equals its plain version
+    in all 8 rows."""
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+
+    gen = _coco_generator(device, material_mode="texture", room=True)
+    rng = np.random.default_rng(0)
+    scene, _ = gen.sample_scene(rng)
+    Rs, ts = gen._sample_view_poses(rng, 4, gen._object_centers(scene))
+    gen._ensure_bin_capacity(scene.meshes.extend(4), Rs, ts)
+    st = gen.renderer.settings
+    fd = setup_face_planes(scene.meshes.extend(4),
+                           gen.renderer.camera_with_pose(Rs, ts))
+    inp = cuda_hard.binned_inputs(fd, st)
+    assert int(inp.count.max()) > 128
+    args = (inp.slab, inp.count, inp.origin, st.bin_size, inp.inv_s,
+            st.blur_radius, st.znear, st.clip_bary)
+    assert torch.equal(cuda_hard.hard_k1(*args),
+                       cuda_hard.hard_k1_reference(*args))
+
+
+def test_captured_settle_matches_eager(device):
+    from torch_renderer_tpu_torch.datagen import physics as phys
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+
+    sv, _ = icosphere(2)
+    pts, _, r = phys.collision_proxies(sv * 0.12)
+    xy = np.float32([[0, 0], [0.05, 0.01], [-0.2, 0.1]])
+    p0, q0 = phys.drop_poses(np.random.default_rng(0), 3, xy,
+                             np.float32([r] * 3))
+    args = (np.stack([pts] * 3), np.float32([r] * 3), p0, q0,
+            np.float32([1, 1, 0]))
+    cfg = phys.SettleConfig(sim_steps=300, extent=0.47)
+    Rc, tc, _ = phys.settle_poses(*args, cfg, device=device, capture=True)
+    Re, te, _ = phys.settle_poses(*args, cfg, device=device, capture=False)
+    torch.testing.assert_close(Rc, Re, rtol=0, atol=1e-6)
+    torch.testing.assert_close(tc, te, rtol=0, atol=1e-6)
+    Rh, th, _ = phys.settle_poses(*args, cfg, device="cpu")
+    torch.testing.assert_close(te.cpu(), th, rtol=0, atol=1e-4)
+
+
+def test_canny_on_card_matches_cpu(device):
+    from torch_renderer_tpu_torch.ops.canny import canny_edges
+
+    x = torch.rand((2, 48, 64, 3),
+                   generator=torch.Generator().manual_seed(0)) * 255.0
+    g = canny_edges(x.to(device), low_threshold=20.0)
+    c = canny_edges(x, low_threshold=20.0)
+    tol = 1e-4 * float(c.grad_magnitude.max())
+    torch.testing.assert_close(g.grad_magnitude.cpu(), c.grad_magnitude,
+                               rtol=0, atol=tol)
+    torch.testing.assert_close(g.blurred.cpu(), c.blurred, rtol=0,
+                               atol=1e-3)
+    # the edge mask may differ only where a comparison Canny makes sits
+    # within tol: the magnitude against the threshold or against a
+    # neighbour it clears, or the orientation on a rounding boundary
+    cmag = c.grad_magnitude
+    H, W = cmag.shape[1:]
+    p = torch.nn.functional.pad(cmag, (1, 1, 1, 1), value=-1e9)
+    tie = torch.zeros_like(cmag, dtype=torch.bool)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                tie |= (cmag - p[:, 1 + dy:1 + dy + H,
+                                 1 + dx:1 + dx + W]).abs() <= tol
+    near = ((cmag - 20.0).abs() <= tol) | (tie & (cmag > 20.0 - tol)) \
+        | (g.grad_orientation.cpu() != c.grad_orientation)
+    thr, cthr = g.thresholded.cpu(), c.thresholded
+    assert not (((thr > 0) != (cthr > 0)) & ~near).any()
+    torch.testing.assert_close(thr[~near], cthr[~near], rtol=0, atol=tol)

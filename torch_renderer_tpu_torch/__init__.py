@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Six slices are ported:
+Seven slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning (in raster or count order), the
@@ -28,7 +28,13 @@ Six slices are ported:
     (opt.registration), the diagonal GMM (ops.gmm) and the chamfer-scored
     GMM pose search with its loss landscape (opt.pose_search), the
     finite-difference depth pose fit (opt.pose_fit_fd), the rest of
-    transforms.so3, and the model registry (models.MODEL_FAMILIES).
+    transforms.so3, and the model registry (models.MODEL_FAMILIES);
+  * data generation (apps/coco_data_generator.py): multi-object scenes
+    (structures.scenes), the G-buffer decodes (shading.gbuffer), Canny
+    edges (ops.canny), procedural textures (datagen.texgen), the rigid-body
+    settle (datagen.physics), the COCO generator (datagen.coco), the native
+    host runtime (io.native: OBJ parsing, RLE, PNG; built by g++ into
+    build/native/), PLY IO, the color transfer and the two-phase creator.
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
@@ -47,8 +53,12 @@ from .cameras.perspective import (
     pose_opencv_to_pytorch3d,
     pose_pytorch3d_to_opencv,
 )
+from .datagen.coco import COCODataGenerator, DataGenConfig, ObjectLibrary
 from .ops.icosphere import icosphere
 from .io.obj import load_obj, load_objs_as_meshes, save_obj
+from .io.ply import load_ply, save_ply
+from .ops.canny import CannyOutputs, canny_edges
+from .ops.color_transfer import query_vertex_colors
 from .ops.icp import ICPSolution, SimilarityTransform, iterative_closest_point
 from .ops.knn_chamfer import chamfer_distance, knn_points
 from .ops.mesh_losses import (
@@ -65,6 +75,7 @@ from .opt.deform import (
     VertexColorFitter,
 )
 from .opt.deform_color import JointFitConfig, JointShapeTextureFitter
+from .opt.creator import CreatorConfig, TwoPhaseCreator
 from .opt.pose_fit_fd import FDPoseFitConfig, FiniteDifferencePoseFitter
 from .opt.pose_search import GMMPoseSearch, PoseSearchConfig
 from .opt.registration import RegisterDataConfig, register_batch
@@ -116,9 +127,16 @@ from .renderer import (
     SilhouetteRender,
 )
 from .shading.blending import BlendParams, sigmoid_alpha, softmax_rgb_blend
+from .shading.gbuffer import (
+    instance_masks,
+    instance_segmentation,
+    render_normals,
+    visibility_fraction,
+)
 from .shading.lights import DirectionalLights, Materials, PointLights
 from .structures.meshes import Meshes
 from .structures.pointclouds import Pointclouds
+from .structures.scenes import SceneMeshes, merge_meshes
 from .structures.textures import (
     TexturesUV,
     TexturesVertex,
@@ -126,14 +144,18 @@ from .structures.textures import (
 )
 from .utils.timing import StageTimer, TimingResult, profiler_trace, time_fn
 
-from . import models, opt  # noqa: E402,F401 namespaces
+from . import datagen, io, models, opt  # noqa: E402,F401 namespaces
 
 __all__ = [
     "AlphaPointRender",
     "BlendParams",
+    "COCODataGenerator",
     "CameraPoseFitter",
+    "CannyOutputs",
     "ColorFitConfig",
     "ColorRender",
+    "CreatorConfig",
+    "DataGenConfig",
     "DeformConfig",
     "DepthPointRender",
     "DepthPoseFitter",
@@ -153,6 +175,7 @@ __all__ = [
     "MeshRenderer",
     "Meshes",
     "NormPointRender",
+    "ObjectLibrary",
     "ObjectPoseFitter",
     "PerspectiveCamera",
     "PointFragments",
@@ -167,6 +190,7 @@ __all__ = [
     "RasterizationSettings",
     "RegisterDataConfig",
     "RenderOutputs",
+    "SceneMeshes",
     "SilhouetteRender",
     "SimilarityTransform",
     "SoftKernelConfig",
@@ -174,20 +198,26 @@ __all__ = [
     "TexturesUV",
     "TexturesVertex",
     "TimingResult",
+    "TwoPhaseCreator",
     "VertexColorFitter",
     "build_topology",
     "camera_position_from_spherical_angles",
+    "canny_edges",
     "chamfer_distance",
     "gather_tiles",
     "icosphere",
+    "instance_masks",
+    "instance_segmentation",
     "interpolate_face_attributes",
     "iterative_closest_point",
     "knn_points",
     "load_obj",
     "load_objs_as_meshes",
+    "load_ply",
     "look_at_opencv",
     "look_at_rotation_opencv",
     "look_at_view_transform",
+    "merge_meshes",
     "mesh_edge_loss",
     "mesh_laplacian_smoothing",
     "mesh_normal_consistency",
@@ -196,12 +226,15 @@ __all__ = [
     "pose_params_to_Rt",
     "pose_pytorch3d_to_opencv",
     "profiler_trace",
+    "query_vertex_colors",
     "rasterize_face_data",
     "rasterize_meshes",
     "rasterize_points",
     "register_batch",
+    "render_normals",
     "sample_points_from_meshes",
     "save_obj",
+    "save_ply",
     "setup_face_planes",
     "setup_faces",
     "sigmoid_alpha",
@@ -215,4 +248,5 @@ __all__ = [
     "tile_slot_table",
     "time_fn",
     "untile_scatter",
+    "visibility_fraction",
 ]

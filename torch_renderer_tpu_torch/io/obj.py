@@ -2,8 +2,9 @@
 ``torch_renderer_tpu.io.obj``; pytorch3d's load_obj, load_objs_as_meshes and
 save_obj), including an MTL's map_Kd texture image.
 
-The parser is pure Python; the JAX package's native fast path waits for the
-port's native loader. Texture images are read with PIL where it is
+The native C++ parser (io/native_obj.py, built at first use into
+build/native/) parses when it builds, the pure-Python parser otherwise.
+Texture images are read with PIL where it is
 importable (None otherwise); save_obj writes its PNG with io/png.py (zlib and
 struct from the standard library), so saving needs no imaging package.
 """
@@ -66,6 +67,11 @@ def _triangulate(idx: List[int]) -> List[Tuple[int, int, int]]:
 def load_obj(path: str, load_textures: bool = True) -> ObjData:
     """Parse an OBJ file (v / vt / vn / f with the v, v/t, v/t/n and v//n
     forms; polygons are fan-triangulated)."""
+    from . import native_obj
+
+    parsed = native_obj.parse_obj(path)
+    if parsed is not None:
+        return _attach_texture(ObjData(**parsed), path, load_textures)
     verts, uvs, normals = [], [], []
     faces_v, faces_t = [], []
     mtl_file = None

@@ -1,8 +1,7 @@
 """The fitting loops (counterpart of ``torch_renderer_tpu.opt``): the pose
 fits, the finite-difference pose fit, the deformation and vertex-color
-fits, the joint shape + texture fit, ICP registration and the GMM pose
-search. ``opt/creator.py`` (TwoPhaseCreator) is not ported yet (ROADMAP
-Queue 1 item 17)."""
+fits, the joint shape + texture fit, ICP registration, the GMM pose
+search and the two-phase creator."""
 
 from .deform import (
     ColorFitConfig,
@@ -25,6 +24,7 @@ from .registration import (
     icp_cpu_reference,
     register_batch,
 )
+from .creator import CreatorConfig, TwoPhaseCreator
 from .pose_fit_fd import (
     FDPoseFitConfig,
     FiniteDifferencePoseFitter,

@@ -21,11 +21,32 @@ import torch
 from ..cameras.perspective import PerspectiveCamera
 from ..rasterize.fragments import Fragments, interpolate_face_attributes
 from ..structures.meshes import Meshes
-from ..structures.textures import TexturesUV, TexturesVertex
+from ..structures.textures import TexturesUV, TexturesVertex, _gather_rows
 from .blending import BlendParams, hard_rgb_blend, softmax_rgb_blend
 from .lights import DirectionalLights, Materials, PointLights
 
 Lights = Union[PointLights, DirectionalLights]
+
+
+def face_shading_attrs(meshes: Meshes, with_points: bool = True) -> dict:
+    """Per-face-corner attribute channels that Phong shading interpolates:
+    {name: (B, F, 3, C)}: "pts_normals" (world corners and vertex normals,
+    C = 6) or, with_points=False, "normals" alone; plus "uv" (TexturesUV)
+    or "tex" (TexturesVertex). The JAX package pre-gathers these per tile
+    for its bin-local shading; the port shades by one global gather and
+    does not route them anywhere."""
+    fv_normals = _gather_rows(meshes.vertex_normals(), meshes.faces)
+    if with_points:
+        out = {"pts_normals": torch.cat([meshes.face_verts(), fv_normals],
+                                        dim=-1)}
+    else:
+        out = {"normals": fv_normals}
+    tex = meshes.textures
+    if isinstance(tex, TexturesUV):
+        out["uv"] = tex.face_uvs()
+    elif isinstance(tex, TexturesVertex):
+        out["tex"] = tex.face_features(meshes.faces)
+    return out
 
 
 def sample_textures(meshes: Meshes, fragments: Fragments) -> torch.Tensor:

@@ -45,16 +45,19 @@ class Meshes:
     # -- constructors ------------------------------------------------------
     @staticmethod
     def from_lists(verts_list: Sequence, faces_list: Sequence,
-                   device=None, textures: Optional[Textures] = None
-                   ) -> "Meshes":
+                   device=None, textures: Optional[Textures] = None,
+                   pad_verts_to: Optional[int] = None,
+                   pad_faces_to: Optional[int] = None) -> "Meshes":
         """Build a padded batch from ragged per-mesh (Vi, 3)/(Fi, 3) arrays
         on ``device`` (default: the card, see _device.resolve_device), with
-        optional textures (moved to that device)."""
+        optional textures (moved to that device). pad_verts_to /
+        pad_faces_to fix the padded sizes (a static shape for every scene
+        of a generator) in place of the largest mesh's."""
         device = resolve_device(device)
         verts_np = [np.asarray(v, np.float32) for v in verts_list]
         faces_np = [np.asarray(f, np.int64) for f in faces_list]
-        V = max(v.shape[0] for v in verts_np)
-        F = max(f.shape[0] for f in faces_np)
+        V = pad_verts_to or max(v.shape[0] for v in verts_np)
+        F = pad_faces_to or max(f.shape[0] for f in faces_np)
         return Meshes(
             verts=torch.as_tensor(np.stack([_pad_to(v, V) for v in verts_np]),
                                   device=device),
