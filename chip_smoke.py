@@ -200,6 +200,33 @@ Drives, through the port's public entry points:
      native library (native/*.cpp) is built by g++ into build/native/ and
      the run says whether it loaded; the app writes into build/coco_smoke/,
      removed afterwards.
+  L. the multi-card layer (parallel/), new in the slice that ported it,
+     through parallel.launch.run_ranks: NCCL with one rank a card over 4
+     cards (2 with 2 or 3), or two gloo ranks on cuda:0 with one card
+     (their times are a correctness run's, not scaling). On every rank: the face-sharded soft silhouette at the
+     bench's scale (impl "pallas", faces split over a (1, 2) or (2, 2)
+     mesh), alpha and the vertex gradient of its sum, exactly one
+     soft_coverage_fwd, soft_coverage_bwd, gather_tiles_fwd and
+     gather_tiles_bwd launch a call; one pass of the bench twin's
+     multi-card branch (B=8 a rank, captured per rank); then over a
+     (ranks, 1) mesh: register_batch_sharded at the app's size (300 x 500,
+     100 iterations; svd3 launched), search and search_batch with a
+     device_mesh at the pose_search app's defaults, render_points_sharded
+     at the point bench scene (one points_select and one gather_tiles_fwd
+     launch a call), the coco_data_generator app with the mesh at its
+     defaults for 2 scenes (one hard_k1, gather_tiles_fwd and
+     untile_scatter launch a chunk of 8 views on every rank; rank 0
+     writes every image) and one scene's packed outputs, and
+     data_parallel_fit (4 views at 128^2, 50 iterations; topk_select
+     launched). Rank 0 also runs each path on one rank and holds: alpha
+     within 2e-4 and the gradient within 1e-3 of its largest, ICP and the
+     searches within 1e-5, the point render within 1e-5, the COCO outputs
+     and annotations equal, the fit's first iteration within 1e-5 of the
+     single-rank fit's and its history within 2e-3 (two single-rank fits
+     on the card differ by up to 6.5e-4: float32 atomics), its loss
+     falling. Each sharded call is timed by CUDA events on every rank.
+     The kernels line gains a "sharded" key on each kernel launched here:
+     its launches on every rank, by path.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -2245,7 +2272,7 @@ def batch_phase(device, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    app = batch_render_bench.main([])
+    app = batch_render_bench.main(["--cards", "1"])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     counts = read_counts()
@@ -3534,6 +3561,516 @@ def coco_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# L. the multi-card layer (parallel/): one process per card
+# ---------------------------------------------------------------------------
+
+MC_FIT_ITERS = 50        # data_parallel_fit's iterations
+# A fit on the card is not repeatable bit for bit: float32 atomics in its
+# backward (autograd's scatter-adds, the gather backward kernel) add in an
+# order that changes from run to run. Two single-rank fits of 50
+# iterations part by 1.6e-4 to 6.5e-4 in their metrics (iou the most); so
+# the data-parallel fit's first iteration, which no update has touched yet,
+# is held to its single-rank twin within MC_FIT_FIRST_TOL, and its whole
+# history within MC_FIT_HISTORY_TOL, about three times that spread.
+MC_FIT_FIRST_TOL = 1e-5
+MC_FIT_HISTORY_TOL = 2e-3
+MC_FIT_BATCH = 4         # its views (one pose each), split over the ranks
+MC_SEARCH_TARGETS = 3    # search_batch's targets (uneven over 2 or 4 ranks)
+MC_REPS = 10             # timed calls of a sharded path
+# make_sharded_pose_step: B views of the level-2 icosphere at 128^2 (the
+# streaming coverage sum, as the JAX step), MC_STEPS Adam steps at lr
+# MC_STEP_LR in its default form (captured under NCCL) and eagerly. As in
+# phase H's fits, float32 atomics in the backward part the two forms'
+# gradients in their last bits and Adam turns that into up to a fraction
+# of lr on a near-zero component: the first two losses are held within
+# 1e-4 and the parameters within MC_STEP_PARAMS_TOL x lr.
+MC_STEPS = 6
+MC_STEP_BATCH = 2
+MC_STEP_IMAGE = 128
+MC_STEP_LR = 5e-3
+MC_STEP_PARAMS_TOL = 0.25
+
+
+def multicard_form() -> tuple:
+    """(backend, ranks): NCCL with one rank a card over 4 cards (2 where
+    there are 2 or 3); two gloo ranks on cuda:0 with one card."""
+    from torch_renderer_tpu_torch.parallel.launch import default_backend
+
+    world = 4 if torch.cuda.device_count() >= 4 else 2
+    return default_backend(world), world
+
+
+def _counted(fn):
+    """(fn()'s result, the wrapper counts of that call alone)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def mc_silhouette(mesh, device, rank: int) -> dict:
+    """The face-sharded soft silhouette at the bench's scale (impl
+    "pallas": each rank's face slice through the soft pair and the gather
+    pair), alpha and the vertex gradient of its sum; rank 0 also the
+    single-rank kernel route on the whole scene."""
+    from torch_renderer_tpu_torch import bench
+    from torch_renderer_tpu_torch.parallel import soft_silhouette_sharded
+    from torch_renderer_tpu_torch.rasterize import cuda_soft
+    from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+
+    meshes, cam = bench.scene(B, IMAGE, LEVEL, device)
+    with torch.no_grad():
+        fpt = cuda_soft.suggest_faces_per_tile(
+            setup_face_planes(meshes, cam), cam.image_size, sigma=SIGMA)
+
+    def grad_of(render):
+        v = meshes.verts.detach().clone().requires_grad_(True)
+        alpha = render(meshes.update_padded(v))
+        (g,) = torch.autograd.grad(alpha.sum(), v)
+        return alpha.detach(), g
+
+    def sharded():
+        return grad_of(lambda m: soft_silhouette_sharded(
+            m, cam, mesh, sigma=SIGMA, impl="pallas", faces_per_tile=fpt))
+
+    sharded()
+    (alpha, g), counts = _counted(sharded)
+    out = {"counts": counts, "faces_per_tile": fpt,
+           "ms": time_ms(sharded, MC_REPS)}
+    if rank == 0:
+        def single():
+            return grad_of(lambda m: cuda_soft.soft_silhouette_fd(
+                setup_face_planes(m, cam), cam.image_size, sigma=SIGMA,
+                faces_per_tile=fpt))
+
+        alpha1, g1 = single()
+        out.update(alpha_err=_max_err(alpha, alpha1),
+                   grad_err=_max_err(g, g1),
+                   grad_max=float(g1.abs().max()),
+                   single_ms=time_ms(single, MC_REPS))
+    return out
+
+
+def mc_bench(device) -> dict:
+    """One pass of the bench twin's multi-card branch: B views a rank
+    (weak scaling), the step captured per rank, no collective in it."""
+    from torch_renderer_tpu_torch import bench
+    from torch_renderer_tpu_torch.parallel import data_mesh
+
+    meshes, cam, cfg = bench.sharded_scene(B, IMAGE, LEVEL, device,
+                                           data_mesh())
+    step, _ = bench.make_step(meshes, cam, cfg=cfg)
+    (rates, v), counts = _counted(lambda: bench.time_passes(
+        step, meshes.verts, B, STEPS, WARMUP, 1))
+    return {"img_s": rates[0], "finite": bool(torch.isfinite(v).all()),
+            "counts": counts}
+
+
+def mc_icp(mesh, device, rank: int) -> dict:
+    """register_batch_sharded at the app's size (300 objects of 500 points,
+    100 iterations; captured per rank); rank 0 also register_batch."""
+    from torch_renderer_tpu_torch.opt.registration import (
+        register_batch,
+        register_batch_sharded,
+    )
+
+    data = icp_data(device)
+
+    def sharded():
+        return register_batch_sharded(data, mesh, max_iterations=ICP_ITERS)
+
+    sol, counts = _counted(sharded)
+    out = {"counts": counts, "ms": time_ms(sharded, 3)}
+    if rank == 0:
+        plain = register_batch(data, max_iterations=ICP_ITERS)
+        out["err"] = max(_max_err(getattr(sol, n), getattr(plain, n))
+                         for n in ("rmse", "Xt", "t_history"))
+        out["err"] = max(out["err"], *(_max_err(a, b) for a, b in zip(
+            sol.RTs, plain.RTs)))
+        out["converged"] = int(sol.converged.sum())
+    return out
+
+
+def search_shifts(n: int, device) -> torch.Tensor:
+    """(n, 3) translations of search_batch's targets: 0, then steps of
+    (0.1, -0.05, 0.05) alternating in sign."""
+    k = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    sign = 1.0 - 2.0 * (k % 2)
+    return sign * k * torch.tensor([0.1, -0.05, 0.05], device=device)
+
+
+def mc_search(mesh, device, rank: int) -> dict:
+    """search (hypotheses split) and search_batch (MC_SEARCH_TARGETS
+    targets split, padded) with device_mesh at the pose_search app's
+    defaults (400 hypotheses, elite 100, 10 iterations, its lobed
+    500-point cloud); rank 0 also the unsplit calls, and each target of
+    the batch searched alone from the batch's draws (G=1: what a rank
+    holding one target runs), which must equal the batch's row bit for
+    bit."""
+    from torch_renderer_tpu_torch.apps import pose_search
+    from torch_renderer_tpu_torch.opt.pose_search import (
+        GMMPoseSearch,
+        PoseSearchConfig,
+    )
+    from torch_renderer_tpu_torch.transforms.so3 import transform_points
+
+    args = pose_search.parse_args([])
+    _, ref, _, _, target = pose_search.app_scene(args, device)
+    search = GMMPoseSearch(ref, PoseSearchConfig())
+    targets = torch.stack([
+        transform_points(torch.eye(3, device=device), s, target)
+        for s in search_shifts(MC_SEARCH_TARGETS, device)])
+
+    def calls(mesh_):
+        one = search.search(torch.Generator(device=device).manual_seed(7),
+                            target, device_mesh=mesh_)
+        many = search.search_batch(
+            torch.Generator(device=device).manual_seed(11), targets,
+            device_mesh=mesh_)
+        return one, many
+
+    (one, many), counts = _counted(lambda: calls(mesh))
+    out = {"counts": counts, "ms": time_ms(lambda: calls(mesh), 2),
+           "score": float(one["score"])}
+    if rank == 0:
+        p1, pm = calls(None)
+        out["err"] = max(_max_err(one[n], p1[n]) for n in (
+            "pose6d", "score", "best_history"))
+        out["batch_err"] = max(_max_err(many[n], pm[n]) for n in (
+            "pose6d", "score", "best_history"))
+        draws = search._draws(torch.Generator(device=device).manual_seed(11),
+                              MC_SEARCH_TARGETS)
+        masks = torch.ones(targets.shape[:2], device=device)
+        alone = [search._run_targets(targets, masks, draws, [g], None)
+                 for g in range(MC_SEARCH_TARGETS)]
+        out["alone_err"] = max(_max_err(a[n][0], pm[n][g])
+                               for g, a in enumerate(alone)
+                               for n in ("pose6d", "score", "best_history",
+                                         "final_elite"))
+        out["history_non_increasing"] = bool(
+            (one["best_history"][1:] <= one["best_history"][:-1]).all())
+    return out
+
+
+def mc_pose_step(mesh, device) -> dict:
+    """make_sharded_pose_step on the face mesh for MC_STEPS steps from a
+    shifted start toward the sharded silhouette of the bench's pose: in
+    its default form (captured under NCCL, eager under gloo) and with
+    capture=False; each step's loss and parameters."""
+    import torch.distributed as dist
+
+    from torch_renderer_tpu_torch import bench
+    from torch_renderer_tpu_torch.opt.pose_fit import pose_params_from_Rt
+    from torch_renderer_tpu_torch.parallel import (
+        make_sharded_pose_step,
+        soft_silhouette_sharded,
+    )
+
+    meshes, cam = bench.scene(MC_STEP_BATCH, MC_STEP_IMAGE, 2, device)
+    with torch.no_grad():
+        ref = soft_silhouette_sharded(meshes, cam, mesh, sigma=SIGMA)
+    R0 = torch.eye(3, device=device).expand(MC_STEP_BATCH, 3, 3)
+    t0 = torch.tensor([0.1, -0.05, 3.2], device=device).expand(
+        MC_STEP_BATCH, 3)
+
+    def run(capture):
+        step = make_sharded_pose_step(mesh, cam, MC_STEP_LR, sigma=SIGMA,
+                                      capture=capture)
+        params, state = pose_params_from_Rt(R0, t0, device), None
+        losses, trail = [], []
+        for _ in range(MC_STEPS):
+            params, state, loss = step(params, state, meshes, ref)
+            losses.append(loss)
+            trail.append(params)
+        torch.cuda.synchronize()
+        return torch.stack(losses), {k: torch.stack([p[k] for p in trail])
+                                     for k in params}
+
+    losses, trail = run(None)
+    eager, eager_trail = run(False)
+    return {"captured": dist.get_backend() == "nccl",
+            "losses": [float(x) for x in losses],
+            "loss_err": _max_err(losses[:2], eager[:2]),
+            "params_err": max(_max_err(trail[k], eager_trail[k])
+                              for k in trail)}
+
+
+def mc_pose_step_one_rank() -> dict:
+    """mc_pose_step on a (1, 1) mesh of this rank alone: with one card, a
+    world of one NCCL rank, the step captured with the gradients' NCCL
+    all_reduce inside (the mesh's axes of size 1 run no collective)."""
+    from torch_renderer_tpu_torch.parallel import make_mesh
+
+    return mc_pose_step(make_mesh((1, 1)),
+                        torch.device("cuda", torch.cuda.current_device()))
+
+
+def mc_points(mesh, device, rank: int) -> dict:
+    """render_points_sharded at scripts/bench_points.py's scene (4 clouds
+    of 20000 points, 256^2, radius 0.01, K=8, bin 16, auto budgets sized
+    from every rank's slice); rank 0 also the single-rank render."""
+    from torch_renderer_tpu_torch.parallel import render_points_sharded
+    from torch_renderer_tpu_torch.renderer import AlphaPointRender
+
+    cloud, K, R, t, _ = points_scene(device)
+    sharded_r = AlphaPointRender(K, (POINTS_IMAGE, POINTS_IMAGE),
+                                 radius=POINTS_RADIUS, points_per_pixel=8,
+                                 device=device)
+
+    def sharded():
+        with torch.no_grad():
+            return render_points_sharded(sharded_r, cloud, R, t, mesh)
+
+    sharded()
+    img, counts = _counted(sharded)
+    out = {"counts": counts, "ms": time_ms(sharded, MC_REPS)}
+    if rank == 0:
+        single_r = AlphaPointRender(K, (POINTS_IMAGE, POINTS_IMAGE),
+                                    radius=POINTS_RADIUS,
+                                    points_per_pixel=8, device=device)
+        with torch.no_grad():
+            out["err"] = _max_err(img, single_r.render(cloud, R, t))
+        out["coverage"] = float((img.abs().sum(-1) > 0).float().mean())
+    return out
+
+
+def mc_coco(mesh, device, rank: int, out_dir: str) -> dict:
+    """The coco_data_generator app with a device mesh at its defaults for
+    2 scenes (rank 0 writes; each chunk of 8 views split over the data
+    ranks), counted; one scene's packed outputs against the single-rank
+    generator's; rank 0 also the app unsplit, annotations equal."""
+    from torch_renderer_tpu_torch.apps import coco_data_generator as app
+    from torch_renderer_tpu_torch.datagen.coco import (
+        COCODataGenerator,
+        DataGenConfig,
+        ObjectLibrary,
+    )
+
+    argv = ["--scenes", "2", "--check-budgets", "off", "--out-dir"]
+    res, counts = _counted(lambda: app.run(
+        app.parse_args(argv + [os.path.join(out_dir, "sharded")]), mesh))
+    out = {"counts": counts, "images": res["images"],
+           "images_per_s": res["images_per_s"],
+           "annotations": res["annotations"],
+           "chunks": 2 * -(-DataGenConfig().views_per_scene // COCO_CHUNK)}
+
+    def one_scene(mesh_):
+        gen = COCODataGenerator(ObjectLibrary.primitives(), DataGenConfig(),
+                                device_mesh=mesh_, device=device)
+        scene, _ = gen.sample_scene(np.random.default_rng(9))
+        return gen.render_scene(scene, np.random.default_rng(3))
+
+    split = one_scene(mesh)
+    if rank == 0:
+        plain = one_scene(None)
+        out["differ"] = {k: int((split[k] != plain[k]).sum()) for k in (
+            "rgb", "depth", "normals", "segmentation")}
+        out["equal"] = not any(out["differ"].values())
+        unsplit = app.run(app.parse_args(
+            argv + [os.path.join(out_dir, "single")]), None)
+        out["annotations_equal"] = \
+            unsplit["coco"]["annotations"] == res["coco"]["annotations"]
+    return out
+
+
+def mc_fit(mesh, device, rank: int) -> dict:
+    """data_parallel_fit: the pose fit (fragments route, 128^2, auto
+    budgets) of MC_FIT_BATCH views of the normalized level-3 icosphere
+    around the app's pose, one start each, for MC_FIT_ITERS iterations,
+    captured per rank; rank 0 also the single-rank fit of the whole
+    batch."""
+    from torch_renderer_tpu_torch.cameras.look_at import (
+        look_at_view_transform,
+    )
+    from torch_renderer_tpu_torch.opt.pose_fit import (
+        CameraPoseFitter,
+        PoseFitConfig,
+        pose_params_from_Rt,
+    )
+    from torch_renderer_tpu_torch.parallel import data_parallel_fit
+
+    meshes, K, _, _, _ = pose_scene(device)
+    meshes = meshes.extend(MC_FIT_BATCH)
+    azim = torch.linspace(20.0, 110.0, MC_FIT_BATCH)
+    R_gt, t_gt = look_at_view_transform(2.7, 15.0, azim)
+    rng = np.random.default_rng(0)
+    t0 = t_gt.numpy() + 0.1 * rng.standard_normal(
+        (MC_FIT_BATCH, 3)).astype(np.float32)
+
+    def fitter():
+        return CameraPoseFitter(K, (POSE_IMAGE, POSE_IMAGE),
+                                PoseFitConfig(n_steps=MC_FIT_ITERS),
+                                device=device, check_budgets="off")
+
+    fs = fitter()
+    refs = fs.make_references(meshes, R_gt, t_gt)
+    params0 = pose_params_from_Rt(R_gt, t0, device)
+    (params, hist), counts = _counted(lambda: data_parallel_fit(
+        fs, meshes, refs, params0, mesh, MC_FIT_ITERS))
+    out = {"counts": counts, "loss_first": float(hist["loss"][0]),
+           "loss_last": float(hist["loss"][-1])}
+    if rank == 0:
+        # two single-rank fits: float32 atomics in the backward (autograd's
+        # scatter-adds, the gather backward kernel) sum in an order that
+        # changes from run to run, so the fit on the card is not repeatable
+        # bit for bit; the data-parallel fit is held to that spread too
+        (p1, h1), (_, h2) = (fitter().fit(meshes, refs, params0,
+                                          MC_FIT_ITERS) for _ in range(2))
+        out["history_err"] = {k: _max_err(hist[k], h1[k]) for k in h1}
+        out["first_err"] = max(_max_err(hist[k][0], h1[k][0]) for k in h1)
+        out["params_err"] = max(_max_err(params[k], p1[k]) for k in p1)
+        out["single_spread"] = {k: _max_err(h2[k], h1[k]) for k in h1}
+    return out
+
+
+def multicard_rank(backend: str, world: int, out_dir: str) -> dict:
+    """Phase L's work on one rank: each sharded path, its wrapper counts
+    on this rank, its time by CUDA events, and (rank 0) its comparison
+    with the single-rank call."""
+    import torch.distributed as dist
+
+    from torch_renderer_tpu_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device())
+    face = make_mesh((world // 2, 2))        # (1, 2) or (2, 2)
+    data = make_mesh((world, 1))
+    out = {"rank": rank, "device": str(device),
+           "card": torch.cuda.get_device_name(device)}
+    t0 = time.perf_counter()
+    out["silhouette"] = mc_silhouette(face, device, rank)
+    out["bench"] = mc_bench(device)
+    out["icp"] = mc_icp(data, device, rank)
+    out["search"] = mc_search(data, device, rank)
+    out["pose_step"] = mc_pose_step(face, device)
+    out["points"] = mc_points(data, device, rank)
+    out["coco"] = mc_coco(data, device, rank, out_dir)
+    out["fit"] = mc_fit(data, device, rank)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def multicard_phase(card: str) -> dict:
+    """Phase L: run multicard_rank on every rank, then hold every rank's
+    launches and rank 0's comparisons to their gates. Raises on any
+    failure."""
+    import shutil
+
+    from torch_renderer_tpu_torch.parallel.launch import run_ranks
+
+    backend, world = multicard_form()
+    form = (f"nccl, {world} ranks, one card each" if backend == "nccl"
+            else f"gloo, {world} ranks on cuda:0")
+    print(f"phase L ({card}): {form}", flush=True)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "coco_multicard")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(multicard_rank, world, backend, backend, world,
+                      out_dir, timeout=900)
+    # one card: the captured NCCL form of the pose step on a world of one
+    steps = [r["pose_step"] for r in ranks]
+    if backend != "nccl":
+        steps.append(run_ranks(mc_pose_step_one_rank, 1, "nccl",
+                               timeout=300)[0])
+        gate_captured = steps[-1]["captured"]
+    else:
+        gate_captured = all(ps["captured"] for ps in steps)
+    seconds = time.perf_counter() - t0
+    written = sorted(os.listdir(os.path.join(out_dir, "sharded", "images")))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    r0 = ranks[0]
+    fails = []
+
+    def gate(ok, what):
+        if not ok:
+            fails.append(what)
+
+    per_call = dict(soft_coverage_fwd=1, soft_coverage_bwd=1,
+                    gather_tiles_fwd=1, gather_tiles_bwd=1)
+    for r in ranks:
+        k = r["rank"]
+        gate(r["silhouette"]["counts"] == only(r["silhouette"]["counts"],
+                                               **per_call),
+             f"rank {k} silhouette launches {r['silhouette']['counts']}")
+        gate(r["bench"]["finite"], f"rank {k} bench vertices not finite")
+        gate(r["bench"]["counts"]["soft_coverage_fwd"] >= 1,
+             f"rank {k} bench launched no soft kernel")
+        gate(r["icp"]["counts"]["svd3"] >= 1, f"rank {k} ICP: no svd3")
+        pc = r["points"]["counts"]
+        gate(pc == only(pc, points_select=1, gather_tiles_fwd=1),
+             f"rank {k} points launches {pc}")
+        cc, chunks = r["coco"]["counts"], r["coco"]["chunks"]
+        gate(all(cc[n] == chunks for n in ("hard_k1", "gather_tiles_fwd",
+                                           "untile_scatter")),
+             f"rank {k} coco launches {cc}, {chunks} chunks")
+        gate(r["fit"]["counts"]["topk_select"] >= 1,
+             f"rank {k} fit launched no topk_select")
+    sil = r0["silhouette"]
+    gate(sil["alpha_err"] <= 2e-4, f"silhouette alpha err {sil['alpha_err']}")
+    gate(sil["grad_err"] <= 1e-3 * sil["grad_max"],
+         f"silhouette grad err {sil['grad_err']} of {sil['grad_max']}")
+    gate(r0["icp"]["err"] <= 1e-5, f"ICP err {r0['icp']['err']}")
+    gate(r0["search"]["err"] <= 1e-5 and r0["search"]["batch_err"] <= 1e-5,
+         f"search err {r0['search']['err']} / {r0['search']['batch_err']}")
+    gate(r0["search"]["history_non_increasing"], "search history rose")
+    gate(r0["search"]["alone_err"] == 0.0,
+         f"a target searched alone differs from its row of the batch by "
+         f"{r0['search']['alone_err']}")
+    gate(gate_captured, "the pose step was not captured under NCCL")
+    for k, ps in enumerate(steps):
+        gate(ps["loss_err"] <= 1e-4 and ps["params_err"]
+             <= MC_STEP_PARAMS_TOL * MC_STEP_LR,
+             f"pose step {k} (captured {ps['captured']}) vs eager: loss "
+             f"err {ps['loss_err']}, params err {ps['params_err']}")
+        gate(ps["losses"][-1] < ps["losses"][0],
+             f"pose step {k} loss did not fall: {ps['losses']}")
+    gate(r0["points"]["err"] <= 1e-5, f"points err {r0['points']['err']}")
+    gate(r0["coco"]["equal"], "coco outputs differ from the single rank's: "
+         f"{r0['coco']['differ']} elements")
+    gate(r0["coco"]["annotations_equal"], "coco annotations differ")
+    gate(len(written) == r0["coco"]["images"], f"coco wrote {len(written)}")
+    fe, fs = r0["fit"]["history_err"], r0["fit"]["single_spread"]
+    gate(r0["fit"]["first_err"] <= MC_FIT_FIRST_TOL,
+         f"fit's first iteration err {r0['fit']['first_err']}")
+    gate(all(v <= MC_FIT_HISTORY_TOL for v in fe.values()),
+         f"fit history err {fe} (two single-rank fits: {fs})")
+    gate(r0["fit"]["loss_last"] < r0["fit"]["loss_first"],
+         "fit loss did not fall")
+    print(f"phase L ({card}; {form}; two ranks on one card are a "
+          "correctness run, not scaling): "
+          f"sharded silhouette fwd+bwd {sil['ms']:.3f} ms a call (single "
+          f"rank {sil['single_ms']:.3f}); bench twin "
+          + ", ".join(f"{r['bench']['img_s']:.1f}" for r in ranks)
+          + f" img/s per card over {world}; ICP {r0['icp']['ms']:.2f} ms; "
+          f"search {r0['search']['ms']:.1f} ms (a target alone against "
+          f"its row of the batch: {r0['search']['alone_err']}); pose step "
+          + "; ".join(f"{'captured' if ps['captured'] else 'eager'} "
+                      f"{ps['params_err']:.3g}" for ps in steps)
+          + " from eager in params"
+          + (" (the last on one NCCL rank); " if backend != "nccl" else "; ")
+          + "points "
+          f"{r0['points']['ms']:.3f} ms; coco {r0['coco']['images_per_s']:.1f}"
+          f" images/s; {seconds:.1f} s in all", flush=True)
+    if fails:
+        raise RuntimeError("phase L failed: " + "; ".join(fails))
+    return {"form": form, "backend": backend, "ranks": world,
+            "seconds": seconds, "per_rank": ranks, "pose_steps": steps}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
@@ -3590,6 +4127,7 @@ def main() -> None:
     apps = depth_apps_phase(device, card)
     reg = registration_phase(device, card)
     cocok = coco_phase(device, card)
+    multi = multicard_phase(card)
 
     source = "torch_renderer_tpu_torch/csrc/hard_raster.cu"
     h1, k4, k50 = (hard[k] for k in ("hard_k1", "topk_select_k4",
@@ -3839,6 +4377,21 @@ def main() -> None:
         "library_ms": tk["times"]["fwd_library"],
         "library_device_ms": tk["times"]["fwd_library_device"],
         "launches": coco_launches("texsample_fwd")}
+    # phase L: each kernel's launches on every rank under sharding
+    paths = ("silhouette", "bench", "icp", "points", "coco", "fit")
+    for name, entry in byname.items():
+        per_rank = [{p: r[p]["counts"][name] for p in paths
+                     if r[p]["counts"][name]} for r in multi["per_rank"]]
+        if any(per_rank):
+            entry["sharded"] = {"form": multi["form"],
+                                "launches_per_rank": per_rank}
+    sil_l = multi["per_rank"][0]["silhouette"]
+    for name in ("soft_coverage_fwd", "soft_coverage_bwd",
+                 "gather_tiles_fwd", "gather_tiles_bwd"):
+        byname[name]["sharded"].update(
+            silhouette_call_ms=sil_l["ms"],
+            single_rank_call_ms=sil_l["single_ms"],
+            alpha_err=sil_l["alpha_err"], grad_err=sil_l["grad_err"])
     d, tx = cocok["defaults"], cocok["textured"]
     print(f"coco data generator ({card}): defaults {d['images']} images in "
           f"{d['seconds']:.2f} s = {d['images_per_s']:.1f} images/s, "
@@ -3880,8 +4433,8 @@ def main() -> None:
                        for f in ("captured", "eager"))
           + " steps/s (captured / eager, events)", flush=True)
     print(json.dumps({"captured": captured, "depth_apps": apps,
-                      "registration": reg, "coco": cocok}, default=float),
-          flush=True)
+                      "registration": reg, "coco": cocok,
+                      "multicard": multi}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

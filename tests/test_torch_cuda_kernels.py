@@ -24,7 +24,11 @@ atomics add a row's terms in an order that changes from run to run).
 Untile: equal (a copy of 4- or 8-byte words), for float32 and int64 fields,
 strided rows, several fields in one launch and the renderer's fragments.
 The soft forward also equals its CPU model (tests/test_torch_soft_fwd.py)
-bit for bit.
+bit for bit. The sharded paths (parallel/, ``-k sharded``) run on two
+ranks (NCCL on two cards, or gloo with both on cuda:0) through
+tests/torch_parallel_cases.py: each kernel launched once a call on every
+rank, α within 2e-4 and the gradient within 1e-3 of its largest against
+one rank, ICP within 1e-5, points within 1e-5, the COCO outputs equal.
 """
 
 import numpy as np
@@ -1404,3 +1408,116 @@ def test_canny_on_card_matches_cpu(device):
     thr, cthr = g.thresholded.cpu(), c.thresholded
     assert not (((thr > 0) != (cthr > 0)) & ~near).any()
     torch.testing.assert_close(thr[~near], cthr[~near], rtol=0, atol=tol)
+
+
+# -- the multi-card layer (parallel/): two ranks -------------------------------
+
+@pytest.fixture(scope="module")
+def sharded_ranks():
+    """tests/torch_parallel_cases.card_cases on two ranks: NCCL on two
+    cards, or gloo with both on cuda:0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_parallel_cases as cases
+    from torch_renderer_tpu_torch.parallel.launch import run_ranks
+
+    return run_ranks(cases.card_cases, 2, None, timeout=300)
+
+
+def test_sharded_silhouette_kernels_on_the_card(sharded_ranks):
+    """The face-sharded kernel route: each rank launches each soft kernel
+    and each gather kernel once a call; alpha within 2e-4 of the
+    single-rank route and the vertex gradient within 1e-3 of its
+    largest (not 2x it)."""
+    for r in sharded_ranks:
+        c = r["sil"]["counts"]
+        assert {k: v for k, v in c.items() if v} == {
+            "soft_coverage_fwd": 1, "soft_coverage_bwd": 1,
+            "gather_tiles_fwd": 1, "gather_tiles_bwd": 1}, c
+    r0 = sharded_ranks[0]["sil"]
+    a1, g1 = r0["single"]
+    assert float((r0["alpha"] - a1).abs().max()) <= 2e-4
+    assert float((r0["grad"] - g1).abs().max()) \
+        <= 1e-3 * float(g1.abs().max())
+    assert torch.equal(sharded_ranks[1]["sil"]["alpha"], r0["alpha"])
+
+
+def test_sharded_registration_on_the_card(sharded_ranks):
+    for r in sharded_ranks:
+        assert r["icp"]["counts"]["svd3"] >= 1
+    r0 = sharded_ranks[0]["icp"]
+    for k in ("t", "R", "rmse"):
+        torch.testing.assert_close(r0[k], r0["single"][k], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_sharded_points_on_the_card(sharded_ranks):
+    for r in sharded_ranks:
+        c = r["points"]["counts"]
+        assert {k: v for k, v in c.items() if v} == {
+            "points_select": 1, "gather_tiles_fwd": 1}, c
+    r0 = sharded_ranks[0]["points"]
+    torch.testing.assert_close(r0["img"], r0["single"], rtol=0, atol=1e-5)
+
+
+def test_sharded_datagen_on_the_card(sharded_ranks):
+    """Each rank renders its half of each chunk of 4 views: one hard_k1,
+    gather and untile launch a chunk (6 views: 2 chunks); the packed
+    outputs equal the single-rank generator's."""
+    for r in sharded_ranks:
+        c = r["datagen"]["counts"]
+        assert c["hard_k1"] == c["gather_tiles_fwd"] \
+            == c["untile_scatter"] == 2, c
+    r0 = sharded_ranks[0]["datagen"]
+    for k, v in r0["out"].items():
+        np.testing.assert_array_equal(v, r0["single"][k], err_msg=k)
+
+
+def test_sharded_search_batch_one_target_a_rank_on_the_card(sharded_ranks):
+    """search_batch of two targets over two ranks (one target a rank)
+    equals the unsplit search of the two, and each of three targets
+    searched alone from the batch's draws (G=1, what a rank holding one
+    target runs) equals its row of the batch of three, bit for bit."""
+    r0 = sharded_ranks[0]["search"]
+    for n, v in r0["whole2"].items():
+        for r in sharded_ranks:
+            assert torch.equal(r["search"]["split"][n], v), n
+    for g, alone in enumerate(r0["alone"]):
+        for n, v in alone.items():
+            assert torch.equal(v[0], r0["whole3"][n][g]), (g, n)
+
+
+def _check_pose_step(ps):
+    """The sharded pose step's default form against its eager form: the
+    first two losses within 1e-4, the translations within 0.25 x lr over 5
+    steps (float32 atomics in the backward part the forms' gradients in
+    their last bits, as in test_captured_pose_fit_matches_eager), and the
+    loss falls."""
+    losses = ps["losses"]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    np.testing.assert_allclose(losses[:2], ps["eager"][:2], rtol=0,
+                               atol=1e-4)
+    assert float((ps["trail"] - ps["eager_trail"]).abs().max()) \
+        <= 0.25 * 5e-3
+
+
+def test_sharded_pose_step_on_the_card(sharded_ranks):
+    """Two ranks: captured under NCCL (two cards), eager under gloo."""
+    for r in sharded_ranks:
+        _check_pose_step(r["pose_step"])
+        if r["pose_step"]["backend"] == "gloo":
+            assert r["pose_step"]["capture_true"].startswith("ValueError")
+
+
+def test_sharded_pose_step_captured_under_nccl_on_the_card():
+    """A world of one NCCL rank: the step is captured in a CUDA graph with
+    the gradients' NCCL all_reduce inside (the mesh's axes of size 1 run
+    no collective), and follows its eager form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_parallel_cases as cases
+    from torch_renderer_tpu_torch.parallel.launch import run_ranks
+
+    ps = run_ranks(cases.card_pose_step_one_rank, 1, "nccl", timeout=300)[0]
+    assert ps["backend"] == "nccl"
+    _check_pose_step(ps)

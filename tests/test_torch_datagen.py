@@ -350,7 +350,7 @@ def test_reformat_and_unpack_match_jax():
 
 def test_device_mesh_and_bad_configs_raise():
     lib = coco.ObjectLibrary.primitives(1, level=0)
-    with pytest.raises(NotImplementedError, match="item 24"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         coco.COCODataGenerator(lib, coco.DataGenConfig(), device_mesh=object(),
                                device="cpu")
     flagged = coco.ObjectLibrary.primitives(1, level=0)
@@ -413,5 +413,12 @@ def test_app_main_runs_on_cpu(tmp_path, capsys, app_budget_default):
     assert (tmp_path / "annotations_contiguous.json").exists()
     assert len(list((tmp_path / "images").glob("*.png"))) == 2
     assert all(a["area"] >= 60 for a in out["coco"]["annotations"])
-    with pytest.raises(NotImplementedError, match="item 24"):
-        app.main(["--device", "cpu", "--mesh-shape", "2,1"])
+    # --mesh-shape 1,1: a world of one rank, in this process
+    meshed = app.main(["--device", "cpu", "--scenes", "1",
+                       "--views-per-scene", "2", "--height", "48", "--width",
+                       "64", "--out-dir", str(tmp_path / "meshed"),
+                       "--edge-maps", "--room", "--min-visible-px", "60",
+                       "--mesh-shape", "1,1"])
+    assert "device mesh {'data': 1, 'model': 1}" in capsys.readouterr().out
+    assert meshed["coco"]["annotations"] == out["coco"]["annotations"]
+    assert len(list((tmp_path / "meshed" / "images").glob("*.png"))) == 2

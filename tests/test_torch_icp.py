@@ -206,9 +206,23 @@ def test_register_batch_matches_cpu_reference():
     _close(sol.RTs.t[0], t_cpu, 1e-3)
 
 
-def test_register_batch_sharded_names_item_24():
-    with pytest.raises(NotImplementedError, match="item 24"):
+def test_register_batch_sharded_takes_a_mesh():
+    """register_batch_sharded takes a DeviceMesh (TypeError for anything
+    else) and, on a mesh of one rank, equals register_batch
+    (tests/test_torch_parallel.py splits it over 8 ranks)."""
+    from torch_renderer_tpu_torch.parallel import make_mesh, run_ranks
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
         reg.register_batch_sharded({}, object())
+    gen = torch.Generator().manual_seed(4)
+    data = reg.create_register_data(gen, torch.tensor(_cloud()),
+                                    reg.RegisterDataConfig(n_objects=3))
+    plain = reg.register_batch(data, max_iterations=10)
+    [sharded] = run_ranks(lambda: reg.register_batch_sharded(
+        data, make_mesh((1, 1)), max_iterations=10), 1, "gloo")
+    for name in ("converged", "rmse", "Xt", "t_history", "rmse_history"):
+        assert torch.equal(getattr(plain, name), getattr(sharded, name))
+    assert all(torch.equal(a, b) for a, b in zip(plain.RTs, sharded.RTs))
 
 
 @pytest.mark.parametrize("masks", [False, True])
@@ -356,5 +370,10 @@ def test_icp_registration_app_runs(capsys, app_budget_default):
     assert "mean translation err" in text and "n=   5" in text
     assert out["mean_trans_err"] < 1e-3 and out["converged"] == 6
     assert [r["n"] for r in out["sweep"]] == [1, 5]
-    with pytest.raises(NotImplementedError, match="item 24"):
-        icp_registration.main(["--device", "cpu", "--mesh-shape", "1,1"])
+    # --mesh-shape 1,1: a world of one rank, in this process
+    meshed = icp_registration.main(["--device", "cpu", "--objects", "6",
+                                    "--points", "96", "--icp-iters", "20",
+                                    "--mesh-shape", "1,1"])
+    assert "device mesh {'data': 1, 'model': 1}" in capsys.readouterr().out
+    np.testing.assert_array_equal(meshed["trans_err"], out["trans_err"])
+    assert meshed["converged"] == 6

@@ -291,7 +291,13 @@ def test_batched_pose_search(cloud):
     assert np.isfinite(scores).all() and (scores < 0.12).all()
 
 
-def test_search_is_deterministic_and_sharding_names_item_24(cloud):
+def test_search_is_deterministic_and_sharding_takes_a_mesh(cloud):
+    """The search repeats itself from one seed; its device_mesh forms take
+    a DeviceMesh (TypeError for anything else) and, on a mesh of one rank,
+    equal the plain search (tests/test_torch_parallel.py runs them split
+    over 8 ranks)."""
+    from torch_renderer_tpu_torch.parallel import make_mesh, run_ranks
+
     cfg = ps.PoseSearchConfig(n_hypotheses=32, n_elite=8, n_iters=2)
     s = ps.GMMPoseSearch(cloud, cfg)
     target = _target(cloud, [0.1, 0.2, 0.3], [0.0, 0.1, 0.0])
@@ -302,8 +308,15 @@ def test_search_is_deterministic_and_sharding_names_item_24(cloud):
                  lambda: s.search_batch(None, target[None],
                                         device_mesh=object()),
                  lambda: s._sharded_search_fn(object())):
-        with pytest.raises(NotImplementedError, match="item 24"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             call()
+    c, cb = run_ranks(lambda: (
+        s.search(torch.Generator().manual_seed(3), target,
+                 device_mesh=make_mesh((1, 1))),
+        s.search_batch(torch.Generator().manual_seed(3), target[None],
+                       device_mesh=make_mesh((1, 1)))), 1, "gloo")[0]
+    assert all(torch.equal(a[k], c[k]) for k in a)
+    assert all(torch.equal(a[k], cb[k][0]) for k in a)
     with pytest.raises(ValueError, match="capture=True"):
         s.search(torch.Generator().manual_seed(3), target, capture=True)
 
@@ -356,8 +369,15 @@ def test_pose_search_app_runs(tmp_path, capsys, app_budget_default):
     hist = out["best_history"]
     assert np.isfinite(hist).all() and (hist[1:] <= hist[:-1]).all()
     assert out["batch_scores"].shape == (2,)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        pose_search.main(["--device", "cpu", "--mesh-shape", "1,1"])
+    # --mesh-shape 1,1: a world of one rank, in this process
+    meshed = pose_search.main(["--device", "cpu", "--points", "96",
+                               "--hypotheses", "48", "--elite", "12",
+                               "--iters", "3", "--batch", "2",
+                               "--mesh-shape", "1,1"])
+    assert "device mesh {'data': 1, 'model': 1}" in capsys.readouterr().out
+    np.testing.assert_array_equal(meshed["best_history"], hist)
+    np.testing.assert_array_equal(meshed["batch_scores"],
+                                  out["batch_scores"])
 
 
 def test_chamfer_eval_app_runs(tmp_path, capsys, app_budget_default):

@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Seven slices are ported:
+Eight slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning (in raster or count order), the
@@ -34,7 +34,14 @@ Seven slices are ported:
     edges (ops.canny), procedural textures (datagen.texgen), the rigid-body
     settle (datagen.physics), the COCO generator (datagen.coco), the native
     host runtime (io.native: OBJ parsing, RLE, PNG; built by g++ into
-    build/native/), PLY IO, the color transfer and the two-phase creator.
+    build/native/), PLY IO, the color transfer and the two-phase creator;
+  * the multi-card layer (parallel): DeviceMeshes over torch.distributed
+    ranks, one process per card started by parallel.launch.run_ranks (or
+    torchrun), the face- and data-sharded soft silhouette, the sharded
+    point render, pose step and data-parallel fit, and the sharded forms of
+    registration, pose search, the COCO generator and the benches; with
+    the utilities (utils.checkpoint, utils.debug, utils.metrics,
+    utils.plotting.image_grid) and the open3d oracle (baselines).
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built
@@ -144,7 +151,7 @@ from .structures.textures import (
 )
 from .utils.timing import StageTimer, TimingResult, profiler_trace, time_fn
 
-from . import datagen, io, models, opt  # noqa: E402,F401 namespaces
+from . import datagen, io, models, opt, parallel, utils  # noqa: E402,F401 namespaces
 
 __all__ = [
     "AlphaPointRender",

@@ -67,3 +67,50 @@ def load_scene_mesh(args, level: int = 3, normalize: bool = True):
     if normalize:
         meshes, _, _ = meshes.center_and_scale_to_unit_sphere()
     return meshes
+
+
+def parse_mesh_shape(text: str) -> tuple:
+    """'d,m' -> (d, m), as the JAX apps parse --mesh-shape."""
+    return tuple(int(s) for s in text.split(","))
+
+
+def describe_mesh(device_mesh) -> str:
+    """'device mesh {'data': d, 'model': m} over n ranks'."""
+    shape = dict(zip(device_mesh.mesh_dim_names, device_mesh.shape))
+    return f"device mesh {shape} over {device_mesh.size()} ranks"
+
+
+def _mesh_rank(run, args, shape):
+    """One rank of run_on_mesh: the mesh, and rank 0's printout alone."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    device_mesh = make_mesh(shape)
+    quiet = dist.get_rank() != 0
+    with contextlib.redirect_stdout(io.StringIO()) if quiet \
+            else contextlib.nullcontext():
+        return run(args, device_mesh)
+
+
+def run_on_mesh(run, args, shape):
+    """run(args, device_mesh) on a (d, m) mesh of ranks; rank 0's result.
+
+    Under torchrun (RANK and WORLD_SIZE set) the ranks are the group it
+    gives. Otherwise parallel.launch.run_ranks starts d * m of them on
+    --device, with its default backend (NCCL with one card a rank where
+    there are enough cards, gloo otherwise); a world of one runs in this
+    process. Only rank 0 prints."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ..parallel.launch import default_backend, init_from_env, run_ranks
+
+    if init_from_env() or dist.is_initialized():
+        return _mesh_rank(run, args, shape)
+    world = int(np.prod(shape))
+    return run_ranks(_mesh_rank, world, default_backend(world, args.device),
+                     run, args, shape)[0]

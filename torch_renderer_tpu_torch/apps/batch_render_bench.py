@@ -16,8 +16,15 @@ With active tiles the app sizes the occupancy split as the JAX app does
 (binning.suggest_occupancy_split_fd; --no-occupancy-split turns it off).
 
 The default --device cuda raises when no CUDA device is present (there is
-no fallback). With several cards visible it renders on --device alone: the
-JAX app's multi-chip view sharding is not ported.
+no fallback). With several cards (--cards N, default every visible card)
+the app runs on N ranks (apps/_common.run_on_mesh: one card a rank under
+NCCL, gloo where ranks share a card; under torchrun the group it gives)
+and, as the JAX app does on several chips, splits each call's views over
+them when --view-chunk divides by N (printing "NOT sharding" otherwise,
+when every rank renders every view); each rank renders its views with no
+collective and the throughput is the ranks' sum, also given per card.
+
+  python -m torch_renderer_tpu_torch.apps.batch_render_bench --cards 4
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import torch
 
 from ._common import (
     base_parser,
+    describe_mesh,
     load_scene_mesh,
     pinhole_K,
     resolve_app_device,
+    run_on_mesh,
 )
 
 
@@ -62,13 +71,35 @@ def parse_args(argv=None):
                    help="disable the two-budget occupancy split (auto-sized "
                         "via suggest_occupancy_split_fd when active tiles "
                         "are compacted)")
+    p.add_argument("--cards", type=int, default=None,
+                   help="ranks, one card each (default: every visible "
+                        "card; 1 on the CPU)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     """Run the benchmark; returns its numbers and the number of render
-    calls it made."""
+    calls it made (rank 0's on several cards)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.launch import init_from_env
+
     args = parse_args(argv)
+    device = resolve_app_device(args)
+    if init_from_env() or dist.is_initialized():
+        cards = dist.get_world_size()
+    else:
+        cards = args.cards or (torch.cuda.device_count()
+                               if device.type == "cuda" else 1)
+    if cards > 1:
+        return run_on_mesh(run, args, (cards, 1))
+    return run(args, None)
+
+
+def run(args, device_mesh) -> dict:
+    """The benchmark on this process (device_mesh None) or on one rank of a
+    data mesh."""
     device = resolve_app_device(args)
 
     from ..cameras.look_at import look_at_view_transform
@@ -136,10 +167,24 @@ def main(argv=None) -> dict:
                                device=device)
             chunks.append((Rs[idx], ts[idx]))
 
-    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_cards > 1:
-        print(f"NOT sharding: {n_cards} cards visible; the port renders on "
-              f"{device} only")
+    n_cards, index = 1, 0
+    if device_mesh is not None:
+        from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+
+        n_cards = axis_size(device_mesh, DATA_AXIS)
+        index = axis_index(device_mesh, DATA_AXIS)
+        print(describe_mesh(device_mesh))
+    shard = n_cards > 1 and vc % n_cards == 0
+    if shard:
+        # this rank's views of every call: its slice of the view axis
+        vl = vc // n_cards
+        batched = meshes.extend(vl)
+        chunks = [(R[index * vl:(index + 1) * vl],
+                   t[index * vl:(index + 1) * vl]) for R, t in chunks]
+        print(f"view axis sharded over {n_cards} cards ({vl} views/card/"
+              "call)")
+    elif n_cards > 1:
+        print(f"NOT sharding: view_chunk {vc} % {n_cards} cards != 0")
 
     calls = [0]
 
@@ -155,7 +200,16 @@ def main(argv=None) -> dict:
                   name=f"batched depth render {N}x{H}x{W} (chunks of {vc})")
     print(res)
     fps = N / res.mean_s
-    print(f"throughput: {fps:.1f} depth images/sec (batched)")
+    if shard:   # every rank rendered its share: the rates add up
+        import torch.distributed as dist
+
+        total = torch.tensor([fps / n_cards], dtype=torch.float64,
+                             device=device)
+        dist.all_reduce(total)
+        fps = float(total)
+    print(f"throughput: {fps:.1f} depth images/sec (batched)"
+          + (f" = {fps / n_cards:.1f}/card over {n_cards} cards"
+             if shard else ""))
 
     # serial single-view loop for comparison (the pyrender-style pattern)
     r1 = time_fn(render, meshes, Rs[:1], ts[:1], reps=min(args.reps, 5),
@@ -164,14 +218,21 @@ def main(argv=None) -> dict:
     print(f"serial-equivalent: {1.0 / r1.mean_s:.1f} images/sec "
           f"-> batching speedup {fps * r1.mean_s:.1f}x")
 
-    depth = render(batched, Rs[:vc], ts[:vc]).cpu().numpy()
+    R0, t0 = chunks[0]
+    depth = render(batched, R0, t0)
+    if shard:
+        from ..parallel.mesh import all_gather_batch
+
+        depth = all_gather_batch(depth, device_mesh)
+    depth = depth.cpu().numpy()
     print("depth stats: shape", depth.shape, "coverage",
           float((depth > 0).mean()), "max", float(depth.max()))
     print(f"stages: {timer.report()}")
     return {"max_faces_per_bin": mfb, "active_tiles": act,
             "occupancy_split": split if act > 0 else None,
             "images_per_s": fps, "serial_images_per_s": 1.0 / r1.mean_s,
-            "calls": calls[0], "coverage": float((depth > 0).mean()),
+            "calls": calls[0], "cards": n_cards, "sharded": shard,
+            "coverage": float((depth > 0).mean()),
             "depth_max": float(depth.max())}
 
 

@@ -13,8 +13,12 @@ with optional Canny edge maps.
 The defaults are the reference's: 4 scenes of 25 views at 480x640, 2-5
 objects a scene, random materials, rest placement. The default --device
 cuda raises when no CUDA device is present (there is no fallback); pass
---device cpu to run on the CPU. --mesh-shape (sharding the views over
-several cards) waits for ROADMAP Queue 1 item 24.
+--device cpu to run on the CPU. --mesh-shape d,m runs the app on d * m
+ranks (apps/_common.run_on_mesh: one card a rank under NCCL, or gloo)
+with each chunk's views split over the 'data' axis; rank 0 writes the
+dataset, which equals the unsplit run's.
+
+  python -m torch_renderer_tpu_torch.apps.coco_data_generator --mesh-shape 2,1 --scenes 2
 """
 
 from __future__ import annotations
@@ -25,7 +29,13 @@ import time
 
 import numpy as np
 
-from ._common import base_parser, resolve_app_device
+from ._common import (
+    base_parser,
+    describe_mesh,
+    parse_mesh_shape,
+    resolve_app_device,
+    run_on_mesh,
+)
 
 
 def parse_args(argv=None):
@@ -60,7 +70,7 @@ def parse_args(argv=None):
                         "u8/u16/i8 packing on the device")
     p.add_argument("--mesh-shape", type=str, default=None,
                    help="'d,m' device-mesh shape: shard each chunk's views "
-                        "(not ported yet: ROADMAP Queue 1 item 24)")
+                        "over the 'data' axis of d*m ranks")
     p.add_argument("--reformat", action="store_true",
                    help="remap category ids to contiguous 1..N (detectron2)")
     p.add_argument("--objs", type=str, nargs="*", default=None,
@@ -86,13 +96,18 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the app; returns its numbers: images, annotations, seconds,
-    images/s, s a scene, and the COCO dict."""
+    images/s, s a scene, and the COCO dict (rank 0's with --mesh-shape)."""
     args = parse_args(argv)
-    device = resolve_app_device(args)
+    resolve_app_device(args)
     if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape needs the port's parallel/ (torch.distributed), "
-            "ROADMAP Queue 1 item 24")
+        return run_on_mesh(run, args, parse_mesh_shape(args.mesh_shape))
+    return run(args, None)
+
+
+def run(args, device_mesh) -> dict:
+    """The app on this process (device_mesh None) or on one rank of a
+    mesh; with a mesh, rank 0 alone writes."""
+    device = resolve_app_device(args)
 
     import torch
 
@@ -140,7 +155,9 @@ def main(argv=None) -> dict:
         room=args.room,
         min_visible_px=args.min_visible_px,
     )
-    gen = COCODataGenerator(library, cfg,
+    if device_mesh is not None:
+        print(describe_mesh(device_mesh))
+    gen = COCODataGenerator(library, cfg, device_mesh=device_mesh,
                             distractor_library=distractor_library,
                             device=device)
 
@@ -155,7 +172,7 @@ def main(argv=None) -> dict:
           f"{elapsed:.1f}s = {elapsed / max(args.scenes, 1):.2f}s/scene, "
           f"{len(coco['annotations'])} annotations")
 
-    if args.reformat:
+    if args.reformat and gen._writer:
         out = reformat_coco_annotations(coco)
         path = os.path.join(args.out_dir, "annotations_contiguous.json")
         with open(path, "w") as f:

@@ -15,8 +15,12 @@ scene mesh (--obj, or the normalized level-3 icosphere).
   python -m torch_renderer_tpu_torch.apps.icp_registration --device cpu --objects 8 --points 200 --icp-iters 30
 
 The default --device cuda raises when no CUDA device is present (there is
-no fallback); pass --device cpu to run on the CPU. --mesh-shape (sharding
-the objects over several cards) waits for ROADMAP Queue 1 item 24.
+no fallback); pass --device cpu to run on the CPU. --mesh-shape d,m runs
+the app on d * m ranks (apps/_common.run_on_mesh: one card a rank under
+NCCL, or gloo) with the objects split over the 'data' axis
+(opt.registration.register_batch_sharded).
+
+  python -m torch_renderer_tpu_torch.apps.icp_registration --mesh-shape 2,1
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ import time
 
 import numpy as np
 
-from ._common import base_parser, load_scene_mesh, resolve_app_device
+from ._common import (
+    base_parser,
+    describe_mesh,
+    load_scene_mesh,
+    parse_mesh_shape,
+    resolve_app_device,
+    run_on_mesh,
+)
 
 
 def parse_args(argv=None):
@@ -39,17 +50,22 @@ def parse_args(argv=None):
                    help="object-count scaling sweep (1..100) vs CPU reference")
     p.add_argument("--mesh-shape", type=str, default=None,
                    help="'d,m' device-mesh shape: shard the object axis "
-                        "(not ported yet: ROADMAP Queue 1 item 24)")
+                        "over the 'data' axis of d*m ranks")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    device = resolve_app_device(args)
+    resolve_app_device(args)
     if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape needs the port's parallel/ (torch.distributed), "
-            "ROADMAP Queue 1 item 24")
+        return run_on_mesh(run, args, parse_mesh_shape(args.mesh_shape))
+    return run(args, None)
+
+
+def run(args, device_mesh) -> dict:
+    """The app on this process (device_mesh None) or on one rank of a
+    mesh."""
+    device = resolve_app_device(args)
 
     import torch
 
@@ -60,8 +76,16 @@ def main(argv=None) -> dict:
         evaluate_registration,
         icp_cpu_reference,
         register_batch,
+        register_batch_sharded,
     )
     from ..utils.timing import synchronize
+
+    if device_mesh is not None:
+        print(describe_mesh(device_mesh))
+
+        def register_batch(data, max_iterations):   # noqa: F811
+            return register_batch_sharded(data, device_mesh,
+                                          max_iterations=max_iterations)
 
     meshes = load_scene_mesh(args)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -17,8 +17,13 @@ once; --plot-dir writes the per-iteration scatter + GMM ellipse PNGs
   python -m torch_renderer_tpu_torch.apps.pose_search --device cpu --points 128 --hypotheses 64 --elite 16 --iters 4
 
 The default --device cuda raises when no CUDA device is present (there is
-no fallback); pass --device cpu to run on the CPU. --mesh-shape (sharding
-the hypotheses over several cards) waits for ROADMAP Queue 1 item 24.
+no fallback); pass --device cpu to run on the CPU. --mesh-shape d,m runs
+the app on d * m ranks (apps/_common.run_on_mesh: one card a rank under
+NCCL, or gloo) with the hypotheses, and --batch's targets, split over the
+'data' axis; the results equal the unsplit run's.
+
+  python -m torch_renderer_tpu_torch.apps.pose_search --mesh-shape 2,1
+  python -m torch_renderer_tpu_torch.apps.pose_search --device cpu --mesh-shape 2,1 --points 128 --hypotheses 64
 """
 
 from __future__ import annotations
@@ -28,7 +33,14 @@ import time
 
 import numpy as np
 
-from ._common import base_parser, load_scene_mesh, resolve_app_device
+from ._common import (
+    base_parser,
+    describe_mesh,
+    load_scene_mesh,
+    parse_mesh_shape,
+    resolve_app_device,
+    run_on_mesh,
+)
 
 
 def write_iteration_plots(plot_dir: str, out, gt_t=None) -> None:
@@ -78,8 +90,9 @@ def parse_args(argv=None):
                    help="also search N targets at once (serving-scale "
                         "demo)")
     p.add_argument("--mesh-shape", type=str, default=None,
-                   help="'d,m' device-mesh shape: shard the hypotheses "
-                        "(not ported yet: ROADMAP Queue 1 item 24)")
+                   help="'d,m' device-mesh shape: shard the hypothesis "
+                        "sweep (and --batch targets) over the 'data' axis "
+                        "of d*m ranks")
     p.add_argument("--plot-dir", type=str, default=None,
                    help="write a per-EM-iteration hypothesis scatter + GMM "
                         "ellipse overlay PNG (the reference's PUResults "
@@ -125,11 +138,16 @@ def app_scene(args, device):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    device = resolve_app_device(args)
+    resolve_app_device(args)
     if args.mesh_shape:
-        raise NotImplementedError(
-            "--mesh-shape needs the port's parallel/ (torch.distributed), "
-            "ROADMAP Queue 1 item 24")
+        return run_on_mesh(run, args, parse_mesh_shape(args.mesh_shape))
+    return run(args, None)
+
+
+def run(args, device_mesh) -> dict:
+    """The app on this process (device_mesh None) or on one rank of a
+    mesh."""
+    device = resolve_app_device(args)
 
     import torch
 
@@ -145,8 +163,10 @@ def main(argv=None) -> dict:
     cfg = PoseSearchConfig(n_hypotheses=args.hypotheses,
                            n_elite=args.elite, n_iters=args.iters)
     searcher = GMMPoseSearch(ref, cfg)
+    if device_mesh is not None:
+        print(describe_mesh(device_mesh))
     t0 = time.perf_counter()
-    out = searcher.search(gen, target)
+    out = searcher.search(gen, target, device_mesh=device_mesh)
     synchronize(out["score"])
     elapsed = time.perf_counter() - t0
 
@@ -186,7 +206,7 @@ def main(argv=None) -> dict:
         t0 = time.perf_counter()
         outs = searcher.search_batch(
             torch.Generator(device=device).manual_seed(args.seed + 2),
-            targets)
+            targets, device_mesh=device_mesh)
         synchronize(outs["score"])
         dt = time.perf_counter() - t0
         scores = outs["score"].cpu().numpy()

@@ -1,12 +1,13 @@
 """Baseline / oracle renderers: an always-available numpy ray caster plus
-the optional pyrender oracle, import-gated; the port's own copy of
-``torch_renderer_tpu.baselines`` (numpy only). The JAX package's open3d
-ICP oracle is not carried over yet.
+the optional pyrender and open3d oracles, import-gated; the port's own
+copy of ``torch_renderer_tpu.baselines`` (numpy only).
 
-The reference keeps pyrender as a validation baseline (visualizer.py
-VisPyrender :8-63). It is a comparison oracle, not a capability to port:
-this module exposes its `quick_depth_render` surface when pyrender is
-installed, and raises a clear error when it is not.
+The reference keeps pyrender and Open3D as validation baselines
+(visualizer.py VisPyrender :8-63; the ICP CPU path at
+pytorch3d_icp_registeration.py:191-238). They are comparison oracles, not
+capabilities to port: this module exposes pyrender's `quick_depth_render`
+and open3d's point-to-point ICP when those packages are installed, and
+raises ImportError when they are not.
 
 The executable stand-in for its pixel-fidelity-gate role
 (renderer_comparison_with_pyrender.py:254-259) is `VisRaytrace` /
@@ -22,7 +23,7 @@ as the cross-renderer diff.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -145,3 +146,38 @@ class VisPyrender:
         return self.renderer.render(
             self.scene, flags=pyrender.RenderFlags.DEPTH_ONLY
         )
+
+
+def open3d_available() -> bool:
+    try:
+        import open3d  # noqa: F401
+
+        return True
+    except Exception:
+        return False
+
+
+def open3d_registration_icp(source: np.ndarray, target: np.ndarray,
+                            max_correspondence_distance: float = 0.5,
+                            init: Optional[np.ndarray] = None,
+                            max_iterations: int = 100):
+    """Open3D point-to-point ICP oracle (reference :221-223). Returns
+    (R (3, 3), t (3,), rmse)."""
+    if not open3d_available():
+        raise ImportError(
+            "open3d is not installed; use opt.registration.icp_cpu_reference "
+            "(numpy) as the CPU oracle instead")
+    import open3d as o3d
+
+    def cloud(x):
+        return o3d.geometry.PointCloud(o3d.utility.Vector3dVector(
+            np.asarray(x, np.float64)))
+
+    reg = o3d.pipelines.registration
+    result = reg.registration_icp(
+        cloud(source), cloud(target), max_correspondence_distance,
+        np.eye(4) if init is None else np.asarray(init, np.float64),
+        reg.TransformationEstimationPointToPoint(),
+        reg.ICPConvergenceCriteria(max_iteration=max_iterations))
+    T = np.asarray(result.transformation)
+    return T[:3, :3], T[:3, 3], float(result.inlier_rmse)

@@ -16,6 +16,15 @@ step gives the kernels launched per step.
 --quick: B=2, 128x128, a level-2 icosphere, 5 timed steps after 1 warm-up
 step, 3 passes.
 
+Several cards (--cards N, default every visible card): weak scaling, as
+bench.py's multi-chip branch. One rank a card (parallel.launch.run_ranks
+with its default backend: NCCL, gloo where ranks share a card), B views
+per card from a whole batch of B x N, each rank its slice
+(parallel.shard_batch); no collective in the step, which each rank
+captures and replays as on one card. Each rank times its own passes; the
+value is the ranks' summed median img/s over the card count (img/s per
+card), with n_chips the card count.
+
 The lines before the last give the card, the sizing, the passes and the
 launches. The last line is one JSON object with bench.py's keys (metric,
 value, unit, vs_baseline, n_chips); vs_baseline is value over the cpu_fps
@@ -26,6 +35,7 @@ whose scene that reference is not of.
   python -m torch_renderer_tpu_torch.bench
   python -m torch_renderer_tpu_torch.bench --eager
   python -m torch_renderer_tpu_torch.bench --quick --device cpu
+  python -m torch_renderer_tpu_torch.bench --cards 4
 """
 
 from __future__ import annotations
@@ -121,6 +131,23 @@ def make_step(meshes: Meshes, cam: PerspectiveCamera, sigma: float = SIGMA,
     return step, cfg
 
 
+def sharded_scene(batch: int, image: int, level: int, device, device_mesh):
+    """This rank's part of the multi-card bench: the scene of batch views
+    per card (the whole batch x the 'data' axis size), sized once on the
+    whole batch's projection, so every rank sizes alike, and cut to this
+    rank's slice. Returns (meshes, cam, cfg)."""
+    from .parallel.mesh import DATA_AXIS, axis_size, shard_batch
+
+    cards = axis_size(device_mesh, DATA_AXIS)
+    meshes, cam = scene(batch * cards, image, level, device)
+    with torch.no_grad():
+        fp0 = setup_face_planes(meshes, cam)
+    cfg = cuda_soft.suggest_soft_config(fp0, cam.image_size, sigma=SIGMA,
+                                        layout="packed")
+    meshes, cam = shard_batch((meshes, cam), device_mesh)
+    return meshes, cam, cfg
+
+
 def time_passes(step, v, batch: int, steps: int, warmup: int,
                 passes: int):
     """img/s of each pass (warmup steps, then `steps` timed ones: CUDA
@@ -210,6 +237,51 @@ def _cpu_fps():
         return None
 
 
+def _card_rank(p: dict, eager: bool) -> dict:
+    """One rank of the multi-card bench: its passes over its slice."""
+    from .parallel.mesh import data_mesh
+
+    device = resolve_device(None)
+    meshes, cam, cfg = sharded_scene(p["batch"], p["image"], p["level"],
+                                     device, data_mesh())
+    step, _ = make_step(meshes, cam, cfg=cfg,
+                        capture=False if eager else None)
+    rates, v = time_passes(step, meshes.verts, p["batch"], p["steps"],
+                           p["warmup"], p["passes"])
+    return {"rates": rates, "finite": bool(torch.isfinite(v).all()),
+            "card": torch.cuda.get_device_name(device)}
+
+
+def _main_cards(args, p: dict, cards: int) -> dict:
+    """The weak-scaling run over ``cards`` ranks, one card each."""
+    from .parallel.launch import run_ranks
+
+    print(card_line(), flush=True)
+    ranks = run_ranks(_card_rank, cards, None, p, args.eager)
+    if not all(r["finite"] for r in ranks):
+        raise RuntimeError("the chained steps gave non-finite vertices")
+    form = "eager" if args.eager else "captured CUDA graph"
+    print(f"scene: B={p['batch']} per card x {cards} cards, "
+          f"{p['image']}x{p['image']}, step: {form} on every rank",
+          flush=True)
+    for i, r in enumerate(ranks):
+        print(f"rank {i} ({r['card']}) passes (CUDA events, {p['steps']} "
+              f"steps after {p['warmup']}): "
+              + ", ".join(f"{x:.1f}" for x in r["rates"]) + " img/s",
+              flush=True)
+    medians = [statistics.median(r["rates"]) for r in ranks]
+    value = sum(medians) / cards
+    print(f"{sum(medians):.1f} img/s over {cards} cards = {value:.1f} "
+          "img/s per card", flush=True)
+    cpu_fps = None if args.quick else _cpu_fps()
+    record = {"metric": METRIC, "value": round(value, 2),
+              "unit": "images/s",
+              "vs_baseline": round(value / cpu_fps, 2) if cpu_fps else None,
+              "n_chips": cards}
+    print(json.dumps(record), flush=True)
+    return {**record, "ranks": ranks, "step": form}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -220,10 +292,18 @@ def main(argv=None) -> dict:
                     help="launch each step's kernels from the host (default: "
                          "replay the step as a captured CUDA graph on the "
                          "card; the CPU runs eagerly either way)")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="one rank a card over this many cards (default: "
+                         "every visible card; 1 on the CPU)")
     args = ap.parse_args(argv)
     p = QUICK if args.quick else FULL
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
+    cards = args.cards or (torch.cuda.device_count() if on_card else 1)
+    if cards > 1:
+        if not on_card:
+            raise ValueError("--cards > 1 needs the cards")
+        return _main_cards(args, p, cards)
     print(card_line() if on_card else f"device: {device} (no card timing)",
           flush=True)
 

@@ -275,18 +275,32 @@ class COCODataGenerator:
     ``device`` (default: the card; "cpu" runs the kernels' plain
     versions).
 
-    device_mesh (view-axis sharding over several cards in the JAX package)
-    is ROADMAP Queue 1 item 24 and raises NotImplementedError."""
+    device_mesh (parallel.make_mesh): each chunk's views are split over
+    the mesh's 'data' ranks (every view is independent, so nothing is
+    exchanged but the rendered chunk, one all_gather of its packed
+    outputs); view_chunk is rounded up to a multiple of the axis size.
+    Every rank samples the same scenes from the same rng and holds every
+    image; rank 0 alone writes files. The outputs equal the single-card
+    generator's."""
 
     def __init__(self, library: ObjectLibrary,
                  config: DataGenConfig = DataGenConfig(), device_mesh=None,
                  distractor_library: Optional[ObjectLibrary] = None,
                  device=None):
-        if device_mesh is not None:
-            raise NotImplementedError(
-                "COCODataGenerator(device_mesh=...) shards the views over "
-                "several cards: not ported yet (ROADMAP Queue 1 item 24)")
         self.library = library
+        self.device_mesh = device_mesh
+        self._writer = True
+        if device_mesh is not None:
+            import torch.distributed as dist
+
+            from ..parallel.mesh import DATA_AXIS, axis_size, check_mesh
+
+            check_mesh(device_mesh)
+            d = axis_size(device_mesh, DATA_AXIS)
+            vc = -(-config.view_chunk // d) * d
+            if vc != config.view_chunk:
+                config = dataclasses.replace(config, view_chunk=vc)
+            self._writer = dist.get_rank() == 0
         self.config = config
         self.device = resolve_device(device)
         # annotation targets vs distractors: entries flagged distractor=True
@@ -717,7 +731,19 @@ class COCODataGenerator:
         (binning.deferred_budget_checks)."""
         from ..rasterize.binning import deferred_budget_checks
 
-        vc = batched.batch_size
+        parts, index = 1, 0
+        if self.device_mesh is not None:
+            from ..parallel.mesh import (
+                DATA_AXIS,
+                all_gather_batch,
+                axis_index,
+                axis_size,
+            )
+
+            parts = axis_size(self.device_mesh, DATA_AXIS)
+            index = axis_index(self.device_mesh, DATA_AXIS)
+        vl = batched.batch_size           # views this rank renders a chunk
+        vc = vl * parts
         nr = Rs.shape[0]
         idx = [min(i, nr - 1) for i in range(-(-nr // vc) * vc)]
         Rd = torch.as_tensor(Rs[idx], device=self.device)
@@ -726,8 +752,11 @@ class COCODataGenerator:
         pending = []
         with deferred_budget_checks():
             for v0 in range(0, nr, vc):
-                chunk = self._render_views(batched, Rd[v0:v0 + vc],
-                                           td[v0:v0 + vc], lights, f2o)
+                a = v0 + index * vl
+                chunk = self._render_views(batched, Rd[a:a + vl],
+                                           td[a:a + vl], lights, f2o)
+                if parts > 1:
+                    chunk = all_gather_batch(chunk, self.device_mesh)
                 keep = min(vc, nr - v0)
                 host = []
                 for arr in chunk:
@@ -786,9 +815,14 @@ class COCODataGenerator:
             device=self.device)
         self.renderer.lights = lights
 
-        vc = min(cfg.view_chunk, n)
         f2o = scene.face_to_object
-        batched = scene.meshes.extend(vc)
+        if self.device_mesh is None:
+            batched = scene.meshes.extend(min(cfg.view_chunk, n))
+        else:   # this rank's share of a whole chunk of view_chunk views
+            from ..parallel.mesh import DATA_AXIS, axis_size
+
+            batched = scene.meshes.extend(
+                cfg.view_chunk // axis_size(self.device_mesh, DATA_AXIS))
         stacked = self._full_render(batched, Rs, ts, lights, f2o)
         if cfg.min_visible_px > 0:
             # exact full-size guarantee: re-check each view's seg and
@@ -872,7 +906,10 @@ class COCODataGenerator:
 
         rng = rng or np.random.default_rng(0)
         cfg = self.config
-        os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+        write = self._writer      # with a device_mesh, rank 0 alone writes
+        write_aux = write_aux and write
+        if write:
+            os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
         if write_aux:
             os.makedirs(os.path.join(out_dir, "aux"), exist_ok=True)
         # image and aux writes overlap the next scene's rendering
@@ -907,9 +944,10 @@ class COCODataGenerator:
             n_obj = len(poses)
             for v in range(cfg.views_per_scene):
                 fname = f"scene{s:04d}_view{v:03d}.png"
-                io_futures.append(io_pool.submit(
-                    self._write_png, os.path.join(out_dir, "images", fname),
-                    rgb[v]))
+                if write:
+                    io_futures.append(io_pool.submit(
+                        self._write_png,
+                        os.path.join(out_dir, "images", fname), rgb[v]))
                 if write_aux:
                     aux(fname, "_depth.npy", rendered["depth"][v])
                     aux(fname, "_seg.npy", seg[v])
@@ -949,10 +987,11 @@ class COCODataGenerator:
         for fut in io_futures:  # surface any IO error before declaring done
             fut.result()
         io_pool.shutdown()
-        with open(os.path.join(out_dir, "annotations.json"), "w") as f:
-            json.dump(coco, f)
-        with open(os.path.join(out_dir, "poses.json"), "w") as f:
-            json.dump(all_poses, f)
+        if write:
+            with open(os.path.join(out_dir, "annotations.json"), "w") as f:
+                json.dump(coco, f)
+            with open(os.path.join(out_dir, "poses.json"), "w") as f:
+                json.dump(all_poses, f)
         return coco
 
     @staticmethod

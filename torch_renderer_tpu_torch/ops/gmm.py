@@ -76,7 +76,14 @@ def _gmm_em(X: torch.Tensor, means: torch.Tensor, n_iter: int,
             reg_covar: float) -> DiagGMM:
     """n_iter EM steps of a diagonal GMM on X (..., N, D) from the centres
     means (..., K, D), equal weights and every component at X's variance
-    (+ reg_covar)."""
+    (+ reg_covar).
+
+    The EM runs in float64 and returns X's dtype: its sums over the points
+    then round to the same float32 whatever order the card adds them in,
+    an order that follows the batch's size, so one target's fit does not
+    depend on the batch around it (the sharded search_batch splits it)."""
+    dtype = X.dtype
+    X, means = X.to(torch.float64), means.to(torch.float64)
     n, d = X.shape[-2:]
     K = means.shape[-2]
     var = (X.var(dim=-2, correction=0) + reg_covar)[..., None, :].expand(
@@ -92,7 +99,8 @@ def _gmm_em(X: torch.Tensor, means: torch.Tensor, n_iter: int,
         var = torch.einsum("...nk,...nkd->...kd", r, d2) / nk[..., None] \
             + reg_covar
         weights = nk / n
-    return DiagGMM(weights=weights, means=means, var=var)
+    return DiagGMM(weights=weights.to(dtype), means=means.to(dtype),
+                   var=var.to(dtype))
 
 
 def gmm_fit(generator: torch.Generator, X: torch.Tensor, n_components: int,

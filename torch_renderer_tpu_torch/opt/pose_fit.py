@@ -202,27 +202,42 @@ class CameraPoseFitter:
         return refs
 
     # -- loss ---------------------------------------------------------------
-    def loss(self, params, meshes: Meshes, refs):
-        """(total loss, metrics dict of 0-dim tensors)."""
+    def loss(self, params, meshes: Meshes, refs, totals=None):
+        """(total loss, metrics dict of 0-dim tensors).
+
+        totals: {"batch": B, "npix": mask count} of a whole batch of which
+        meshes, refs and params are one slice (parallel.sharded.
+        data_parallel_fit): every mean is then the slice's sum over the
+        whole batch's size, so the slices' losses and metrics add up to the
+        whole batch's."""
         cfg = self.config
         out = self.render(meshes, params)
-        sil_l1 = (out.silhouette - refs["sil"]).abs().mean()
         m = refs["mask"]
-        npix = m.sum().clamp_min(1.0)
+        if totals is None:
+            def mean(x):
+                return x.mean()
+
+            npix = m.sum().clamp_min(1.0)
+        else:
+            def mean(x):
+                return x.sum() / (x.numel() // x.shape[0] * totals["batch"])
+
+            npix = totals["npix"]
+        sil_l1 = mean((out.silhouette - refs["sil"]).abs())
         depth_h = (huber_loss(out.depth, refs["depth"], cfg.huber_delta)
                    * m).sum() / npix
         total = cfg.w_sil * sil_l1 + cfg.w_depth * depth_h
         metrics = {"loss_sil": sil_l1, "loss_depth": depth_h}
         if cfg.use_rgb and "rgb" in refs:
-            rgb_mse = ((out.rgb - refs["rgb"]) ** 2).mean()
+            rgb_mse = mean((out.rgb - refs["rgb"]) ** 2)
             total = total + cfg.w_rgb * rgb_mse
             metrics["loss_rgb"] = rgb_mse
         qn = torch.linalg.norm(params["quat"], dim=-1)
-        total = total + cfg.w_quat_norm * ((qn - 1.0) ** 2).mean()
+        total = total + cfg.w_quat_norm * mean((qn - 1.0) ** 2)
         metrics["loss"] = total
-        metrics["quat_norm"] = qn.mean()
-        metrics["iou"] = iou((out.silhouette > 0.5).to(torch.float32),
-                             refs["mask"]).mean()
+        metrics["quat_norm"] = mean(qn)
+        metrics["iou"] = mean(iou((out.silhouette > 0.5).to(torch.float32),
+                                  refs["mask"]))
         return total, metrics
 
     # -- optimization -------------------------------------------------------
@@ -236,7 +251,7 @@ class CameraPoseFitter:
                                   grow=True, margin=2.0)
 
     def fit(self, meshes: Meshes, refs, params0: Dict[str, torch.Tensor],
-            n_steps: Optional[int] = None, capture=None):
+            n_steps: Optional[int] = None, capture=None, totals=None):
         """Run the Adam loop. Returns (final params, metrics history dict
         of (n_steps,) tensors on the device); each step's metrics are those
         of the parameters before its update.
@@ -247,7 +262,8 @@ class CameraPoseFitter:
         runs it eagerly. On the card Adam is capturable (its step count on
         the device) on either route, so both run the same arithmetic. The
         parameters are updated in place; "warn" budget checks report once,
-        after the loop (binning.deferred_budget_checks)."""
+        after the loop (binning.deferred_budget_checks). totals: as in
+        loss(), for a fit of one slice of a batch."""
         cfg = self.config
         n = int(n_steps if n_steps is not None else cfg.n_steps)
         params = {k: v.detach().clone().to(self.device).requires_grad_(True)
@@ -259,7 +275,7 @@ class CameraPoseFitter:
 
         def iteration():
             opt.zero_grad(set_to_none=True)
-            total, metrics = self.loss(params, meshes, refs)
+            total, metrics = self.loss(params, meshes, refs, totals)
             total.backward()
             opt.step()
             history.add(metrics)

@@ -14,7 +14,10 @@ JAX package's one jitted lax.scan. Every random draw of the search is made
 from the caller's torch.Generator before the loop, and each iteration
 reads its own from a step counter on the device, so the captured graph
 holds no generator. ``search_batch`` searches B targets at once with the
-batch written out (JAX vmaps the search).
+batch written out (JAX vmaps the search). With a device_mesh, ``search``
+splits the hypotheses over the 'data' ranks and ``search_batch`` the
+targets (parallel/); the draws are made whole on every rank, from the
+same generator, so the results equal the single-card search.
 
 The chamfer scores' dense (H, P, M) distance matrices are cut into chunks
 of at most CHAMFER_CHUNK_ELEMS elements (one chunk at the apps' defaults
@@ -45,9 +48,8 @@ from ..utils.graph import StepGraph
 # (512 MiB of float32; the matrix's temporaries hold a few of them)
 CHAMFER_CHUNK_ELEMS = 1 << 27
 
-_ITEM_24 = ("needs the port's parallel/ (torch.distributed), ROADMAP Queue 1 "
-            "item 24")
-
+# the draws of GMMPoseSearch._draws made for every iteration (leading T)
+_PER_ITERATION = ("first", "seed", "comp", "offset")
 
 def poses6d_to_Rt(poses: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,24 +160,30 @@ class GMMPoseSearch:
                 "seed": rand((T, G, C - 1, E)), "comp": rand((T, G, H, C)),
                 "offset": randn((T, G, H, 6))}
 
-    def _run(self, generator, targets, masks, capture):
-        """The search of G targets (G, M, 3) with masks (G, M); every
-        output has a leading G."""
+    def _run(self, targets, masks, draws, capture, chamfer=None):
+        """The search of G targets (G, M, 3) with masks (G, M), from the
+        draws of _draws(generator, G); every output has a leading G.
+        chamfer: the scoring function (default chamfer_scores)."""
         cfg = self.config
-        G = targets.shape[0]
+        chamfer = chamfer_scores if chamfer is None else chamfer
         H, E, T = cfg.n_hypotheses, cfg.n_elite, cfg.n_iters
         ref, dev = self.ref_points, self.device
-        draws = self._draws(generator, G)
+        G = targets.shape[0]
 
-        # initial hypotheses (reference :171-175) and their elite
-        centroid = (targets * masks[..., None]).sum(1) \
-            / masks.sum(-1).clamp_min(1.0)[:, None]
+        # initial hypotheses (reference :171-175) and their elite. The
+        # centroids are summed in float64, where they round to the same
+        # float32 in any order: on the card a reduction's order follows its
+        # count of outputs, and a target's search must not depend on the
+        # batch around it (the sharded search_batch splits the batch)
+        t64, m64 = targets.to(torch.float64), masks.to(torch.float64)
+        centroid = ((t64 * m64[..., None]).sum(1)
+                    / m64.sum(-1).clamp_min(1.0)[:, None]).to(targets.dtype)
         trans = centroid[:, None] + cfg.translation_std * draws["trans"]
         rpy = draws["rpy"] * (2.0 * math.pi) - math.pi
         poses = torch.cat([trans, rpy], dim=-1)
 
         e_poses, e_scores = _elite(
-            poses, chamfer_scores(ref, targets, poses, masks), E)
+            poses, chamfer(ref, targets, poses, masks), E)
         best_pose = e_poses[:, 0].clone()
         best_score = e_scores[:, 0].clone()
 
@@ -196,7 +204,7 @@ class GMMPoseSearch:
                                         _gumbel(d["seed"]))
             gmm = _gmm_em(e_poses, centers, cfg.gmm_em_iters, cfg.reg_covar)
             poses = _gmm_sample_from(gmm, _gumbel(d["comp"]), d["offset"])
-            scores = chamfer_scores(ref, targets, poses, masks)
+            scores = chamfer(ref, targets, poses, masks)
             ep, es = _elite(poses, scores, E)
             improved = es[:, 0] < best_score
             best_pose.copy_(torch.where(improved[:, None], ep[:, 0],
@@ -236,33 +244,115 @@ class GMMPoseSearch:
         """The full search for target_points (M, 3), optional (M,) mask;
         draws from generator. capture (utils/graph.py): None replays one
         captured CUDA graph an iteration on the card and runs eagerly on
-        the CPU. device_mesh (sharding the hypotheses over cards) raises
-        NotImplementedError until ROADMAP Queue 1 item 24."""
-        if device_mesh is not None:
-            raise NotImplementedError(f"search(device_mesh=...) {_ITEM_24}")
+        the CPU. device_mesh (parallel.make_mesh): each rank scores its
+        slice of the hypotheses and one all_gather a scoring gives every
+        rank the whole (_sharded_search_fn); the elite selection, the GMM
+        fit and the resampling run whole on every rank. The results equal
+        the single-card search's."""
         tp = torch.as_tensor(target_points, dtype=torch.float32,
                              device=self.device)
-        out = self._run(generator, tp[None],
-                        self._mask(tp, target_mask)[None], capture)
+        masks = self._mask(tp, target_mask)[None]
+        if device_mesh is not None:
+            out = self._sharded_search_fn(device_mesh)(
+                generator, tp[None], masks, capture)
+        else:
+            out = self._run(tp[None], masks, self._draws(generator, 1),
+                            capture)
         return {n: v[0] for n, v in out.items()}
 
     def search_batch(self, generator: torch.Generator, target_points,
                      target_mask=None, device_mesh=None,
                      capture=None) -> Dict[str, torch.Tensor]:
         """B independent searches over targets (B, M, 3), optional (B, M)
-        masks, at once; every output gains a leading B. device_mesh as in
-        search."""
-        if device_mesh is not None:
-            raise NotImplementedError(
-                f"search_batch(device_mesh=...) {_ITEM_24}")
+        masks, at once; every output gains a leading B. device_mesh
+        (parallel.make_mesh): the targets split over the 'data' ranks,
+        padded to a multiple of the axis size by repeating the last, with
+        no collective inside the loop (captured per rank as without a
+        mesh); one all_gather after it gives every rank the whole batch,
+        padding cut off. The draws are those of the unsplit search."""
         tp = torch.as_tensor(target_points, dtype=torch.float32,
                              device=self.device)
-        return self._run(generator, tp, self._mask(tp, target_mask), capture)
+        masks = self._mask(tp, target_mask)
+        if device_mesh is None:
+            return self._run(tp, masks, self._draws(generator, tp.shape[0]),
+                             capture)
+
+        from ..parallel.mesh import (
+            DATA_AXIS,
+            _rank_slice,
+            all_gather_batch,
+            axis_index,
+            axis_size,
+            check_mesh,
+        )
+
+        check_mesh(device_mesh)
+        B = tp.shape[0]
+        d = axis_size(device_mesh, DATA_AXIS)
+        # this rank's targets: its slice of the batch padded to a multiple
+        # of d by repeating the last
+        idx = _rank_slice(torch.arange(-(-B // d) * d, device=self.device)
+                          .clamp_max(B - 1),
+                          axis_index(device_mesh, DATA_AXIS), d)
+        out = self._run_targets(tp, masks, self._draws(generator, B), idx,
+                                capture)
+        out = all_gather_batch(out, device_mesh)
+        return {n: v[:B] for n, v in out.items()}
+
+    def _run_targets(self, targets, masks, draws, idx, capture):
+        """The search of the targets idx of a batch (B, M, 3), masks
+        (B, M), from the batch's draws (_draws(generator, B)): each
+        output's rows are those of the batch's search at idx."""
+        idx = torch.as_tensor(idx, device=self.device)
+        # the per-iteration draws are (T, B, ...), the initial ones (B, ...)
+        local = {n: v[:, idx] if n in _PER_ITERATION else v[idx]
+                 for n, v in draws.items()}
+        return self._run(targets[idx], masks[idx], local, capture)
 
     def _sharded_search_fn(self, device_mesh):
-        """The search with its hypotheses sharded over cards: waits for
-        ROADMAP Queue 1 item 24."""
-        raise NotImplementedError(f"the sharded search {_ITEM_24}")
+        """The search with its hypotheses split over the mesh's 'data'
+        axis: each rank scores n_hypotheses / d of them (the reference's
+        chamfer sweep over 400 hypotheses spread over cards) and one
+        all_gather of the (G, H) scores precedes each elite selection; the
+        selection, the GMM fit and the resampling run whole on every rank.
+        ValueError unless n_hypotheses divides by the axis size. Returns
+        fn(generator, targets (G, M, 3), masks (G, M), capture) -> the
+        search's outputs. The loop has a collective inside, so capture is
+        resolved by parallel.mesh.resolve_collective_capture (eager under
+        gloo)."""
+        from ..parallel.mesh import (
+            DATA_AXIS,
+            _rank_slice,
+            all_gather_batch,
+            axis_index,
+            axis_size,
+            check_mesh,
+            resolve_collective_capture,
+        )
+
+        check_mesh(device_mesh)
+        d = axis_size(device_mesh, DATA_AXIS)
+        i = axis_index(device_mesh, DATA_AXIS)
+        if self.config.n_hypotheses % d:
+            raise ValueError(
+                f"n_hypotheses={self.config.n_hypotheses} must divide by "
+                f"the mesh 'data' axis size {d} (round it up to a "
+                "multiple)")
+
+        def chamfer(ref, targets, poses, masks):
+            local = chamfer_scores(ref, targets,
+                                   _rank_slice(poses, i, d, dim=1), masks)
+            return all_gather_batch(local.movedim(1, 0),
+                                    device_mesh).movedim(0, 1)
+
+        def run(generator, targets, masks, capture=None):
+            cap = resolve_collective_capture(capture, self.device,
+                                             device_mesh)
+            return self._run(targets, masks,
+                             self._draws(generator, targets.shape[0]), cap,
+                             chamfer=chamfer)
+
+        return run
 
 
 # ---------------------------------------------------------------------------

@@ -105,13 +105,48 @@ def register_batch(data: Dict[str, torch.Tensor], max_iterations: int = 100,
 def register_batch_sharded(data: Dict[str, torch.Tensor], device_mesh,
                            max_iterations: int = 100,
                            init_transform: Optional[SimilarityTransform]
-                           = None) -> ICPSolution:
-    """The object axis sharded over several cards: waits for the port of
-    ``parallel/`` to torch.distributed (ROADMAP Queue 1 item 24)."""
-    raise NotImplementedError(
-        "register_batch_sharded needs the port's parallel/ "
-        "(torch.distributed), ROADMAP Queue 1 item 24; use register_batch "
-        "on one card")
+                           = None, capture=None) -> ICPSolution:
+    """The object axis split over the mesh's 'data' axis: every rank passes
+    the whole batch, registers its slice (padded to a multiple of the axis
+    size by repeating the last object, init_transform alike) with no
+    collective inside the loop (each ICP step is per object: nearest
+    neighbours and a Umeyama SVD, svd3 on the card), so the loop runs
+    captured per rank as register_batch's does. One all_gather after it
+    gives every rank the whole solution, padding cut off."""
+    from ..parallel.mesh import (
+        DATA_AXIS,
+        all_gather_batch,
+        axis_size,
+        check_mesh,
+        shard_batch,
+    )
+
+    check_mesh(device_mesh)
+    d = axis_size(device_mesh, DATA_AXIS)
+    B = data["source"].shape[0]
+    Bp = -(-B // d) * d
+
+    def pad(x):
+        return torch.cat([x, x[-1:].expand((Bp - B,) + x.shape[1:])]) \
+            if Bp > B else x
+
+    local = shard_batch(
+        {k: pad(data[k]) for k in ("source", "target", "target_mask")},
+        device_mesh)
+    init = None if init_transform is None else shard_batch(
+        SimilarityTransform(*(pad(x) for x in init_transform)), device_mesh)
+    sol = register_batch(local, max_iterations, init, capture=capture)
+    # the histories are (iterations, batch, ...): gather them on dim 1
+    t_hist, rmse_hist = (all_gather_batch(x.movedim(1, 0), device_mesh)
+                         .movedim(0, 1)[:, :B]
+                         for x in (sol.t_history, sol.rmse_history))
+    whole = all_gather_batch(
+        (sol.converged, sol.rmse, sol.Xt, sol.RTs), device_mesh)
+    converged, rmse, Xt, RTs = (
+        x[:B] if isinstance(x, torch.Tensor)
+        else SimilarityTransform(*(y[:B] for y in x)) for x in whole)
+    return ICPSolution(converged=converged, rmse=rmse, Xt=Xt, RTs=RTs,
+                       t_history=t_hist, rmse_history=rmse_hist)
 
 
 def evaluate_registration(sol: ICPSolution, gt_R: torch.Tensor,

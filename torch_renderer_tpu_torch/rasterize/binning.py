@@ -49,16 +49,28 @@ NO_SLOT = 2**31 - 1
 # (a fit's or the bench's loop, whose steps a CUDA graph may replay) "warn"
 # keeps each count's running max on the device instead, and the loop reads
 # it back once at its end: the counterpart of the JAX package's
-# asynchronous jax.debug.callback.
+# asynchronous jax.debug.callback. Mode "checkify" (the JAX package's
+# checkify guard) records the counts the same way inside
+# checked_budget_checks() (utils.debug.checked_budgets wraps a call in it)
+# and raises BudgetOverflowError at the block's end, naming the budget;
+# outside that block it raises at once, as an unwrapped checkify check
+# fails in JAX.
 
+BUDGET_CHECK_MODES = (None, "off", "warn", "checkify")
 _BUDGET_CHECK_DEFAULT = [None]
 _DEFERRED: list = []        # the active BudgetRecords, innermost last
+_CHECKED: list = []         # the active checkify BudgetRecords
+
+
+class BudgetOverflowError(RuntimeError):
+    """A budget overflowed under check_budgets="checkify"."""
 
 
 def set_budget_check_default(mode) -> None:
-    """Process-wide default for check_budgets (None | 'off' | 'warn'); an
-    explicit per-call value wins. 'off' forces the guards off."""
-    if mode not in (None, "off", "warn"):
+    """Process-wide default for check_budgets (None | 'off' | 'warn' |
+    'checkify'); an explicit per-call value wins. 'off' forces the guards
+    off."""
+    if mode not in BUDGET_CHECK_MODES:
         raise ValueError(f"unknown budget check mode {mode!r}")
     _BUDGET_CHECK_DEFAULT[0] = mode
 
@@ -68,20 +80,23 @@ def resolve_budget_check(mode):
     return None if mode == "off" else mode
 
 
+def _overflow_message(name: str, actual: int, budget: int,
+                      hint: str) -> str:
+    return (f"{name} overflow: max count {actual} > budget {budget} — "
+            f"overflowing work is silently dropped. {hint}").rstrip()
+
+
 def _overflow_warning(name: str, actual: int, budget: int, hint: str,
                       stacklevel: int) -> None:
-    warnings.warn(
-        f"{name} overflow: max count {actual} > budget {budget} — "
-        f"overflowing work is silently dropped. {hint}".rstrip(),
-        RuntimeWarning, stacklevel=stacklevel + 1,
-    )
+    warnings.warn(_overflow_message(name, actual, budget, hint),
+                  RuntimeWarning, stacklevel=stacklevel + 1)
 
 
 class BudgetRecord:
-    """The deferred "warn" checks of one loop: per (budget name, budget,
-    hint), the running max of the true count, on the device. The first
-    record of a budget is made by an eager step (a captured loop's
-    warm-up); later ones, replays included, update it in place."""
+    """The deferred checks of one block: per (budget name, budget, hint),
+    the running max of the true count, on the device. The first record of
+    a budget is made by an eager step (a captured loop's warm-up); later
+    ones, replays included, update it in place."""
 
     def __init__(self):
         self.max: dict = {}
@@ -95,12 +110,18 @@ class BudgetRecord:
         else:
             torch.maximum(seen, actual.detach(), out=seen)
 
-    def warn(self) -> None:
-        """One host read per budget; warn as check_budget does."""
+    def overflows(self):
+        """(name, largest count, budget, hint) of each overflowed budget:
+        one host read per budget."""
         for (name, budget, hint), seen in self.max.items():
             a = int(seen)
             if a > budget:
-                _overflow_warning(name, a, budget, hint, stacklevel=3)
+                yield name, a, budget, hint
+
+    def warn(self) -> None:
+        """Warn as check_budget does, once per overflowed budget."""
+        for name, a, budget, hint in self.overflows():
+            _overflow_warning(name, a, budget, hint, stacklevel=3)
 
 
 @contextlib.contextmanager
@@ -116,14 +137,37 @@ def deferred_budget_checks():
     record.warn()
 
 
+@contextlib.contextmanager
+def checked_budget_checks():
+    """Record the "checkify" checks made inside on the device and, at the
+    end of the block, raise BudgetOverflowError naming the first budget
+    that overflowed (utils.debug.checked_budgets)."""
+    record = BudgetRecord()
+    _CHECKED.append(record)
+    try:
+        yield record
+    finally:
+        _CHECKED.remove(record)
+    for name, a, budget, hint in record.overflows():
+        raise BudgetOverflowError(_overflow_message(name, a, budget, hint))
+
+
 def check_budget(name: str, actual, budget: int, mode, hint: str = "") -> None:
-    """Warn when `actual` (the true max count, a scalar tensor or int)
-    exceeds the static `budget`. mode None (after the process default) is a
-    no-op and touches no device value; inside deferred_budget_checks() a
-    tensor count is recorded on the device and checked at the block's
-    end."""
+    """Guard a budget: `actual` is the true max count (a scalar tensor or
+    int), `budget` the static one. mode None (after the process default)
+    is a no-op and touches no device value; "warn" warns when it
+    overflows (inside deferred_budget_checks() a tensor count is recorded
+    on the device and checked at the block's end); "checkify" records it
+    for the enclosing checked_budget_checks() block."""
     mode = resolve_budget_check(mode)
     if mode is None:
+        return
+    if mode == "checkify":
+        if not _CHECKED:
+            raise RuntimeError(
+                f"{name}: check_budgets='checkify' needs the call wrapped "
+                "in utils.debug.checked_budgets")
+        _CHECKED[-1].record(name, torch.as_tensor(actual), budget, hint)
         return
     if mode != "warn":
         raise ValueError(f"unknown budget check mode {mode!r}")

@@ -228,12 +228,17 @@ class Meshes:
 
     def vertex_normals(self) -> torch.Tensor:
         """(B, V, 3) area-weighted vertex normals: each face's unnormalized
-        normal is scatter-added at its three corners."""
+        normal is scatter-added at its three corners. The sums are taken in
+        float64, where a vertex's few float32 terms add up exactly in any
+        order: on the card the scatter's atomics add them in an order that
+        changes from run to run, and the normals must not."""
         fn = self._face_cross() * self.face_mask()[..., None]   # (B, F, 3)
         B, F, _ = self.faces.shape
         idx = self.faces.transpose(1, 2).reshape(B, 3 * F, 1).expand(
             B, 3 * F, 3)                                         # corner-major
-        vn = torch.zeros_like(self.verts).scatter_add(1, idx, fn.repeat(1, 3, 1))
+        vn = torch.zeros(self.verts.shape, dtype=torch.float64,
+                         device=self.device).scatter_add(
+            1, idx, fn.to(torch.float64).repeat(1, 3, 1)).to(fn.dtype)
         vn = vn / torch.linalg.norm(vn, dim=-1, keepdim=True).clamp_min(1e-12)
         return vn * self.vert_mask()[..., None]
 

@@ -1,10 +1,9 @@
-"""Host-side plots of the pose search (counterpart of part of
-``torch_renderer_tpu.utils.plotting``): the GMM-ellipse scatter plot of
-the reference's GMM.py:10-26 (duplicated at
+"""Host-side plots (counterpart of ``torch_renderer_tpu.utils.plotting``):
+an image batch on a grid (the reference's plot_image_grid.py), the
+GMM-ellipse scatter plot of the reference's GMM.py:10-26 (duplicated at
 pytorch3d_icp_evaluation.py:72-114) and a Gaussian's 3D wireframe (its
 3D_Gaussian_plot.py). matplotlib is imported when a plot is drawn, and a
 missing matplotlib raises there; tensors are read back to the host.
-``image_grid`` is not ported yet (ROADMAP Queue 1 item 25).
 """
 
 from __future__ import annotations
@@ -25,6 +24,36 @@ def _pyplot():
         raise ImportError("plotting needs matplotlib, which is not "
                           "installed") from e
     return plt
+
+
+def image_grid(images, rows=None, cols=None, fill: bool = True,
+               show_axes: bool = False, rgb: bool = True):
+    """Show an (N, H, W, C) image batch on a rows x cols grid; returns the
+    matplotlib Figure (the reference's plot_image_grid.py)."""
+    plt = _pyplot()
+    images = _host(images)
+    n = images.shape[0]
+    if rows is None and cols is None:
+        cols = int(np.ceil(np.sqrt(n)))
+    if rows is None:
+        rows = int(np.ceil(n / cols))
+    if cols is None:
+        cols = int(np.ceil(n / rows))
+    gridspec_kw = {"wspace": 0.0, "hspace": 0.0} if fill else {}
+    fig, axarr = plt.subplots(rows, cols, gridspec_kw=gridspec_kw,
+                              figsize=(15, 9))
+    if fill:
+        fig.subplots_adjust(left=0, bottom=0, right=1, top=1)
+    for i, ax in enumerate(np.atleast_1d(axarr).ravel()):
+        if i < n:
+            im = images[i]
+            if rgb and im.ndim == 3:
+                ax.imshow(im[..., :3])
+            else:
+                ax.imshow(im[..., 0] if im.ndim == 3 else im)
+        if not show_axes:
+            ax.set_axis_off()
+    return fig
 
 
 def plot_gaussian_wireframe(mean, cov, ax=None, n_std: float = 2.0,
