@@ -6,7 +6,9 @@ on an NVIDIA GPU. Marked ``cuda``: without a card every test here skips
 
 Tolerances: soft forward sums within 1e-4 + 1e-5 * max|S| (float32 sums in
 another order); soft backward within 1e-3 of max|dq| (another order and
-form of the pixel sums). Hard winners equal, or differing only at
+form of the pixel sums), at tiles of 10^4 pixels plus what a slot's
+flipped edge ties can move (_tie_flips; at most 1% of the live slots, and
+within 1e-3 alone with the cotangent 0 at those pixels). Hard winners equal, or differing only at
 selection-depth ties within 1e-6 on under 0.1% of pixels; hard values within
 1e-5 where the winners agree (the kernels repeat the plain arithmetic op
 for op, so they are expected to be equal). Texture sampling: the forward
@@ -1521,3 +1523,241 @@ def test_sharded_pose_step_captured_under_nccl_on_the_card():
     ps = run_ranks(cases.card_pose_step_one_rank, 1, "nccl", timeout=300)[0]
     assert ps["backend"] == "nccl"
     _check_pose_step(ps)
+
+
+# ---------------------------------------------------------------------------
+# Tiles past one block and K past the shared-memory lists: the shapes that
+# JAX's binned paths run and a kernel block of 1024 threads does not hold
+# ---------------------------------------------------------------------------
+
+def _device_lists(entry: str, K: int) -> bool:
+    """Whether the selection kernel's lists of K live in device memory."""
+    from torch_renderer_tpu_torch import _build
+
+    return bool(getattr(_build.load_kernels(), entry)(K))
+
+
+# tiles 48 and 64 (blocks of two rows), 100 and 200 (blocks of one row,
+# not whole warps) and 1100 (a row's columns split over two blocks, the
+# WIDE instance; fewer candidates, for the plain version's memory): all 8
+# rows equal the plain version's bit for bit, at blur 0 and in the blur
+# band
+@pytest.mark.parametrize("tile,B,A,F", [
+    (48, 2, 3, 150), (64, 2, 3, 150), (100, 2, 3, 150), (200, 2, 3, 150),
+    (1100, 1, 2, 30),
+])
+def test_hard_k1_wide_tiles_match_plain(device, tile, B, A, F):
+    from test_torch_topk_split import INV_S, topk_slabs
+
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    slab, count, origin = (t.to(device) for t in topk_slabs(
+        tile, B, A, F, tile))
+    for blur, clip in ((0.0, False), (9.21e-4, True)):
+        args = (slab, count, origin, tile, INV_S, blur, 1e-5, clip)
+        before = cuda_hard.HARD_LAUNCHES
+        out = cuda_hard.hard_k1(*args)
+        torch.cuda.synchronize()
+        assert cuda_hard.HARD_LAUNCHES == before + 1
+        assert torch.equal(out, cuda_hard.hard_k1_reference(*args)), blur
+
+
+# tile 48 and 64 (several blocks a tile), K past 64 in shared memory (128,
+# 812: one warp's lists fill it) and in device memory (813, 1000), at tile
+# 16 and 64; 1100 candidates where K reaches 1000: winners equal
+@pytest.mark.parametrize("tile,K,F", [
+    (48, 4, 150), (64, 4, 150), (64, 50, 150), (16, 128, 300),
+    (16, 812, 1100), (16, 813, 1100), (16, 1000, 1100), (64, 1000, 1100),
+])
+def test_topk_select_wide_matches_plain(device, tile, K, F):
+    from test_torch_topk_split import INV_S, topk_slabs
+
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    assert _device_lists("trt_topk_device_lists", K) == (K > 812)
+    slab, count, origin = (t.to(device) for t in topk_slabs(
+        tile + K, 2, 3, F, tile))
+    for blur in (0.0, 9.21e-4):
+        args = (slab, count, origin, K, tile, INV_S, blur, 1e-5)
+        before = cuda_hard.TOPK_LAUNCHES
+        lane = cuda_hard.topk_select(*args)
+        torch.cuda.synchronize()
+        assert cuda_hard.TOPK_LAUNCHES == before + 1
+        ref = cuda_hard.topk_select_reference(*args)
+        assert lane.shape == ref.shape == (2, 3, K, tile * tile)
+        assert torch.equal(lane, ref), blur
+        assert bool((lane[-1, -1] == -1).all())
+
+
+# tiles 48 and 64, 200 (a row's columns split over two blocks), K past
+# 64 in shared memory with smaller blocks (65, 300) and in device memory
+# (877, 1000): winners equal
+@pytest.mark.parametrize("tile,K,P", [
+    (48, 8, 600), (64, 8, 600), (200, 8, 600), (16, 65, 600),
+    (16, 300, 600), (16, 877, 1200), (64, 1000, 1200),
+])
+@pytest.mark.parametrize("per_point", [False, True])
+def test_points_select_wide_matches_plain(device, tile, K, P, per_point):
+    from torch_renderer_tpu_torch.rasterize import cuda_points
+
+    assert _device_lists("trt_points_device_lists", K) == (K > 876)
+    slab, count, origin, offs, r2 = _point_slabs(K + tile, 2, 3, P, tile,
+                                                 device, per_point)
+    args = (slab, count, origin, offs, K, 1e-5, r2)
+    before = cuda_points.POINTS_LAUNCHES
+    lane = cuda_points.points_select(*args)
+    torch.cuda.synchronize()
+    assert cuda_points.POINTS_LAUNCHES == before + 1
+    ref = cuda_points.points_select_reference(*args)
+    assert lane.shape == ref.shape == (2, 3, K, tile * tile)
+    assert torch.equal(lane, ref)
+    assert bool((lane[-1, -1] == -1).all())
+
+
+def _tie_flips(q, count, g, tile: int, inv_s: float,
+               inv_sigma: float) -> torch.Tensor:
+    """(B, A, tile^2, K, 6): what a flipped edge tie can move each corner
+    gradient of a (pixel, slot) pair by. Where a pixel's two nearest edges
+    of the slot's face lie within 1e-5 (relative) of each other, float32
+    rounding decides whether they tie (the term splits between them) and
+    which is the nearer (the kernel and the plain version compute the
+    distances in other forms); the most that can move is the difference
+    of the two edges' full terms (soft_coverage_bwd_reference's), 0 for
+    every other pair. At a vertex both edges' nearest point is the vertex
+    and their terms are equal, so the common ties move nothing."""
+    signed, d2, inside, live, edges = cuda_soft._pair_terms(q, count, tile,
+                                                            inv_s)
+    alpha = (g[..., None] * torch.sigmoid(-signed * inv_sigma) * -inv_sigma
+             * torch.where(inside, -1.0, 1.0))
+    alpha = torch.where(live, alpha, torch.zeros_like(alpha))
+    terms = []
+    for (a, b), (_, t, wx, wy, gx, gy) in zip(((0, 1), (1, 2), (2, 0)),
+                                              edges):
+        b2 = 2.0 * alpha
+        ca, cg, cbw, cbg = b2 * (t - 1.0), b2 * t * (1.0 - t), -b2 * t, \
+            b2 * t * t
+        c = [torch.zeros_like(alpha)] * 6
+        c[2 * a], c[2 * a + 1] = ca * wx + cg * gx, ca * wy + cg * gy
+        c[2 * b], c[2 * b + 1] = cbw * wx + cbg * gx, cbw * wy + cbg * gy
+        terms.append(torch.stack(c, dim=-1))
+    terms = torch.stack(terms, dim=-2)                   # (B, A, P, K, 3, 6)
+    dd = torch.stack([e[0] for e in edges], dim=-1)
+    order = dd.argsort(-1)
+    d0, d1 = (dd.gather(-1, order[..., i:i + 1])[..., 0] for i in (0, 1))
+    near = ((d1 - d0) <= 1e-5 * d0) & live
+
+    def nth(i):
+        idx = order[..., i, None, None].expand(*order.shape[:-1], 1, 6)
+        return terms.gather(-2, idx)[..., 0, :]
+
+    return (nth(0) - nth(1)).abs() * near[..., None]
+
+
+# tiles 48 (the backward's last pixel chunk a quarter full), 64 (4 forward
+# blocks of 16 rows, 4 pixel chunks) and 100 (blocks of 10 rows in row
+# order, 10 chunks), 300 candidates (three slot chunks): the forward within
+# test_kernels_match_plain's bound; the backward too, plus on each slot
+# what its pixels' flipped edge ties can move (_tie_flips: a tile of 10^4
+# pixels holds a few such pixels), which at most 1% of the live slots may
+# need; and, with the cotangent 0 at those pixels, the backward within
+# the bound alone, every pixel chunk included
+@pytest.mark.parametrize("tile", [48, 64, 100])
+def test_soft_pair_wide_tiles_match_plain(device, tile):
+    B, A, K, sigma = 2, 3, 300, 1e-4
+    q, count = _slabs(tile, B, A, K, tile, device)
+    inv_s, inv_sigma = 1.0 / 16, 1.0 / sigma
+    g = torch.rand((B, A, tile * tile), device=device)
+    before = (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES)
+    S = cuda_soft.soft_coverage_fwd(q, count, tile, inv_s, inv_sigma)
+    dq = cuda_soft.soft_coverage_bwd(q, count, g, tile, inv_s, inv_sigma)
+    torch.cuda.synchronize()
+    assert (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    S_ref = cuda_soft.soft_coverage_fwd_reference(q, count, tile, inv_s,
+                                                  inv_sigma)
+    dq_ref = cuda_soft.soft_coverage_bwd_reference(q, count, g, tile, inv_s,
+                                                   inv_sigma)
+    torch.testing.assert_close(S, S_ref, rtol=0,
+                               atol=1e-4 + 1e-5 * float(S_ref.abs().max()))
+    bound = 1e-3 * float(dq_ref.abs().max())
+    flips = _tie_flips(q, count, g, tile, inv_s, inv_sigma)
+    allowance = flips.sum(2)                                  # (B, A, K, 6)
+    err = (dq - dq_ref).abs()
+    assert bool((err <= bound + allowance).all()), \
+        float((err - bound - allowance).max())
+    tied = (allowance > 1e-6 * bound).any(-1)
+    live = int(count.sum())
+    tie_px = (flips > 1e-6 * bound).any(-1).any(-1)           # (B, A, P)
+    print(f"tile {tile}: {int(tied.sum())} of {live} live slots hold a "
+          f"flippable tie, on {int(tie_px.sum())} of {tie_px.numel()} "
+          f"pixels; the largest allowance {float(allowance.max()):.4g} "
+          f"against the bound {bound:.4g}; the largest gap there "
+          f"{float(err[tied].max()) if bool(tied.any()) else 0.0:.4g}")
+    assert int(tied.sum()) <= 0.01 * live
+    del flips
+    g0 = torch.where(tie_px, torch.zeros_like(g), g)
+    dq0 = cuda_soft.soft_coverage_bwd(q, count, g0, tile, inv_s, inv_sigma)
+    dq0_ref = cuda_soft.soft_coverage_bwd_reference(q, count, g0, tile,
+                                                    inv_s, inv_sigma)
+    torch.testing.assert_close(dq0, dq0_ref, rtol=0,
+                               atol=1e-3 * float(dq0_ref.abs().max()))
+    assert (S[-1, -1] == 0).all() and (dq[-1, -1] == 0).all()
+
+
+# the binned entry points at bin 64 on the card against the same calls on
+# the CPU: the mesh raster (K=1 and 4) with the vertex gradient of its
+# depth over the pixels whose face ids agree on both (a pixel whose ids
+# differ, from the projection's rounding, moves its gradient to other
+# vertices), the soft silhouette with its gradient, and the point raster
+def test_wide_bins_end_to_end_match_cpu(device):
+    import torch_renderer_tpu_torch as trt
+
+    verts, faces = trt.icosphere(2)
+    f = 0.8 * 96
+    Km = np.array([[f, 0, 48], [0, f, 48], [0, 0, 1]], np.float32)
+    t = np.array([[0.0, 0.0, 3.0], [0.2, -0.1, 2.5]], np.float32)
+    cases = ((1, 0.0), (4, 1e-4))
+
+    def run(dev, agree=None):
+        meshes = trt.Meshes.from_single(verts, faces, device=dev).extend(2)
+        cam = trt.PerspectiveCamera.from_K(Km, (96, 96), t=t, device=dev)
+        v = meshes.verts.clone().requires_grad_(True)
+        res = {}
+        for k, blur in cases:
+            st = trt.RasterizationSettings((96, 96), blur_radius=blur,
+                                           faces_per_pixel=k, bin_size=64,
+                                           max_faces_per_bin=320)
+            fr = trt.rasterize_meshes(meshes.update_padded(v), cam, st)
+            w = 1.0 if agree is None else agree[k].to(dev)
+            (g,) = torch.autograd.grad((fr.zbuf * fr.mask * w).sum(), v)
+            res[k] = (fr.pix_to_face.cpu(), g.cpu())
+        a = trt.soft_silhouette(meshes.update_padded(v), cam, tile=64,
+                                impl="pallas")
+        (g,) = torch.autograd.grad(a.sum(), v)
+        res["soft"] = (a.detach().cpu(), g.cpu())
+        pts = torch.as_tensor(verts, dtype=torch.float32,
+                              device=dev)[None].expand(2, -1, -1)
+        pr = trt.rasterize_points(
+            trt.Pointclouds.from_padded(pts * 0.9 + torch.tensor(
+                [0.0, 0.0, 2.5], device=dev)), cam,
+            trt.PointsRasterizationSettings((96, 96), radius=0.05,
+                                            points_per_pixel=8, bin_size=64,
+                                            max_points_per_bin=200))
+        res["points"] = pr.idx.cpu()
+        return res
+
+    c, d = run("cpu"), run(device)
+    agree = {k: (c[k][0] == d[k][0]).all(-1, keepdim=True).float()
+             for k, _ in cases}
+    for k, _ in cases:   # ids differ on under 0.1% of pixels
+        assert float(1.0 - agree[k].mean()) < 1e-3, k
+    c, d = run("cpu", agree), run(device, agree)
+    for k, _ in cases:
+        torch.testing.assert_close(d[k][1], c[k][1], rtol=0,
+                                   atol=1e-3 * float(c[k][1].abs().max()),
+                                   msg=f"raster K={k} gradient")
+    torch.testing.assert_close(d["soft"][0], c["soft"][0], rtol=0, atol=1e-4)
+    torch.testing.assert_close(d["soft"][1], c["soft"][1], rtol=0,
+                               atol=1e-3 * float(c["soft"][1].abs().max()),
+                               msg="soft silhouette gradient")
+    assert float((c["points"] != d["points"]).any(-1).float().mean()) < 1e-3

@@ -368,7 +368,8 @@ def test_room_scene_bin_budgets_fit_hard_k1():
     of 64) exceed 128 slots, full size at tile 32 and quarter size at tile
     16. hard_k1 streams a tile's slots through shared memory in chunks of
     kK1Chunk = 128 (csrc/hard_raster.cu), so any budget fits, and a tile of
-    32^2 = 1024 pixels is its MAX_TILE_PIXELS (one thread a pixel)."""
+    32^2 = 1024 pixels fills one block's kMaxPixels threads at most (a
+    larger tile spans several blocks)."""
     from torch_renderer_tpu_torch.rasterize import cuda_hard
 
     src = open(os.path.join(os.path.dirname(cuda_hard.__file__), "..",
@@ -387,8 +388,7 @@ def test_room_scene_bin_budgets_fit_hard_k1():
     assert gen._mfb > 128 and gen._vis_mfb > gen._mfb
     assert gen.renderer.settings.max_faces_per_bin == gen._mfb
     assert gen._vis_renderer.settings.max_faces_per_bin == gen._vis_mfb
-    assert cfg.bin_size ** 2 == cuda_hard.MAX_TILE_PIXELS
-    assert 16 ** 2 <= cuda_hard.MAX_TILE_PIXELS
+    assert cfg.bin_size ** 2 == 1024   # kMaxPixels, checked above
 
 
 @pytest.fixture

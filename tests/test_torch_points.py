@@ -295,9 +295,12 @@ def test_input_guards_and_impl():
     with pytest.raises(ValueError, match="unknown impl"):
         rasterize_points(cloud, cam, PointsRasterizationSettings(
             (H, W), impl="mosaic", **BIN))
-    with pytest.raises(ValueError, match="bin_size"):
-        rasterize_points(cloud, cam, PointsRasterizationSettings(
-            (H, W), bin_size=64))
+    # bin_size 64 (one tile of 4096 pixels) runs, as JAX's binned path
+    # does, and selects what bin_size 16 selects
+    wide, narrow = (rasterize_points(cloud, cam, PointsRasterizationSettings(
+        (H, W), bin_size=b, max_points_per_bin=64, **KW)) for b in (64, 16))
+    assert torch.equal(wide.idx, narrow.idx)
+    assert int((wide.idx[..., 0] >= 0).sum()) > 50
     # the envelope guards read only shapes: zero-stride inputs suffice
     for n, size, match in ((70_000, 2048, "2\\^30"), (1 << 24, 16, "2\\^24")):
         q = torch.zeros(2).expand(1, n, 2)
@@ -404,13 +407,13 @@ def test_points_select_rejects_bad_inputs():
         cuda_points.points_select(slab, count.long(), origin, offs, 2, 1e-5,
                                   0.01)
     with pytest.raises(ValueError, match="K must be"):
-        cuda_points.points_select(slab, count, origin, offs, 65, 1e-5, 0.01)
+        cuda_points.points_select(slab, count, origin, offs, 0, 1e-5, 0.01)
     with pytest.raises(ValueError, match="C >= 4"):
         cuda_points.points_select(slab[..., :3].contiguous(), count, origin,
                                   offs, 2, 1e-5, None)
-    with pytest.raises(ValueError, match="offs"):
+    with pytest.raises(ValueError, match="offs"):   # not tile^2 rows
         cuda_points.points_select(slab, count, origin,
-                                  binning.tile_pixel_coords((64, 64), 33),
+                                  binning.tile_pixel_coords((64, 64), 33)[1:],
                                   2, 1e-5, 0.01)
     with pytest.raises(ValueError, match="device"):
         cuda_points.points_select(slab.to("meta"), count, origin, offs, 2,

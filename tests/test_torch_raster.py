@@ -222,7 +222,6 @@ def test_settings_fields_match_jax():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(bin_size=64), "bin_size"),
     (dict(bin_size=16, layout="packed", faces_per_pixel=4,
           active_tiles=8), "faces_per_pixel"),
     (dict(bin_size=16, layout="packed"), "active_tiles"),
@@ -233,3 +232,23 @@ def test_rejected_settings(fd, kw, match):
     st = raster.RasterizationSettings((H, W), **kw)
     with pytest.raises(ValueError, match=match):
         raster.rasterize_face_data(_carry_fd(fd), st)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_bin_size_64_runs(fd, K):
+    """bin_size=64, past one kernel block (the port refused it before, JAX's
+    binned path runs it): the faces of bin_size=16, but at selection-depth
+    ties (a tile's pixel coordinates round otherwise at another tile size),
+    zbuf within 1e-5 (tests/test_torch_wide_bins.py holds it against
+    JAX)."""
+    wide, narrow = (raster.rasterize_face_data(
+        _carry_fd(fd), raster.RasterizationSettings(
+            (H, W), blur_radius=1e-4 * (K > 1), faces_per_pixel=K,
+            bin_size=b, max_faces_per_bin=320)) for b in (64, 16))
+    assert wide.pix_to_face.shape == (2, H, W, K)
+    tie = wide.pix_to_face != narrow.pix_to_face
+    assert float(tie.any(-1).float().mean()) < 2e-3
+    if K == 1:
+        assert not bool(tie.any())
+    torch.testing.assert_close(wide.zbuf, narrow.zbuf, rtol=0, atol=1e-5)
+    assert int((wide.pix_to_face[..., 0] >= 0).sum()) > 1000

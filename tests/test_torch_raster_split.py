@@ -20,10 +20,15 @@ unsplit one where the split drops nothing, and the port's vertex gradient
 its unsplit one within 1e-5 (count-ordered tiles add a face's terms in
 another order; tests/test_binned_raster.py's bound). At K=1 that gradient is
 within 2e-3 of the largest of JAX's (the port's soft and raster parity
-tests' bound: float32 sums in another order). At K=4 with blur 1e-3 JAX's
-binned gradient differs from its own dense one by 2.3% of the largest, split
-or not, and from the port's by 3.4%: the regime of the reference quirk that
-ROADMAP Queue 3 records, so it is not compared there.
+tests' bound: float32 sums in another order). At K=4 with blur 1e-3 the
+routes pick other faces at selection-depth ties (zbuf within 4.8e-7 there),
+and a tie pixel's gradient goes to another face's vertices: JAX's binned
+gradient differs from its own dense one by 2.3% of the largest, and from
+the port's by 3.4%. With the tie pixels weighted to zero (every pixel where
+any of the four routes, each package split and unsplit, picks other
+faces; JAX run op by op, whose picks its gradient then follows: under
+jax.jit it picks otherwise on a few pixels more) the port's gradient is
+held within 3e-4 of JAX's largest.
 """
 
 import dataclasses
@@ -54,6 +59,7 @@ from torch_renderer_tpu_torch.rasterize import raster
 B, IMG, TILE, MFB = 2, 64, 16, 128
 FIELDS = ("pix_to_face", "zbuf", "bary", "dists")
 GRAD_TOL = 2e-3
+TIE_GRAD_TOL = 3e-4   # K=4, blur 1e-3, tie pixels weighted to zero
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -183,33 +189,49 @@ def test_sized_split_matches_jax(scene, K_, blur):
         rtol=1e-5, atol=1e-5)
     if K_ == 1:
         _assert_grad_matches_jax(scene, st, gp)
+        return
+    # K=4: off the ties, against JAX op by op
+    frags = [f.pix_to_face.numpy() for f in (ours, unsplit)] + [
+        np.asarray(f.pix_to_face) for f in (ref, ref_unsplit)]
+    tie = np.zeros(frags[0].shape[:3], bool)
+    for f in frags[1:]:
+        tie |= (f != frags[0]).any(-1)
+    assert 0 < tie.sum() < 0.02 * tie.size, tie.sum()
+    keep = (~tie)[..., None].astype(np.float32)
+    _assert_grad_matches_jax(scene, st, _port_grad(scene, st, keep),
+                             keep=keep, tol=TIE_GRAD_TOL, jit=False)
 
 
-def _port_grad(scene, st):
+def _port_grad(scene, st, keep=None):
     _, _, pm, pc = scene
     v = pm.verts.clone().requires_grad_(True)
     fr = raster.rasterize_meshes(pm.update_padded(v), pc, _port(st))
-    _loss_terms(fr, torch.where).sum().backward()
+    _loss_terms(fr, torch.where, keep).sum().backward()
     return v.grad.numpy()
 
 
-def _assert_grad_matches_jax(scene, st, gp):
+def _assert_grad_matches_jax(scene, st, gp, keep=None, tol=GRAD_TOL,
+                             jit=True):
     jm, jc, _, _ = scene
 
     def jloss(v):
         fr = rasterize_meshes(jm.update_padded(v), jc, st)
-        return jnp.sum(_loss_terms(fr, jnp.where))
+        return jnp.sum(_loss_terms(fr, jnp.where, keep))
 
-    gj = np.asarray(jax.jit(jax.grad(jloss))(jm.verts))
+    grad = jax.grad(jloss)
+    gj = np.asarray((jax.jit(grad) if jit else grad)(jm.verts))
     assert np.abs(gj).max() > 0
-    np.testing.assert_allclose(gp, gj, atol=GRAD_TOL * np.abs(gj).max())
+    np.testing.assert_allclose(gp, gj, atol=tol * np.abs(gj).max())
 
 
-def _loss_terms(fr, where):
+def _loss_terms(fr, where, keep=None):
     """tests/test_torch_raster.py's gradient loss: zbuf, dists and bary of
-    the live fragments, weighted by cos(pixel index)."""
+    the live fragments, weighted by cos(pixel index) and by keep (B, H, W,
+    1), where given."""
     w = np.cos(np.arange(IMG * IMG, dtype=np.float32)).reshape(1, IMG, IMG,
                                                                 1)
+    if keep is not None:
+        w = w * keep
     m = fr.pix_to_face >= 0
     val = (where(m, fr.zbuf, 0.0) + where(m, fr.dists, 0.0)
            + where(m[..., None], fr.bary, 0.0).sum(-1))

@@ -164,7 +164,7 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="count must be int32"):
         cuda_soft.soft_coverage_fwd(q, count.long(), tile, inv_s, 1e4)
     with pytest.raises(ValueError, match="tile"):
-        cuda_soft.soft_coverage_fwd(q, count, 33, inv_s, 1e4)
+        cuda_soft.soft_coverage_fwd(q, count, 0, inv_s, 1e4)
     with pytest.raises(ValueError, match="g must be float32"):
         cuda_soft.soft_coverage_bwd(q, count, torch.ones(2, 3, 5), tile,
                                     inv_s, 1e4)

@@ -4,9 +4,9 @@
 The kernel gives each pixel S thread groups (the largest power of two with
 S * tile^2 <= 1024 whose lists of K entries fit in shared memory beside
 the staging buffer; see ``groups``), hands group s the entries s,
-s + S, ... of each 256-slot chunk, lets a warp skip a face when none of the warp's rows or
-none of its columns has its pixel coordinate inside the face's cull box
-(``cull_boxes``, a copy of the kernel's ``cull_masks``), and merges the
+s + S, ... of each 256-slot chunk, lets a warp skip a face whose cull box
+(``cull_boxes``, a copy of the kernel's ``cull_box``) lies wholly above,
+below, left or right of the warp's pixel span, and merges the
 groups' sorted lists in (depth, slot) order. The model does the same in
 plain torch on the plain version's priorities and must give exactly the
 plain version's winners (``topk_select_reference``), on seeded random slabs
@@ -28,7 +28,7 @@ import torch
 from torch_renderer_tpu_torch.rasterize import cuda_hard
 
 CHUNK = 256          # the kernel's candidates per shared-memory pass
-STAGE_BYTES = CHUNK * (8 + 5 * 16)   # its staged cull masks and faces
+STAGE_BYTES = CHUNK * (16 + 5 * 16)  # its staged cull boxes and faces
 MAX_SMEM = 232448    # the shared memory a block may opt into
 INV_S = 1.0 / 16
 
@@ -83,13 +83,12 @@ def topk_slabs(seed, B, A, F, tile, inv_s=INV_S):
 def cull_boxes(slab, blur: float) -> torch.Tensor:
     """Cull boxes (..., F, 4) = x0, x1, y0, y1 of slab rows (..., F, 13):
     each face's screen bounding box grown by the margin past which no pixel
-    can be covered, copied from ``cull_masks`` in csrc/hard_raster.cu (the
-    source, where the margin is argued): with eps = 2^-24, L the longest edge, A = |area2| and C
-    the largest |corner coordinate|,
+    can be covered, copied from ``cull_box`` in csrc/hard_raster.cu (the
+    source, where the margin is argued): with eps = 2^-24, L the longest
+    edge, A = |area2| and C the largest |corner coordinate|,
     M = 1.001 (1.002 sqrt(blur) + 4e-3 L + 40 eps L^3 / A) + 4 eps C, and
-    M = inf (no cull) where A <= 4e-12 or A < 64 eps L^2. The kernel skips
-    a face for a warp none of whose rows, or none of whose columns, has its
-    pixel coordinate inside the box."""
+    M = inf (no cull) where A <= 4e-12 or A < 64 eps L^2. The kernels skip
+    a face for a warp whose pixel span the box misses."""
     eps = 2.0 ** -24
     qx, qy = slab[..., 0:6:2], slab[..., 1:6:2]
     len2 = [((qx[..., b] - qx[..., a]) ** 2 + (qy[..., b] - qy[..., a]) ** 2)
@@ -122,14 +121,14 @@ def groups(K: int, tile: int) -> int:
     return S
 
 
-def warp_lines(tile: int, S: int):
-    """(S * tile^2, tile) bool rows and columns of each thread's warp, as
-    the kernel takes them (all of them for a warp that spans two
-    groups)."""
+def warp_spans(tile: int, S: int) -> torch.Tensor:
+    """(S * tile^2, 4) int: each thread's warp's first and last column and
+    row (c_lo, c_hi, r_lo, r_hi), as the kernel takes them: its rows, and
+    its columns where it holds part of one row; the whole tile for a warp
+    that spans two groups."""
     tp = tile * tile
     n = S * tp
-    rows = torch.zeros((n, tile), dtype=torch.bool)
-    cols = torch.zeros((n, tile), dtype=torch.bool)
+    spans = torch.zeros((n, 4), dtype=torch.int64)
     for t in range(n):
         t0 = t & ~31
         t1 = min(t0 + 31, n - 1)
@@ -139,21 +138,20 @@ def warp_lines(tile: int, S: int):
             r_lo, r_hi = p0 // tile, p1 // tile
             if r_lo == r_hi:
                 c_lo, c_hi = p0 % tile, p1 % tile
-        rows[t, r_lo:r_hi + 1] = True
-        cols[t, c_lo:c_hi + 1] = True
-    return rows, cols
+        spans[t] = torch.tensor([c_lo, c_hi, r_lo, r_hi])
+    return spans
 
 
-def box_lines(box, origin, tile: int, inv_s: float):
-    """(B, A, F, tile) bool rows and columns of each tile whose pixel
-    coordinate lies in each face's cull box (all of them for a NaN box)."""
-    off = torch.arange(tile, dtype=torch.float32) * inv_s
-    ys = origin[..., None, 1:2] + off                        # (B, A, 1, T)
-    xs = origin[..., None, 0:1] + off
-    x0, x1, y0, y1 = (box[..., i:i + 1] for i in range(4))   # (B, A, F, 1)
-    rows = ((y0 <= ys) & (ys <= y1)) | ~(y0 <= y1)
-    cols = ((x0 <= xs) & (xs <= x1)) | ~(x0 <= x1)
-    return rows, cols
+def span_misses(box, origin, spans, inv_s: float) -> torch.Tensor:
+    """(B, A, n, F) bool: the box (B, A, F, 4) lies wholly to one side of
+    the warp's pixel span (spans (n, 4), pixel coordinates origin + index *
+    inv_s, as the kernel's grid_at); false for a NaN box."""
+    c = spans.to(torch.float32) * inv_s                      # (n, 4)
+    x = origin[..., None, 0:1] + c[:, 0:2]                   # (B, A, n, 2)
+    y = origin[..., None, 1:2] + c[:, 2:4]
+    x0, x1, y0, y1 = (box[..., None, :, i] for i in range(4))  # (B, A, 1, F)
+    return ((y[..., 1:2] < y0) | (y[..., 0:1] > y1)
+            | (x[..., 1:2] < x0) | (x[..., 0:1] > x1))
 
 
 def _lex_topk(z, slot, K: int):
@@ -181,14 +179,11 @@ def split_topk_model(slab, count, origin, K, tile, inv_s, blur, znear):
                                znear)                        # (B, A, P, F)
     F = prio.shape[-1]
     box = cull_boxes(slab[:, :, :F], blur)         # (B, A, F, 4)
-    f_rows, f_cols = box_lines(box, origin, tile, inv_s)     # (B, A, F, T)
-    w_rows, w_cols = (w.float() for w in warp_lines(tile, S))
+    spans = warp_spans(tile, S)
     slots = torch.arange(F)
     lists, skipped = [], 0
     for g in range(S):
-        wr, wc = w_rows[g * tp:(g + 1) * tp], w_cols[g * tp:(g + 1) * tp]
-        miss = ((torch.einsum("pt,baft->bapf", wr, f_rows.float()) == 0)
-                | (torch.einsum("pt,baft->bapf", wc, f_cols.float()) == 0))
+        miss = span_misses(box, origin, spans[g * tp:(g + 1) * tp], inv_s)
         mine = (slots % CHUNK) % S == g
         cull = miss & mine
         if bool((prio[cull] < cuda_hard.INF).any()):

@@ -112,12 +112,15 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_hard_k1.restype = i32
     lib.trt_hard_k1_plan.argtypes = [i32, ctypes.c_int64, vp, i32]
     lib.trt_hard_k1_plan.restype = i32
-    lib.trt_topk_select.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                    f32, f32, f32, i32, vp]
+    lib.trt_topk_select.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                    i32, f32, f32, f32, i32, vp]
     lib.trt_topk_select.restype = i32
-    lib.trt_points_select.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i32, i32, f32, i32, f32, i32, vp]
+    lib.trt_points_select.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                      i32, i32, i32, f32, i32, f32, i32, vp]
     lib.trt_points_select.restype = i32
+    for fn in (lib.trt_topk_device_lists, lib.trt_points_device_lists):
+        fn.argtypes = [i32]
+        fn.restype = i32
     lib.trt_points_plan.argtypes = [i32, i32, ctypes.c_int64, vp, i32]
     lib.trt_points_plan.restype = i32
     i64 = ctypes.c_int64

@@ -33,6 +33,9 @@
 // Outputs: hard_k1     out  (B, A, 8, tile^2) f32: zbuf, pc0, pc1, pc2,
 //                           dists, face id, live, slot
 //          topk_select lane (B, A, K, tile^2) i32: winner slots, -1 = dead
+// Any tile and any K: a tile's pixels split over as many blocks as the
+// launch plans need, and the top-K lists move to device memory where not
+// even one warp's fit in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -42,11 +45,11 @@ namespace {
 
 constexpr int kMaxPixels = 1024;   // threads of a block at most
 constexpr int kChunk = 256;        // candidates staged per shared-memory pass
+constexpr int kListPixels = 256;   // top-K block pixels, lists in device memory
 constexpr int kK1Chunk = 128;      // the same for hard_k1
 constexpr int kK1BlockPixels = 128;  // a hard_k1 block's pixels at most
 constexpr int kK1MaxGroups = 4;    // and its thread groups per pixel
 constexpr int kChannels = 13;
-constexpr int kMaxK = 64;
 constexpr float kEmptyDist = 1e10f;
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -188,38 +191,20 @@ __device__ __forceinline__ float priority(const Face& f, float px, float py,
 //    D >= sqrt(blur) (1 + 2a) + 4aL with a = sqrt(10 eps) < 7.8e-4.
 //  * the box: 1.001 covers the rounding of M itself, and 4 eps C that of
 //    the corner coordinates minus M.
-// The box is staged as two bit masks over the tile: the rows whose pixel
-// y (the pixel formula, monotone in the row) lies in [y0, y1], and the
-// columns whose x lies in [x0, x1]. A pixel whose row or whose column is
-// not masked lies outside the box. A NaN box masks every row and column
-// (no cull); a NaN tile origin masks none, and then no pixel is covered.
-// tests/test_torch_topk_split.py cull_boxes copies this formula for the CPU
-// models of both kernels.
-struct __align__(8) Cull {
-  unsigned rows, cols;
-};
-
+// Both kernels stage the box with each face, and a warp skips a face whose
+// box lies wholly above, below, left or right of the box of its pixels
+// (the warp's pixel span). A NaN box culls nothing (its comparisons are
+// false), and neither does a NaN tile origin; a NaN pixel is covered by no
+// face. tests/test_torch_topk_split.py cull_boxes copies this formula for
+// the CPU models of both kernels.
 __device__ __forceinline__ float grid_at(float o, int r, float inv_s) {
   return add(o, mul((float)r, inv_s));
 }
 
-// Bit r (r < tile) set where lo <= grid_at(o, r) <= hi: an estimate of
-// the first and last such r, stepped to the exact ones.
-__device__ __forceinline__ unsigned grid_mask(float lo, float hi, float o,
-                                              float inv_s, int tile) {
-  const unsigned full = tile >= 32 ? 0xffffffffu : (1u << tile) - 1u;
-  if (!(lo <= hi) || !(inv_s > 0.0f)) return full;
-  // the estimates need no exact divide: the steps make them exact
-  int a = (int)fminf(fmaxf(ceilf(__fdividef(lo - o, inv_s)), 0.0f),
-                     (float)tile);
-  while (a > 0 && grid_at(o, a - 1, inv_s) >= lo) --a;
-  while (a < tile && grid_at(o, a, inv_s) < lo) ++a;
-  int b = (int)fminf(fmaxf(floorf(__fdividef(hi - o, inv_s)), -1.0f),
-                     (float)(tile - 1));
-  while (b < tile - 1 && grid_at(o, b + 1, inv_s) <= hi) ++b;
-  while (b >= 0 && grid_at(o, b, inv_s) > hi) --b;
-  if (a > b) return 0u;
-  return (unsigned)(((1ull << (b - a + 1)) - 1ull) << a);
+// Whether box b (x0, x1, y0, y1) may cover a pixel of the span (x0, x1,
+// y0, y1): false only when it lies wholly to one side.
+__device__ __forceinline__ bool box_meets(float4 b, float4 w) {
+  return !(w.w < b.z || w.z > b.w || w.y < b.x || w.x > b.y);
 }
 
 // The grown box (x0, x1, y0, y1) of a face: infinite without a cull, NaN
@@ -250,15 +235,7 @@ __device__ __forceinline__ float4 cull_box(const Face& f, float sqrt_blur) {
   return make_float4(x0 - M, x1 + M, y0 - M, y1 + M);
 }
 
-__device__ __forceinline__ Cull cull_masks(const Face& f, float sqrt_blur,
-                                           float ox, float oy, float inv_s,
-                                           int tile) {
-  const float4 b = cull_box(f, sqrt_blur);
-  return {grid_mask(b.z, b.w, oy, inv_s, tile),
-          grid_mask(b.x, b.y, ox, inv_s, tile)};
-}
-
-constexpr int kStageBytes = kChunk * (int)(sizeof(Cull) + sizeof(FaceS));
+constexpr int kStageBytes = kChunk * (int)(sizeof(float4) + sizeof(FaceS));
 
 // The warp-uniform cull and the scan of one group's share of the tile's
 // candidates; returns with the list filled. The block's groups each hold
@@ -266,17 +243,18 @@ constexpr int kStageBytes = kChunk * (int)(sizeof(Cull) + sizeof(FaceS));
 __device__ __forceinline__ void topk_scan(
     const float* __restrict__ st, int n, int S, int grp, int np, int pb,
     int tile, float ox, float oy, float px, float py, float inv_s,
-    float blur, float znear, Cull* culls, FaceS* faces, TopkList& list) {
-  // This warp's rows and columns of the tile: all of them when the warp
-  // spans two groups.
-  unsigned wrows, wcols;
+    float blur, float znear, float4* boxes, FaceS* faces, TopkList& list) {
+  // This warp's pixel span (x0, x1, y0, y1): its rows, and its columns
+  // where it holds part of one row; the whole tile when it spans two
+  // groups.
+  float4 span;
   {
     const int t0 = threadIdx.x & ~31;
     const int t1 = min(t0 + 31, (int)blockDim.x - 1);
     int c_lo = 0, c_hi = tile - 1, r_lo = 0, r_hi = tile - 1;
     if (t0 / np == t1 / np) {
-      // a block's threads past the tile's last pixel (fewer than P, so
-      // never a whole warp) hold no row
+      // a block's threads past the tile's last pixel hold no row (the
+      // first of a warp always holds one)
       const int p0 = pb + t0 % np, p1 = min(pb + t1 % np, tile * tile - 1);
       r_lo = p0 / tile;
       r_hi = p1 / tile;
@@ -285,9 +263,10 @@ __device__ __forceinline__ void topk_scan(
         c_hi = p1 % tile;
       }
     }
-    wrows = (unsigned)(((1ull << (r_hi - r_lo + 1)) - 1ull) << r_lo);
-    wcols = (unsigned)(((1ull << (c_hi - c_lo + 1)) - 1ull) << c_lo);
+    span = make_float4(grid_at(ox, c_lo, inv_s), grid_at(ox, c_hi, inv_s),
+                       grid_at(oy, r_lo, inv_s), grid_at(oy, r_hi, inv_s));
   }
+  const float sqrt_blur = sqrtf(fmaxf(blur, 0.0f));
   for (int c0 = 0; c0 < n; c0 += kChunk) {   // n is uniform in the block
     const int m = min(kChunk, n - c0);
     __syncthreads();                             // previous chunk consumed
@@ -295,13 +274,11 @@ __device__ __forceinline__ void topk_scan(
       Face f;
       load_face(st + (long)(c0 + i) * kChannels, f);
       faces[i] = pack(f);
-      culls[i] = cull_masks(f, sqrtf(fmaxf(blur, 0.0f)), ox, oy, inv_s,
-                            tile);
+      boxes[i] = cull_box(f, sqrt_blur);
     }
     __syncthreads();
     for (int i = grp; i < m; i += S) {
-      const Cull c = culls[i];                   // one face for the warp
-      if (!(c.rows & wrows) || !(c.cols & wcols)) continue;
+      if (!box_meets(boxes[i], span)) continue;  // one face for the warp
       const float cz = priority(unpack(faces[i]), px, py, blur, znear);
       if (cz < list.kth) list.push<false>(cz, c0 + i);
     }
@@ -314,22 +291,28 @@ __device__ __forceinline__ void topk_scan(
 // divides in the blur band) and latency: a level-4 face covers a few of a
 // tile's pixels, so almost every pair is a miss, and one thread per pixel
 // walking every candidate leaves most of the SM idle. Design, per block =
-// (batch, active tile):
-//  * S thread groups per pixel: the largest power of two with
-//    S * tile^2 <= 1024 whose lists fit in shared memory (4 at tile 16 for
-//    K <= 16, 2 for K = 50, 1 at tile 32). Where even one group's lists
-//    do not fit (tile 32 with K > 25), P blocks (gridDim.z) share the
-//    tile, each with one group over tile^2 / P of its pixels. The tile's
-//    candidates stream through shared memory in chunks with their per-face
-//    constants and cull masks; group s takes chunk entries s, s + S, ...
-//    (ascending slot order within a group, balanced shares) and keeps its
-//    sorted list of K (zsel, slot) entries in shared memory (TopkList): no
-//    list in registers, so nothing spills, and the list is only touched by
-//    a candidate that beats the K-th entry (kept in a register).
+// (batch, active tile, a share of its pixels):
+//  * S thread groups per pixel: the largest power of two with S * np <=
+//    1024 whose lists fit in shared memory (4 at tile 16 for K <= 16, 2
+//    for K = 50, 1 at tile 32). Where a tile has more than 1024 pixels or
+//    even one group's lists do not fit (tile 32 with K > 25, tile 64), P
+//    blocks (gridDim.z) share the tile, each with np = tile^2 / P of its
+//    pixels. The tile's candidates stream through shared memory in chunks
+//    with their per-face constants and cull boxes; group s takes chunk
+//    entries s, s + S, ... (ascending slot order within a group, balanced
+//    shares) and keeps its sorted list of K (zsel, slot) entries in shared
+//    memory (TopkList): no list in registers, so nothing spills, and the
+//    list is only touched by a candidate that beats the K-th entry (kept
+//    in a register).
+//  * DEVICE_LISTS (where not even one warp's lists fit in shared memory,
+//    K > 812): one group, blocks of kListPixels pixels, and each pixel's
+//    list in device memory: its slots in the output column the kernel
+//    writes anyway, its depths in the wrapper's scratch of that layout.
+//    The same scan and insertion; a push costs device-memory traffic.
 //  * Warp-uniform cull: a warp's threads share a group, and their pixels
-//    some rows and columns of the tile (two full rows at tile 16, one at
-//    tile 32); the warp skips a face none of whose masked rows or none of
-//    whose masked columns (above) it holds, without evaluating it.
+//    some rows of the tile (two full rows at tile 16, one at tile 32, half
+//    of one at tile 64); the warp skips a face whose grown box (cull_box)
+//    lies wholly to one side of its pixel span, without evaluating it.
 //  * Merge: a tree over the groups: at each level each group of the lower
 //    half inserts its partner's entries in (zsel, slot) lexicographic
 //    order, stopping at the first that does not enter. That order is the
@@ -337,19 +320,17 @@ __device__ __forceinline__ void topk_scan(
 //    same; group 0 writes them.
 // The TPU kernel's K extraction passes over a (pixel, face) priority slab
 // become this one pass.
+template <bool DEVICE_LISTS>
 __global__ void __launch_bounds__(kMaxPixels)
 topk_select_kernel(const float* __restrict__ slab,
                    const int* __restrict__ count,
                    const float* __restrict__ origin, int* __restrict__ lane,
-                   int A, int F, int K, int tile, float inv_s, float blur,
-                   float znear) {
+                   float* __restrict__ zs, int A, int F, int K, int tile,
+                   float inv_s, float blur, float znear) {
   extern __shared__ float4 smem[];   // staging, then each thread's list
-  Cull* culls = reinterpret_cast<Cull*>(smem);
-  FaceS* faces = reinterpret_cast<FaceS*>(culls + kChunk);
+  float4* boxes = smem;
+  FaceS* faces = reinterpret_cast<FaceS*>(boxes + kChunk);
   const int nt = blockDim.x;
-  float* zl = reinterpret_cast<float*>(
-      reinterpret_cast<char*>(smem) + kStageBytes);
-  int* sl = reinterpret_cast<int*>(zl + nt * K);
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], F));
   const int tp = tile * tile;
@@ -359,13 +340,27 @@ topk_select_kernel(const float* __restrict__ slab,
   const int t = threadIdx.x;
   const int grp = t / np, p = pb + t % np;
   const float ox = origin[2 * cell], oy = origin[2 * cell + 1];
-  TopkList list{zl + t, sl + t, nt, K};
-  list.init();
+  TopkList list;
+  if (DEVICE_LISTS) {
+    const long at = cell * K * tp + min(p, tp - 1);
+    list = TopkList{zs + at, lane + at, tp, K};
+    if (p < tp) {
+      list.init();
+    } else {
+      list.close();
+    }
+  } else {
+    float* zl = reinterpret_cast<float*>(
+        reinterpret_cast<char*>(smem) + kStageBytes);
+    list = TopkList{zl + t, reinterpret_cast<int*>(zl + nt * K) + t, nt, K};
+    list.init();
+  }
   topk_scan(slab + cell * F * kChannels, n, S, grp, np, pb, tile, ox, oy,
             grid_at(ox, p % tile, inv_s), grid_at(oy, p / tile, inv_s),
-            inv_s, blur, znear, culls, faces, list);
+            inv_s, blur, znear, boxes, faces, list);
   merge_groups(list, S, grp, np);   // tree merge of the S groups' lists
-  if (grp != 0 || p >= tp) return;
+  // device lists are the output already
+  if (DEVICE_LISTS || grp != 0 || p >= tp) return;
   int* o = lane + cell * K * tp + p;
   for (int j = 0; j < K; ++j) o[(long)j * tp] = list.slot(j);
 }
@@ -381,18 +376,19 @@ topk_select_kernel(const float* __restrict__ slab,
 // tiles of 32^2 the instructions of the (pixel, face) tests and of the
 // epilogue do, against a bound of its 8 output rows (132 MB).
 // Design, per block = (batch, active tile, rows of the tile):
-//  * Threads are (column, row, group): blockDim = (tile, R, S), so a
-//    thread finds its pixel and group with no division. P = gridDim.z
-//    blocks of R rows share a tile, with S thread groups per pixel
-//    (k1_plan): blocks of at most kK1BlockPixels pixels, split further
+//  * Threads are (column, row, group): blockDim = (C, R, S) with C = tile
+//    up to 1024 columns, so a thread finds its pixel and group with no
+//    division (WIDE, past 1024 columns: C = 1024 and rows_groups_pixel).
+//    P = gridDim.z blocks of R rows share a tile, with S thread groups per
+//    pixel (k1_plan): blocks of at most kK1BlockPixels pixels (two rows of
+//    64 at tile 64, one row past 128 columns), split further
 //    while the launch has fewer blocks than the card has SMs (the busiest
 //    tile's work then spreads over several SMs), then the most groups that
 //    keep every block resident at once.
 //  * Staging: the chunk's live slab rows, contiguous in device memory, are
 //    copied into shared memory by all threads at once (cp.async, every
 //    copy in flight together); then each row becomes a packed face (FaceS)
-//    and its grown box (cull_box, the margin topk_select's masks are built
-//    from).
+//    and its grown box (cull_box, as topk_select stages it).
 //  * Scan: group s takes chunk entries s, s + S, ... in ascending slot
 //    order. A warp's lanes first test as many of its entries at once
 //    against the warp's pixel span (a face whose box lies wholly above,
@@ -410,20 +406,25 @@ topk_select_kernel(const float* __restrict__ slab,
 //    warp's pixels are neighbours in each row).
 // Winners and values equal hard_k1_reference bit for bit: the same _rn
 // arithmetic, and the same winner.
+template <bool WIDE>
 __global__ void __launch_bounds__(kMaxPixels)
 hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
                const float* __restrict__ origin, float* __restrict__ out,
-               int A, int F, float inv_s, float blur, float znear,
+               int A, int F, int tile, float inv_s, float blur, float znear,
                int clip_bary) {
   __shared__ float raw[kK1Chunk * kChannels];  // the chunk's slab rows
   __shared__ FaceS faces[kK1Chunk];
   __shared__ float4 boxes[kK1Chunk];         // x0 x1 y0 y1, grown
   extern __shared__ float4 k1_merge[];       // the groups' entries (S > 1)
-  const int tile = blockDim.x, np = tile * blockDim.y;
+  const int np = blockDim.x * blockDim.y;    // the block's pixels
   const int nt = np * blockDim.z;            // the block's threads
-  const int t = threadIdx.x + tile * (threadIdx.y + blockDim.y * threadIdx.z);
+  const int t = threadIdx.x
+      + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
   const int grp = threadIdx.z;
-  const int row = blockIdx.z * blockDim.y + threadIdx.y, col = threadIdx.x;
+  // a thread past the tile's last row or column (where a block overhangs
+  // it) holds no pixel: its span grows the warp's, and it writes nothing
+  int col = threadIdx.x, row = blockIdx.z * blockDim.y + threadIdx.y;
+  if (WIDE) rows_groups_pixel(tile, col, row);
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const float* st = slab + cell * F * kChannels;
   const int n = max(0, min(count[cell], F));
@@ -490,7 +491,7 @@ hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
       }
     }
   }
-  if (grp != 0 || row >= tile) return;
+  if (grp != 0 || row >= tile || col >= tile) return;
 
   const int tp = tile * tile;
   float* o = out + cell * 8 * tp + row * tile + col;
@@ -544,9 +545,11 @@ hard_k1_kernel(const float* __restrict__ slab, const int* __restrict__ count,
   o[7 * tp] = (float)lane;
 }
 
+// Any tile whose pixel count is an int; a launch past the grid's limits
+// (gridDim.z) is refused by the card and reported.
 int check_shape(int B, int A, int F, int tile) {
   if (B <= 0 || B > 65535 || A <= 0 || F <= 0 || tile <= 0 ||
-      tile * tile > kMaxPixels) {
+      (long long)tile * tile > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -574,7 +577,7 @@ int k1_resident(int device, int threads, int* blocks) {
     return 0;
   }
   const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, hard_k1_kernel, threads, k1_smem(threads, 2));
+      blocks, hard_k1_kernel<false>, threads, k1_smem(threads, 2));
   if (!err && device >= 0 && device < 64) cached[device][w] = *blocks;
   return err;
 }
@@ -584,7 +587,8 @@ int k1_resident(int device, int threads, int* blocks) {
 int k1_plan(int device, int tile, long long tiles, int* P, int* R,
             int* S) {
   return rows_groups_plan(
-      device, tile, tiles, kK1BlockPixels, kK1MaxGroups, kMaxPixels,
+      device, tile, tiles, kK1BlockPixels, kMaxPixels, kK1MaxGroups,
+      kMaxPixels,
       [](int) { return true; },
       [device](int threads, int* blocks) {
         return k1_resident(device, threads, blocks);
@@ -610,9 +614,17 @@ int trt_hard_k1(const float* slab, const int* count, const float* origin,
   int P = 0, R = 0, S = 0;
   err = k1_plan(device, tile, (long long)A * B, &P, &R, &S);
   if (err) return err;
-  hard_k1_kernel<<<dim3(A, B, P), dim3(tile, R, S),
-                   k1_smem(tile * R * S, S), (cudaStream_t)stream>>>(
-      slab, count, origin, out, A, F, inv_s, blur, znear, clip_bary);
+  const int C = block_cols(tile, kMaxPixels);
+  const dim3 grid(A, B, P), block(C, R, S);
+  if (C < tile) {
+    hard_k1_kernel<true><<<grid, block, k1_smem(C * R * S, S),
+                           (cudaStream_t)stream>>>(
+        slab, count, origin, out, A, F, tile, inv_s, blur, znear, clip_bary);
+  } else {
+    hard_k1_kernel<false><<<grid, block, k1_smem(C * R * S, S),
+                            (cudaStream_t)stream>>>(
+        slab, count, origin, out, A, F, tile, inv_s, blur, znear, clip_bary);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -620,7 +632,7 @@ int trt_hard_k1(const float* slab, const int* count, const float* origin,
 // (k1_plan): P, R and S into plan[0], plan[1], plan[2]. The card tests
 // read it to reach every plan.
 int trt_hard_k1_plan(int tile, long long tiles, int* plan, int device) {
-  if (tile <= 0 || tile * tile > kMaxPixels || tiles <= 0) {
+  if (check_shape(1, 1, 1, tile) || tiles <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   const int err = (int)cudaSetDevice(device);
@@ -628,39 +640,58 @@ int trt_hard_k1_plan(int tile, long long tiles, int* plan, int device) {
   return k1_plan(device, tile, tiles, plan, plan + 1, plan + 2);
 }
 
+// Whether a top-K launch keeps its lists in device memory (not even one
+// warp's fit in shared memory): the wrapper then passes a float32 scratch
+// of the output's shape for their depths.
+int trt_topk_device_lists(int K) {
+  return device_lists(K, kStageBytes) ? 1 : 0;
+}
+
 int trt_topk_select(const float* slab, const int* count, const float* origin,
-                    int* lane, int B, int A, int F, int K, int tile,
-                    float inv_s, float blur, float znear, int device,
-                    void* stream) {
+                    int* lane, float* zs, int B, int A, int F, int K,
+                    int tile, float inv_s, float blur, float znear,
+                    int device, void* stream) {
   int err = check_shape(B, A, F, tile);
   if (err) return err;
-  if (K <= 0 || K > kMaxK) return (int)cudaErrorInvalidValue;
+  const bool dev = device_lists(K, kStageBytes);
+  if (K <= 0 || (dev && zs == nullptr)) return (int)cudaErrorInvalidValue;
   err = (int)cudaSetDevice(device);
   if (err) return err;
-  // P blocks per tile, each over np of its pixels: the fewest whose lists
-  // fit in shared memory (np >= 256 fits K = 64); then S groups per pixel:
-  // the most (a power of two) that 1024 threads and shared memory allow
-  const int tp = tile * tile;
-  int P = 1;
-  while (topk_smem((tp + P - 1) / P, K) > kMaxSmem) P *= 2;
-  const int np = (tp + P - 1) / P;
-  int S = 1;
-  while (2 * S * np <= kMaxPixels && topk_smem(2 * S * np, K) <= kMaxSmem) {
-    S *= 2;
-  }
   // above 48 KB a block's dynamic shared memory needs an opt-in, once per
   // device (setting it twice is harmless)
   static bool opted[64];
   if (device < 0 || device >= 64 || !opted[device]) {
     err = (int)cudaFuncSetAttribute(
-        topk_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        topk_select_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err) return err;
     if (device >= 0 && device < 64) opted[device] = true;
   }
-  topk_select_kernel<<<dim3(A, B, P), S * np, topk_smem(S * np, K),
-                       (cudaStream_t)stream>>>(
-      slab, count, origin, lane, A, F, K, tile, inv_s, blur, znear);
+  const int tp = tile * tile;
+  if (dev) {   // one group, blocks of kListPixels pixels
+    const int np = min(tp, kListPixels);
+    topk_select_kernel<true><<<dim3(A, B, (tp + np - 1) / np), np,
+                               kStageBytes, (cudaStream_t)stream>>>(
+        slab, count, origin, lane, zs, A, F, K, tile, inv_s, blur, znear);
+    return (int)cudaGetLastError();
+  }
+  // P blocks per tile, each over np of its pixels: the fewest that hold at
+  // most 1024 pixels and whose lists fit in shared memory (np >= 256 fits
+  // K = 64, np >= 32 K = 812); then S groups per pixel: the most (a power
+  // of two) that 1024 threads and shared memory allow
+  int P = 1;
+  while ((tp + P - 1) / P > kMaxPixels ||
+         topk_smem((tp + P - 1) / P, K) > kMaxSmem) {
+    P *= 2;
+  }
+  const int np = (tp + P - 1) / P;
+  int S = 1;
+  while (2 * S * np <= kMaxPixels && topk_smem(2 * S * np, K) <= kMaxSmem) {
+    S *= 2;
+  }
+  topk_select_kernel<false><<<dim3(A, B, P), S * np, topk_smem(S * np, K),
+                              (cudaStream_t)stream>>>(
+      slab, count, origin, lane, nullptr, A, F, K, tile, inv_s, blur, znear);
   return (int)cudaGetLastError();
 }
 

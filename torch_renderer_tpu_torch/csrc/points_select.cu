@@ -26,7 +26,13 @@
 //          offs   (tp, 2)      f32 pixel offsets within a tile, row-major
 //                                  (pixel p at row p / tile, column
 //                                  p % tile)
+//          zs     (B, A, K, tp) f32 the depths of the lists where they live
+//                                  in device memory (points_device_lists),
+//                                  else null
 // Output:  lane   (B, A, K, tp) i32 winner slots, -1 = dead
+// Any tile and any K: a tile's pixels split over as many blocks as the
+// launch plan needs, and the lists move to device memory where not even
+// one warp's fit in shared memory.
 
 #include <cuda_runtime.h>
 
@@ -36,7 +42,6 @@ namespace {
 
 constexpr int kMaxPixels = 1024;   // threads of a block at most
 constexpr int kChunk = 256;        // candidates staged per shared-memory pass
-constexpr int kMaxK = 64;
 constexpr int kBlockPixels = 128;  // a block's pixels at most
 constexpr int kMaxGroups = 4;      // thread groups per pixel at most
 constexpr int kBatch = 4;          // kept candidates evaluated together
@@ -80,11 +85,13 @@ __device__ __forceinline__ float order_val(int k) {
 // covers a few of a tile's pixels, so most (pixel, candidate) tests miss,
 // and the busiest tiles (3-4x the mean count) run longest. Design, per
 // block = (batch, active tile, rows of the tile):
-//  * Threads are (column, row, group): blockDim = (tile, R, S); P =
-//    gridDim.z blocks of R rows share a tile (points_plan: blocks of at
-//    most kBlockPixels pixels, split further while the launch has fewer
-//    blocks than the card has SMs), with S thread groups per pixel (the
-//    most, up to kMaxGroups, that keep every block resident at once).
+//  * Threads are (column, row, group): blockDim = (C, R, S) with C = tile
+//    up to the block's pixel cap (rows_groups_pixel); P = gridDim.z blocks
+//    of R rows (and of C columns past the cap) share a tile (points_plan:
+//    blocks of at most kBlockPixels pixels, fewer where K's lists need it,
+//    split further while the launch has fewer blocks than the card has
+//    SMs), with S thread groups per pixel (the most, up to kMaxGroups,
+//    that keep every block resident at once).
 //  * Staging: each chunk's live rows come into shared memory by cp.async,
 //    the four words x, y, z, r2 of each, every copy in flight at once; then
 //    each becomes (x, y, z, r2 or -1 at or behind znear) and its cull box
@@ -97,32 +104,37 @@ __device__ __forceinline__ float order_val(int k) {
 //    tested kBatch at a time (independent loads and arithmetic), then
 //    pushed in slot order. Each thread keeps its K best (z, slot) in a
 //    list in shared memory (TopkList), touched only by a covering
-//    candidate below its K-th entry.
+//    candidate below its K-th entry. DEVICE_LISTS (where not even one
+//    warp's lists fit in shared memory, K > 876): one group, and each
+//    pixel's list in device memory, its slots in the output column and
+//    its depths in the wrapper's scratch.
 //  * Merge: a tree over the groups in (z, slot) order (merge_groups), the
 //    order of one stable pass; group 0 writes the K rows.
 // Winners equal points_select_reference bit for bit. The TPU kernel's
 // 128-lane padding, packed origin and trip-count rows and K argmin passes
 // over a VMEM priority slab are TPU layout and are not carried.
+template <bool DEVICE_LISTS>
 __global__ void __launch_bounds__(kMaxPixels)
 points_select_kernel(const float* __restrict__ slab,
                      const int* __restrict__ count,
                      const float* __restrict__ origin,
                      const float* __restrict__ offs, int* __restrict__ lane,
-                     int A, int P, int C, int K, float r2u, int r2c,
-                     float znear) {
+                     float* __restrict__ zs, int A, int P, int C, int K,
+                     int tile, float r2u, int r2c, float znear) {
   extern __shared__ float4 smem[];
   float4* cand = smem;                        // the chunk's (x, y, z, r2)
   float4* boxes = smem + kChunk;              // and cull boxes
-  const int tile = blockDim.x, np = tile * blockDim.y;
+  const int np = blockDim.x * blockDim.y;     // the block's pixels
   const int nt = np * blockDim.z;             // the block's threads
-  float* zl = reinterpret_cast<float*>(smem + 2 * kChunk);
-  int* sl = reinterpret_cast<int*>(zl + nt * K);
-  const int t = threadIdx.x + tile * (threadIdx.y + blockDim.y * threadIdx.z);
+  const int t = threadIdx.x
+      + blockDim.x * (threadIdx.y + blockDim.y * threadIdx.z);
   const int grp = threadIdx.z;
-  const int row = blockIdx.z * blockDim.y + threadIdx.y, col = threadIdx.x;
-  // a block's rows past the tile's last (P * R > tile) hold no pixel; they
-  // take the last row's, which keeps the warp's span within the tile
-  const int p = min(row, tile - 1) * tile + col;
+  int col, row;
+  const bool live = rows_groups_pixel(tile, col, row);
+  // a thread past the tile's last row or column holds no pixel; it takes
+  // the nearest one's, which keeps the warp's span within the tile
+  const int p = min(row, tile - 1) * tile + min(col, tile - 1);
+  const int tp = tile * tile;
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], P));
   const float* st = slab + cell * P * C;
@@ -136,8 +148,20 @@ points_select_kernel(const float* __restrict__ slab,
   const float wy0 = order_val(__reduce_min_sync(lanes, order_key(py)));
   const float wy1 = order_val(__reduce_max_sync(lanes, order_key(py)));
   const int r2src = r2c >= 0 ? r2c : 2;       // a word copied, not read
-  TopkList list{zl + t, sl + t, nt, K};
-  list.init();
+  TopkList list;
+  if (DEVICE_LISTS) {
+    const long at = cell * K * tp + p;
+    list = TopkList{zs + at, lane + at, tp, K};
+    if (live) {
+      list.init();
+    } else {
+      list.close();
+    }
+  } else {
+    float* zl = reinterpret_cast<float*>(smem + 2 * kChunk);
+    list = TopkList{zl + t, reinterpret_cast<int*>(zl + nt * K) + t, nt, K};
+    list.init();
+  }
   for (int c0 = 0; c0 < n; c0 += kChunk) {    // n is uniform in the block
     const int m = min(kChunk, n - c0);        // live entries of the chunk
     if (c0) __syncthreads();                  // previous chunk consumed
@@ -197,37 +221,61 @@ points_select_kernel(const float* __restrict__ slab,
     }
   }
   merge_groups(list, blockDim.z, grp, np);
-  if (grp != 0 || row >= tile) return;
-  const int tp = tile * tile;
+  // device lists are the output already
+  if (DEVICE_LISTS || grp != 0 || !live) return;
   int* o = lane + cell * K * tp + p;
   for (int j = 0; j < K; ++j) o[(long)j * tp] = list.slot(j);
 }
 
 // Dynamic shared memory of a block of nt threads: the staged chunk and
-// its boxes, and each thread's K entries of 8 bytes.
-size_t points_smem(int nt, int K) {
-  return 2 * kChunk * sizeof(float4)
-      + (size_t)nt * K * (sizeof(float) + sizeof(int));
+// its boxes, and each thread's K entries of 8 bytes (none where the lists
+// live in device memory).
+constexpr long kStageBytes = 2 * kChunk * sizeof(float4);
+
+size_t points_smem(int nt, int K, bool dev) {
+  return kStageBytes
+      + (dev ? 0 : (size_t)nt * K * (sizeof(float) + sizeof(int)));
 }
 
 // Blocks of nt threads with K entries a thread that an SM holds at once
-// (registers and shared memory), per device, warp count and K, read once.
+// (registers and shared memory), read once per (device, warps, K): a
+// small table, filled in order, searched by key (a plan is asked for a
+// handful of shapes a run).
 int points_resident(int device, int nt, int K, int* blocks) {
-  static int cached[16][kMaxPixels / 32 + 1][kMaxK + 1] = {};
+  struct Entry {
+    int device, warps, K, blocks;
+  };
+  static Entry cached[64];
+  static int filled = 0;
   const int w = (nt + 31) / 32;
-  if (device >= 0 && device < 16 && cached[device][w][K]) {
-    *blocks = cached[device][w][K];
-    return 0;
+  for (int i = 0; i < filled; ++i) {
+    if (cached[i].device == device && cached[i].warps == w &&
+        cached[i].K == K) {
+      *blocks = cached[i].blocks;
+      return 0;
+    }
   }
   const int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, points_select_kernel, nt, points_smem(nt, K));
-  if (!err && device >= 0 && device < 16) cached[device][w][K] = *blocks;
+      blocks, points_select_kernel<false>, nt, points_smem(nt, K, false));
+  if (!err && filled < 64) cached[filled++] = {device, w, K, *blocks};
   return err;
 }
 
+// A block's pixels at most, and its columns: kBlockPixels, halved (to one
+// warp) until a block's lists of K fit in shared memory; kBlockPixels
+// with the lists in device memory.
+int points_block_pixels(int K) {
+  int bp = kBlockPixels;
+  while (!device_lists(K, kStageBytes) && bp > 32 &&
+         points_smem(bp, K, false) > (size_t)kMaxSmem) {
+    bp /= 2;
+  }
+  return bp;
+}
+
 // A launch's plan for `tiles` tiles (rows_groups_plan): blocks of at most
-// kBlockPixels pixels, up to kMaxGroups thread groups whose lists fit in
-// shared memory.
+// points_block_pixels(K) pixels, up to kMaxGroups thread groups whose
+// lists fit in shared memory; one group with the lists in device memory.
 int points_plan(int device, int tile, int K, long long tiles, int* P, int* R,
                 int* S) {
   // above 48 KB a block's dynamic shared memory needs an opt-in, once per
@@ -235,23 +283,28 @@ int points_plan(int device, int tile, int K, long long tiles, int* P, int* R,
   static bool opted[64];
   if (device < 0 || device >= 64 || !opted[device]) {
     const int err = (int)cudaFuncSetAttribute(
-        points_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        points_select_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err) return err;
     if (device >= 0 && device < 64) opted[device] = true;
   }
+  const int bp = points_block_pixels(K);
   return rows_groups_plan(
-      device, tile, tiles, kBlockPixels, kMaxGroups, kMaxPixels,
-      [K](int threads) { return points_smem(threads, K) <= (size_t)kMaxSmem; },
+      device, tile, tiles, bp, bp,
+      device_lists(K, kStageBytes) ? 1 : kMaxGroups, kMaxPixels,
+      [K](int threads) {
+        return points_smem(threads, K, false) <= (size_t)kMaxSmem;
+      },
       [device, K](int threads, int* blocks) {
         return points_resident(device, threads, K, blocks);
       },
       P, R, S);
 }
 
+// Any tile whose pixel count is an int, and any K.
 int check_shape(int B, int A, int P, int C, int K, int tile, int r2c) {
   if (B <= 0 || B > 65535 || A <= 0 || P <= 0 || C < 3 || r2c >= C ||
-      K <= 0 || K > kMaxK || tile <= 0 || tile * tile > kMaxPixels) {
+      K <= 0 || tile <= 0 || (long long)tile * tile > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -265,19 +318,31 @@ extern "C" {
 // never runs, and a later synchronize would not report it.
 int trt_points_select(const float* slab, const int* count,
                       const float* origin, const float* offs, int* lane,
-                      int B, int A, int P, int C, int K, int tile, float r2u,
-                      int r2c, float znear, int device, void* stream) {
+                      float* zs, int B, int A, int P, int C, int K, int tile,
+                      float r2u, int r2c, float znear, int device,
+                      void* stream) {
   int err = check_shape(B, A, P, C, K, tile, r2c);
   if (err) return err;
+  const bool dev = device_lists(K, kStageBytes);
+  if (dev && zs == nullptr) return (int)cudaErrorInvalidValue;
   err = (int)cudaSetDevice(device);
   if (err) return err;
   int Pb = 0, R = 0, S = 0;
   err = points_plan(device, tile, K, (long long)A * B, &Pb, &R, &S);
   if (err) return err;
-  points_select_kernel<<<dim3(A, B, Pb), dim3(tile, R, S),
-                         points_smem(tile * R * S, K),
-                         (cudaStream_t)stream>>>(
-      slab, count, origin, offs, lane, A, P, C, K, r2u, r2c, znear);
+  const int Cb = block_cols(tile, points_block_pixels(K));
+  const dim3 grid(A, B, Pb), block(Cb, R, S);
+  const size_t smem = points_smem(Cb * R * S, K, dev);
+  if (dev) {
+    points_select_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+        slab, count, origin, offs, lane, zs, A, P, C, K, tile, r2u, r2c,
+        znear);
+  } else {
+    points_select_kernel<false><<<grid, block, smem,
+                                  (cudaStream_t)stream>>>(
+        slab, count, origin, offs, lane, nullptr, A, P, C, K, tile, r2u, r2c,
+        znear);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -286,13 +351,19 @@ int trt_points_select(const float* slab, const int* count,
 // read it to reach every plan.
 int trt_points_plan(int tile, int K, long long tiles, int* plan,
                     int device) {
-  if (tile <= 0 || tile * tile > kMaxPixels || K <= 0 || K > kMaxK ||
-      tiles <= 0) {
+  if (check_shape(1, 1, 1, 3, K, tile, -1) || tiles <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   int err = (int)cudaSetDevice(device);
   if (err) return err;
   return points_plan(device, tile, K, tiles, plan, plan + 1, plan + 2);
+}
+
+// Whether a launch with K winners keeps its lists in device memory: the
+// wrapper then passes a float32 scratch of the output's shape for their
+// depths.
+int trt_points_device_lists(int K) {
+  return device_lists(K, kStageBytes) ? 1 : 0;
 }
 
 }  // extern "C"

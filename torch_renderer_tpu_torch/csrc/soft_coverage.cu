@@ -15,6 +15,8 @@
 // Outputs: S     (B, A, tile*tile) f32      (forward)
 //          dq    (B, A, K, 6) f32           (backward; 0 at slots >= count)
 // Pixel p of a tile sits at ((p % tile) * inv_s, (p / tile) * inv_s).
+// Any tile: past 1024 pixels the forward splits a tile's rows over several
+// blocks and the backward walks its pixels in chunks of 1024.
 
 #include <cuda_runtime.h>
 
@@ -22,7 +24,8 @@
 
 namespace {
 
-constexpr int kMaxPixels = 1024;   // pixels of a tile at most
+// a forward block's pixels at most, and a backward pixel chunk's
+constexpr int kMaxPixels = 1024;
 constexpr int kChunk = 128;        // backward: candidates staged per pass
 constexpr int kBwdThreads = 256;   // backward: 8 warps, a slot each at a time
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -179,7 +182,7 @@ __device__ __forceinline__ float softplus_term(float x) {
 //
 // The cull box is the face's bounding box grown by a margin M past which
 // every pixel's computed x lies below kCutoff: M is the top-K kernel's
-// (cull_masks in hard_raster.cu, where it is argued) with sqrt(blur)
+// (cull_box in hard_raster.cu, where it is argued) with sqrt(blur)
 // replaced by r_cut = sqrt(104.5 sigma):
 //   M = 1.001 (1.002 r_cut + 4e-3 L + 40 eps L^3 / A) + 4 eps C,
 // eps = 2^-24, L the longest edge, A = |area2|, C the largest |corner
@@ -257,17 +260,18 @@ __device__ __forceinline__ float pair_x(const float4* __restrict__ v,
   return __fmul_rn(fmaxf(d2, 0.0f), inside ? inv_sigma : -inv_sigma);
 }
 
-// The pixel (column, row) of thread tid of a slot group and the box of its
-// warp's pixels (columns c0..c1, rows r0..r1). Where tile is a multiple of
-// 8, a warp holds an 8-column by 4-row block of pixels: a squarer box than
+// The pixel (column, row) of thread tid of a slot group, in a block's
+// rectangle of cols x rows pixels, and the box of its warp's pixels
+// (columns c0..c1, rows r0..r1). Where cols is a multiple of 8 and rows of
+// 4, a warp holds an 8-column by 4-row block of pixels: a squarer box than
 // two rows of 16, so more faces lie wholly outside it for the cull; else
 // threads take pixels in row-major order.
-__device__ __forceinline__ void fwd_pixel(int tid, int tile, int& col,
-                                          int& row, int& c0, int& c1,
-                                          int& r0, int& r1) {
+__device__ __forceinline__ void fwd_pixel(int tid, int cols, int rows,
+                                          int& col, int& row, int& c0,
+                                          int& c1, int& r0, int& r1) {
   const int w = tid >> 5;
-  if ((tile & 7) == 0) {
-    const int across = tile / 8;
+  if ((cols & 7) == 0 && (rows & 3) == 0) {
+    const int across = cols / 8;
     c0 = (w % across) * 8;
     r0 = (w / across) * 4;
     col = c0 + (tid & 7);
@@ -276,14 +280,14 @@ __device__ __forceinline__ void fwd_pixel(int tid, int tile, int& col,
     r1 = r0 + 3;
     return;
   }
-  const int tp = tile * tile;
-  const int lo = 32 * w, hi = min(32 * w + 31, tp - 1);
-  col = tid % tile;
-  row = tid / tile;
-  r0 = lo / tile;
-  r1 = hi / tile;
-  c0 = r0 == r1 ? lo % tile : 0;
-  c1 = r0 == r1 ? hi % tile : tile - 1;
+  const int np = cols * rows;
+  const int lo = 32 * w, hi = min(32 * w + 31, np - 1);
+  col = tid % cols;
+  row = tid / cols;
+  r0 = lo / cols;
+  r1 = hi / cols;
+  c0 = r0 == r1 ? lo % cols : 0;
+  c1 = r0 == r1 ? hi % cols : cols - 1;
 }
 
 // Slot groups per tile: G groups of tile^2 threads share a tile's block,
@@ -302,7 +306,7 @@ __device__ __forceinline__ void fwd_pixel(int tid, int tile, int& col,
 // different batch sizes, or between cards (each within the plain version's
 // tolerance). One launch shape on one card gives the same bits every run.
 int fwd_groups(int tile, long long tiles, int sms) {
-  if (tile % 8) return 1;
+  if (tile % 8 || tile * tile > kMaxPixels) return 1;
   const long long warps = (long long)tile * tile / 32;   // per group
   int G = 1;
   while (2 * G <= kFwdMaxGroups && 2 * G * tile * tile <= kMaxPixels &&
@@ -325,41 +329,77 @@ int sm_count(int device, int* sms) {
   return err;
 }
 
+// The block plan of a forward launch: a block holds a rectangle of cols x
+// rows pixels of a tile, P of them cover it. Up to kMaxPixels pixels, the
+// whole tile (P = 1, slot groups by fwd_groups); past it, one group and
+// blocks of up to kMaxPixels pixels: whole rows (a multiple of 4 of them
+// where tile is a multiple of 8, for the warps' 8 x 4 boxes) up to 1024
+// columns, a part of a row beyond.
+void fwd_plan(int tile, int* cols, int* rows, int* P) {
+  if (tile * tile <= kMaxPixels) {
+    *cols = *rows = tile;
+    *P = 1;
+    return;
+  }
+  const int c = min(tile, kMaxPixels);
+  int r = min(tile, max(1, kMaxPixels / c));
+  if (c % 8 == 0 && r >= 4) r -= r % 4;
+  *cols = c;
+  *rows = r;
+  *P = ((tile + c - 1) / c) * ((tile + r - 1) / r);
+}
+
 // Replaces torch_renderer_tpu/rasterize/pallas_soft.py _fwd_kernel_packed
 // (bench route) and _fwd_kernel (lane route).
 // Bound: arithmetic. Each live (pixel, face) pair costs its three clamped
 // edge distances, the inside test and a softplus, and a tile reads only
 // K * 24 bytes of corners for tile^2 * K pairs, so device memory is never
-// the limit. Design: one block per active tile, a thread per pixel in each
-// of G slot groups (fwd_groups); the tile's candidates stream through
-// shared memory in chunks of kFwdChunk with their per-pair constants
-// folded at staging (stage_face), read as float4 broadcasts, so a pair is
-// about 45 operations of edge math and 25 of softplus (softplus_term) with
-// no special-function unit. A warp skips a face whose cull box its pixels'
-// box misses (uniform across the warp), and a pixel skips the softplus of
-// a pair below kCutoff (it saves time where a whole warp agrees; the two
-// skip about a third of the bench slab's live pairs, as
-// tests/test_torch_soft_fwd.py counts them). Each skipped term is exactly
-// +0.0, so a group's sum is the one over its slots in slot order, bit for
-// bit; group 0 adds the other groups' sums in group order through shared
-// memory (no atomics: the result does not depend on scheduling). The trip
-// count is the tile's own candidate count: empty and thin tiles cost
+// the limit. Design: one block per active tile (P = gridDim.z blocks of
+// whole rows past 1024 pixels, fwd_plan: 4 blocks of 16 rows at tile 64,
+// each staging the tile's faces and writing its own rows), a thread per
+// pixel in each of G slot groups (fwd_groups); the tile's candidates
+// stream through shared memory in chunks of kFwdChunk with their per-pair
+// constants folded at staging (stage_face), read as float4 broadcasts, so
+// a pair is about 45 operations of edge math and 25 of softplus
+// (softplus_term) with no special-function unit. A warp skips a face whose
+// cull box its pixels' box misses (uniform across the warp), and a pixel
+// skips the softplus of a pair below kCutoff (it saves time where a whole
+// warp agrees; the two skip about a third of the bench slab's live pairs,
+// as tests/test_torch_soft_fwd.py counts them). Each skipped term is
+// exactly +0.0, so a group's sum is the one over its slots in slot order,
+// bit for bit; group 0 adds the other groups' sums in group order through
+// shared memory (no atomics: the result does not depend on scheduling). The
+// trip count is the tile's own candidate count: empty and thin tiles cost
 // almost nothing.
 __global__ void __launch_bounds__(kMaxPixels)
 soft_coverage_fwd_kernel(const float* __restrict__ q,
                          const int* __restrict__ count,
                          float* __restrict__ S, int A, int K, int tile,
-                         float inv_s, float inv_sigma, float r_cut) {
+                         int cols, int rows, float inv_s, float inv_sigma,
+                         float r_cut) {
   __shared__ float4 faces[kFwdChunk * kFwdVec];
   __shared__ float part[kMaxPixels];
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], K));
   const int tp = tile * tile;
-  const int G = blockDim.x / tp;           // tp threads a group (launcher)
-  const int g = threadIdx.x / tp;
-  const int tid = threadIdx.x - g * tp;
+  const int np = cols * rows;              // the block's pixels
+  const int G = blockDim.x / np;           // np threads a group (launcher)
+  const int g = threadIdx.x / np;
+  const int tid = threadIdx.x - g * np;
   int col, row, c0, c1, r0, r1;
-  fwd_pixel(tid, tile, col, row, c0, c1, r0, r1);
+  fwd_pixel(tid, cols, rows, col, row, c0, c1, r0, r1);
+  {   // the block's rectangle of the tile (pixels past it are computed and
+      // not written)
+    const int across = (tile + cols - 1) / cols;
+    const int x0 = (blockIdx.z % across) * cols;
+    const int y0 = (blockIdx.z / across) * rows;
+    col += x0;
+    c0 += x0;
+    c1 += x0;
+    row += y0;
+    r0 += y0;
+    r1 += y0;
+  }
   const float px = (float)col * inv_s, py = (float)row * inv_s;
   const float bx0 = (float)c0 * inv_s, bx1 = (float)c1 * inv_s;
   const float by0 = (float)r0 * inv_s, by1 = (float)r1 * inv_s;
@@ -384,10 +424,10 @@ soft_coverage_fwd_kernel(const float* __restrict__ q,
       if (!(x < kCutoff)) acc = __fadd_rn(acc, softplus_term(x));
     }
   }
-  if (g > 0) part[(g - 1) * tp + tid] = acc;
+  if (g > 0) part[(g - 1) * np + tid] = acc;
   __syncthreads();
-  if (g == 0) {
-    for (int h = 1; h < G; ++h) acc = __fadd_rn(acc, part[(h - 1) * tp + tid]);
+  if (g == 0 && row < tile && col < tile) {
+    for (int h = 1; h < G; ++h) acc = __fadd_rn(acc, part[(h - 1) * np + tid]);
     S[cell * tp + row * tile + col] = acc;
   }
 }
@@ -451,9 +491,16 @@ __device__ __forceinline__ void pair_grad(const Face& f, float px, float py,
 // slot it visits, not tile^2 pairs per slot, and a block keeps 8 warps in
 // flight however few candidates its tile holds. Each slot still has a
 // single writer: no atomics, and the result does not depend on scheduling.
+// CHUNKED (past 1024 pixels, tile 64: 4096): the tile's pixels are staged
+// and walked in chunks of kMaxPixels for each chunk of slots; each face's
+// partials of a pixel chunk are added, in chunk order, to its sums in
+// shared memory by the warp that owns the face, and its row is written
+// once, after the last pixel chunk. Up to 1024 pixels the instance without
+// it runs the tile as one chunk, as before.
 // The per-pixel product form replaces the TPU's moment form, which existed
 // to save vector ops on that chip; both give the same gradient. The scatter
 // from slots back to faces is not here: it is the gather kernel's backward.
+template <bool CHUNKED>
 __global__ void __launch_bounds__(kBwdThreads)
 soft_coverage_bwd_kernel(const float* __restrict__ q,
                          const int* __restrict__ count,
@@ -462,14 +509,21 @@ soft_coverage_bwd_kernel(const float* __restrict__ q,
                          float inv_s, float inv_sigma) {
   __shared__ float g_s[kMaxPixels], px_s[kMaxPixels], py_s[kMaxPixels];
   __shared__ Face faces[kChunk];
+  __shared__ float sums[kChunk * 6];         // past one pixel chunk
   const long cell = (long)blockIdx.y * A + blockIdx.x;
   const int n = max(0, min(count[cell], K));
   const int tp = tile * tile;
-  for (int p = threadIdx.x; p < tp; p += blockDim.x) {
-    g_s[p] = g[cell * tp + p];
-    px_s[p] = (float)(p % tile) * inv_s;
-    py_s[p] = (float)(p / tile) * inv_s;
-  }
+  const int chunks = CHUNKED ? (tp + kMaxPixels - 1) / kMaxPixels : 1;
+  // a chunk's pixels p0 .. p0 + np - 1 into shared memory
+  const auto stage_pixels = [&](int p0, int np) {
+    for (int i = threadIdx.x; i < np; i += blockDim.x) {
+      const int p = p0 + i;
+      g_s[i] = g[cell * tp + p];
+      px_s[i] = (float)(p % tile) * inv_s;
+      py_s[i] = (float)(p / tile) * inv_s;
+    }
+  };
+  if (!CHUNKED) stage_pixels(0, tp);
   const float* qt = q + cell * K * 6;
   float* dqt = dq + cell * K * 6;
   // slots at or beyond count get zeros
@@ -483,33 +537,49 @@ soft_coverage_bwd_kernel(const float* __restrict__ q,
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
       load_face(qt + (long)(c0 + i) * 6, faces[i]);
     }
-    __syncthreads();                          // also publishes g_s, px_s, py_s
-    for (int i = warp; i < m; i += kBwdWarps) {
-      const Face f = faces[i];
-      float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      for (int p = lane; p < tp; p += 32) {
-        pair_grad(f, px_s[p], py_s[p], g_s[p], inv_sigma, out);
+    for (int k = 0; k < chunks; ++k) {
+      const int p0 = k * kMaxPixels, np = min(kMaxPixels, tp - p0);
+      if (CHUNKED) {
+        __syncthreads();                      // the last chunk's pixels read
+        stage_pixels(p0, np);
       }
-      // fixed-order butterfly: every lane ends with the same sums
+      __syncthreads();                        // faces, pixels published
+      for (int i = warp; i < m; i += kBwdWarps) {
+        const Face f = faces[i];
+        float out[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int p = lane; p < np; p += 32) {
+          pair_grad(f, px_s[p], py_s[p], g_s[p], inv_sigma, out);
+        }
+        // fixed-order butterfly: every lane ends with the same sums
 #pragma unroll
-      for (int c = 0; c < 6; ++c) {
+        for (int c = 0; c < 6; ++c) {
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          out[c] += __shfl_xor_sync(0xffffffffu, out[c], off);
+          for (int off = 16; off > 0; off >>= 1) {
+            out[c] += __shfl_xor_sync(0xffffffffu, out[c], off);
+          }
+        }
+        if (lane == 0) {
+          float* row = CHUNKED ? sums + i * 6 : dqt + (long)(c0 + i) * 6;
+#pragma unroll
+          for (int c = 0; c < 6; ++c) {
+            row[c] = (!CHUNKED || k == 0) ? out[c] : row[c] + out[c];
+          }
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) dqt[(long)(c0 + i) * 6 + c] = out[c];
+    }
+    if (CHUNKED) {   // each face's sums over the pixel chunks, once
+      __syncthreads();
+      for (int i = threadIdx.x; i < m * 6; i += blockDim.x) {
+        dqt[(long)c0 * 6 + i] = sums[i];
       }
     }
   }
 }
 
+// Any tile whose pixel count is an int.
 int check_shape(int B, int A, int K, int tile) {
-  const int tp = tile * tile;
   if (B <= 0 || B > 65535 || A <= 0 || K <= 0 || tile <= 0 ||
-      tp > kMaxPixels) {
+      (long long)tile * tile > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -534,10 +604,12 @@ int trt_soft_coverage_fwd(const float* q, const int* count, float* S, int B,
   int sms = 0;
   err = sm_count(device, &sms);
   if (err) return err;
-  const int threads = fwd_groups(tile, (long long)A * B, sms) * tile * tile;
-  soft_coverage_fwd_kernel<<<dim3(A, B), threads, 0,
-                             (cudaStream_t)stream>>>(q, count, S, A, K, tile,
-                                                     inv_s, inv_sigma, r_cut);
+  int cols = 0, rows = 0, P = 0;
+  fwd_plan(tile, &cols, &rows, &P);
+  const int threads = fwd_groups(tile, (long long)A * B, sms) * cols * rows;
+  soft_coverage_fwd_kernel<<<dim3(A, B, P), threads, 0,
+                             (cudaStream_t)stream>>>(
+      q, count, S, A, K, tile, cols, rows, inv_s, inv_sigma, r_cut);
   return (int)cudaGetLastError();
 }
 
@@ -549,9 +621,15 @@ int trt_soft_coverage_bwd(const float* q, const int* count, const float* g,
   if (err) return err;
   err = (int)cudaSetDevice(device);
   if (err) return err;
-  soft_coverage_bwd_kernel<<<dim3(A, B), kBwdThreads, 0,
-                             (cudaStream_t)stream>>>(q, count, g, dq, A, K,
-                                                     tile, inv_s, inv_sigma);
+  if (tile * tile > kMaxPixels) {
+    soft_coverage_bwd_kernel<true><<<dim3(A, B), kBwdThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        q, count, g, dq, A, K, tile, inv_s, inv_sigma);
+  } else {
+    soft_coverage_bwd_kernel<false><<<dim3(A, B), kBwdThreads, 0,
+                                      (cudaStream_t)stream>>>(
+        q, count, g, dq, A, K, tile, inv_s, inv_sigma);
+  }
   return (int)cudaGetLastError();
 }
 

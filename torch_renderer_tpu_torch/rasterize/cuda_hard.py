@@ -20,6 +20,11 @@ fields).
     bounding box, and merges the groups' lists in (depth, slot) order:
     the winners are those of one stable pass over the slots.
 
+Both kernels take any tile and ``topk_select`` any K: a tile of more than
+1024 pixels spans several blocks, and where not even one warp's
+top-K lists fit in shared memory (K > 812) they live in device memory, in
+the output and a depth scratch the wrapper allocates.
+
 A face covers a pixel when the pixel is inside it (or within squared
 distance blur of its boundary) and its selection z, interpolated with
 relu-clipped barycentrics, is above znear. Ties keep the lower slot, i.e.
@@ -46,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import launch
+from .._build import launch, load_kernels
 from .binning import (
     ActiveBins,
     bin_faces_active,
@@ -66,8 +71,6 @@ HARD_LAUNCHES = 0
 TOPK_LAUNCHES = 0
 
 INF = 3.0e38
-MAX_TILE_PIXELS = 1024   # the kernels run one thread per pixel of a tile
-MAX_K = 64               # topk_select keeps at most this many faces a pixel
 SLAB_CHANNELS = 13
 # Per-field values of a pixel with no hit: zbuf, pc0, pc1, pc2, dists, face
 # id, live, winner slot (the JAX kernels' empty band).
@@ -183,9 +186,8 @@ def _check_inputs(slab, count, origin, tile: int):
     if origin.dtype != torch.float32 or tuple(origin.shape) != (B, A, 2):
         raise ValueError(f"origin must be float32 ({B}, {A}, 2), got "
                          f"{origin.dtype} {tuple(origin.shape)}")
-    if not 0 < tile * tile <= MAX_TILE_PIXELS:
-        raise ValueError(f"tile^2 must be in (0, {MAX_TILE_PIXELS}]; got "
-                         f"tile={tile}")
+    if tile <= 0:
+        raise ValueError(f"tile must be positive; got {tile}")
     if any(t.device != slab.device for t in (count, origin)):
         raise ValueError("slab, count and origin must be on one device")
     if slab.device.type == "cuda" and not all(
@@ -218,17 +220,21 @@ def topk_select(slab, count, origin, K: int, tile: int, inv_s: float,
     per pixel (-1 = none), ascending in selection z."""
     global TOPK_LAUNCHES
     _check_inputs(slab, count, origin, tile)
-    if not 0 < K <= MAX_K:
-        raise ValueError(f"K must be in (0, {MAX_K}]; got {K}")
+    if K <= 0:
+        raise ValueError(f"K must be positive; got {K}")
     if slab.device.type == "cpu":
         return topk_select_reference(slab, count, origin, K, tile, inv_s,
                                      blur, znear)
     B, A, F, _ = slab.shape
     lane = torch.empty((B, A, K, tile * tile), dtype=torch.int32,
                        device=slab.device)        # the kernel writes all
+    # the lists' depths, where they live in device memory
+    zs = (torch.empty(lane.shape, dtype=torch.float32, device=slab.device)
+          if load_kernels().trt_topk_device_lists(K) else None)
     launch("trt_topk_select", slab.data_ptr(), count.data_ptr(),
-            origin.data_ptr(), lane.data_ptr(), B, A, F, K, tile, inv_s,
-            blur, znear, device=slab.device)
+           origin.data_ptr(), lane.data_ptr(),
+           None if zs is None else zs.data_ptr(), B, A, F, K, tile, inv_s,
+           blur, znear, device=slab.device)
     TOPK_LAUNCHES += 1
     return lane
 

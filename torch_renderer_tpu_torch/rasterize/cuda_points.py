@@ -12,6 +12,11 @@ the winners' channels by point id, scatter the per-tile fields back to the
 tile grid with the background (-1 idx, -1 zbuf, -1 dists2, 0 features) and
 untile into (B, H, W, K) PointFragments.
 
+The kernel takes any tile and any K: a tile splits over as many blocks as
+its plan needs, and where not even one warp's lists of K fit in shared
+memory (K > 876) they live in device memory, in the output and a depth
+scratch the wrapper allocates.
+
 A point covers a pixel when dx^2 + dy^2 <= r^2, its slot is below the
 tile's capped count and its z is above znear; each pixel keeps its K
 covering points of lowest z, ties to the lower slot (the lower point id).
@@ -39,7 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._build import launch
+from .._build import launch, load_kernels
 from .binning import (
     ActiveBins,
     bin_ranks_active,
@@ -55,9 +60,6 @@ from .points import INF, PointFragments
 # Kernel launches since import (or since a caller reset them): one per
 # launched kernel, counted where the wrapper launches it and nowhere else.
 POINTS_LAUNCHES = 0
-
-MAX_TILE = 32            # tile^2 <= 1024 pixels per tile
-MAX_K = 64               # points_select keeps at most this many points a pixel
 
 
 # ---------------------------------------------------------------------------
@@ -123,11 +125,11 @@ def _check_inputs(slab, count, origin, offs, K: int, r2) -> None:
                          f"{origin.dtype} {tuple(origin.shape)}")
     tp = offs.shape[0]
     if (offs.dtype != torch.float32 or offs.ndim != 2 or offs.shape[1] != 2
-            or math.isqrt(tp) ** 2 != tp or not 0 < tp <= MAX_TILE ** 2):
-        raise ValueError(f"offs must be float32 (tile^2, 2) with tile <= "
-                         f"{MAX_TILE}, got {offs.dtype} {tuple(offs.shape)}")
-    if not 0 < K <= MAX_K:
-        raise ValueError(f"K must be in (0, {MAX_K}]; got {K}")
+            or math.isqrt(tp) ** 2 != tp or tp == 0):
+        raise ValueError(f"offs must be float32 (tile^2, 2), got "
+                         f"{offs.dtype} {tuple(offs.shape)}")
+    if K <= 0:
+        raise ValueError(f"K must be positive; got {K}")
     if any(t.device != slab.device for t in (count, origin, offs)):
         raise ValueError("slab, count, origin and offs must be on one device")
     if slab.device.type == "cuda" and not all(
@@ -154,8 +156,12 @@ def points_select(slab, count, origin, offs, K: int, znear: float,
     tp = offs.shape[0]
     lane = torch.empty((B, A, K, tp), dtype=torch.int32,
                        device=slab.device)         # the kernel writes all
+    # the lists' depths, where they live in device memory
+    zs = (torch.empty(lane.shape, dtype=torch.float32, device=slab.device)
+          if load_kernels().trt_points_device_lists(K) else None)
     launch("trt_points_select", slab.data_ptr(), count.data_ptr(),
-           origin.data_ptr(), offs.data_ptr(), lane.data_ptr(), B, A, P, C,
+           origin.data_ptr(), offs.data_ptr(), lane.data_ptr(),
+           None if zs is None else zs.data_ptr(), B, A, P, C,
            K, math.isqrt(tp), 0.0 if r2 is None else r2,
            -1 if r2 is not None else 3, znear, device=slab.device)
     POINTS_LAUNCHES += 1
@@ -206,9 +212,6 @@ def binned_point_inputs(q, z, valid, radius2, settings,
     H, W = settings.image_size
     tile = settings.bin_size
     B, N = z.shape
-    if tile > MAX_TILE:
-        raise ValueError(f"bin_size must be <= {MAX_TILE} (one CUDA thread "
-                         f"per tile pixel); got {tile}")
     TH, TW, _ = tile_grid((H, W), tile)
     T = TH * TW
     if B * T * N > 1 << 30:

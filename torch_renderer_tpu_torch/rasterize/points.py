@@ -63,8 +63,9 @@ class PointsRasterizationSettings:
 
     bin_size: None = auto (rasterize/autotune.py measures tile and budgets
     from the first concrete cloud per shape), 0 = dense selection, k > 0 =
-    binned with tile k (k <= 32): points are binned into k-pixel tiles by
-    their radius-expanded bbox and each tile evaluates its own candidates.
+    binned with tile k (any k, any points_per_pixel): points are binned
+    into k-pixel tiles by their radius-expanded bbox and each tile
+    evaluates its own candidates.
     Points beyond a tile's max_points_per_bin and non-empty tiles beyond
     active_tiles are dropped; size them with suggest_points_per_bin and
     suggest_active_tiles_points.

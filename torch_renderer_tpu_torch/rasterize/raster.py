@@ -34,7 +34,6 @@ from .geometry import (
 from .soft import pixel_coords_raster
 
 INF = 3.0e38
-MAX_BIN_SIZE = 32   # the kernels run one thread per pixel of a tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +47,9 @@ class RasterizationSettings:
 
     bin_size: None = auto (rasterize/autotune.py measures tile and budgets
     from the first concrete scene), 0 = dense selection, k > 0 = binned with
-    tile k (k <= 32) and the budgets max_faces_per_bin / active_tiles: faces
-    beyond a tile's budget and non-empty tiles beyond active_tiles are
-    dropped. Every binned call runs the CUDA kernels on a CUDA tensor,
+    tile k (any k, any faces_per_pixel) and the budgets max_faces_per_bin
+    / active_tiles: faces beyond a tile's budget and non-empty tiles beyond
+    active_tiles are dropped. Every binned call runs the CUDA kernels on a CUDA tensor,
     whatever ``impl`` says ("auto", "pallas" and "xla" are accepted), and
     ends with the untile kernel (rasterize/cuda_untile.py), one launch for
     all of its fragment fields, whatever ``untile_impl`` says (the JAX
@@ -155,9 +154,6 @@ def _interpolate(pix_all, fd: FaceRasterData, pix_to_face,
 def _check_settings(settings: RasterizationSettings) -> None:
     """The setting combinations the JAX package refuses."""
     K = settings.faces_per_pixel
-    if settings.bin_size and settings.bin_size > MAX_BIN_SIZE:
-        raise ValueError(f"bin_size must be <= {MAX_BIN_SIZE} (one CUDA "
-                         f"thread per tile pixel); got {settings.bin_size}")
     if settings.layout not in ("tile", "packed"):
         raise ValueError(f"unknown layout {settings.layout!r}")
     if settings.layout == "packed":
