@@ -102,9 +102,15 @@ Drives, through the port's public entry points:
   G. the batched multi-view depth render: apps/batch_render_bench.main() at
      its defaults (120 look-at views of a normalized level-3 icosphere at
      1280x720, calls of 12 views, f = 0.9 * 720, bin 32, auto budgets and
-     occupancy split, select_impl "affine", --check-budgets warn), which
-     must launch per call exactly one hard_k1, one gather_tiles_fwd and one
-     untile_scatter (for the four fragment fields) and nothing else. On one 12-view call: the
+     occupancy split, select_impl "affine", --check-budgets warn), eager
+     and captured (its default: each call a replay of a CUDA graph), which
+     must launch per call run from the host (every eager call; a graph's
+     warm-up and capture) exactly one hard_k1, one gather_tiles_fwd and one
+     untile_scatter (for the four fragment fields) and nothing else; the
+     two forms' 120 views bit for bit, the captured first 12 within 2e-3
+     of the float64 ray caster; a 12-view call as the app makes it in both
+     forms, a replay's kernels against eager's (the profiler), each form's
+     busy share and peak memory. On one 12-view call: the
      launches of that call, the call through the untile kernel against the
      same call ending with the kernel's plain version, bit for bit (depth,
      silhouette and the four fields), gather_tiles_fwd and hard_k1 against
@@ -126,8 +132,10 @@ Drives, through the port's public entry points:
      any host synchronization raising (torch.cuda.set_sync_debug_mode);
      the device kernels of 20 steps in both forms by torch.profiler (the
      same count of each of the port's kernels, the same names of the rest,
-     copies aside: same_kernels; a window that recorded fewer kernels than
-     its run launched is profiled again, up to 3 windows a form). The
+     copies aside: same_kernels; every window opens with marker kernels
+     that take the records a window can lose at its start, and one that
+     recorded fewer kernels than its run launched is profiled again, up to
+     3 windows a form). The
      pose fit on both routes and the joint fit at the apps' defaults, 500
      iterations, eager, captured, captured, eager, each held to phase C's
      or E's gates; the first captured fit launches each of its wrappers
@@ -180,14 +188,20 @@ Drives, through the port's public entry points:
      (4 scenes x 25 views at 480x640, 2-5 primitives a scene, random
      materials, rest placement, normals, outputs packed on the card) and
      with --material-mode texture --room --placement physics --edge-maps
-     --min-visible-px 200 at 2 scenes, each counted: exactly one hard_k1,
-     gather_tiles_fwd and untile_scatter launch a chunk of 8 views and a
-     visibility render, texsample_fwd at most once a chunk and at least
-     once in the textured run; every annotation's area at least
-     min_visible_px and its RLE covering 480 x 640 pixels; images/s, s a
-     scene, the annotations, peak memory. Then one scene of the defaults
-     profiled (busy share, the kernels' device ms), one chunk of a
-     textured room scene (its kernels and device ms by the profiler) and
+     --min-visible-px 200 at 3 scenes, each captured (the default: the
+     chunk render and the visibility count replays of CUDA graphs) and
+     --eager, each counted: exactly one hard_k1, gather_tiles_fwd and
+     untile_scatter launch a chunk of 8 views and a visibility render run
+     from the host (all of them eager; a graph's warm-up and capture),
+     texsample_fwd at most once a chunk and at least once in the textured
+     run; every annotation's area at least min_visible_px and its RLE
+     covering 480 x 640 pixels; images/s, s a scene, the annotations, peak
+     memory; the two forms' written datasets equal file for file (PNGs,
+     depth, seg and normals arrays, annotations, poses). Then a scene of
+     each configuration profiled in each form (busy share, the kernels'
+     device ms), one chunk and one visibility count of a textured room scene in
+     each form (a replay's kernels against eager's, by the profiler, in a
+     process of its own and in this one; the chunk's device ms) and
      at that chunk hard_k1 (all 8 rows bit for bit; its plain version 2
      views at a time), gather_tiles_fwd and untile_scatter (equal) and
      texsample_fwd (within 1e-6; the backward on a seeded cotangent within
@@ -238,9 +252,11 @@ Drives, through the port's public entry points:
      and K=1000 (lists in device memory; its first 128 winners K=128's),
      each with the gradient of its depth; rasterize_points at the point
      bench scene at tile 64 K=8 and tile 16 K=65; the depth app at
-     --bin-size 64 at its defaults (one hard_k1, gather and untile launch
-     a call; one call's 12 views within 2e-3 of a float64 ray caster on
-     the card, interior pixels); the pose app at --bin-size 64 on both
+     --bin-size 64 at its defaults, --eager (one hard_k1, gather and
+     untile launch a call) and captured (one launch each a call run from
+     the host; its 120 views bit for bit the eager run's); one call's 12
+     views within 2e-3 of a float64 ray caster on the card, interior
+     pixels; the pose app at --bin-size 64 on both
      routes at its defaults with a face budget of the whole mesh (the
      loss and the translation error below 0.1x their start; the pallas
      route's silhouette keeps its tile 16, as the JAX fitter's does). Every
@@ -254,9 +270,28 @@ Drives, through the port's public entry points:
      alone ms), which reach the kernels through the public wrappers only
      and so time a parent tree too.
   N. the deform app (apps/deform_from_pcd.py, BASELINE.json config 3) at
-     its defaults (level 4, 1000 samples, 2000 iterations, eager): every
-     chamfer finite, the last below 0.5x the first, the fitted mesh within
-     radius 1.5; its iterations a second as it prints them.
+     its defaults (level 4, 1000 samples, 2000 iterations), captured (its
+     default), and --eager for 500 iterations: every chamfer finite, the
+     last below 0.5x the first, the fitted mesh within radius 1.5; the
+     first two chamfers of the forms within 1e-4; its iterations a second
+     as it prints them; a surface sampling as a StepGraph drawing what
+     eager draws, call for call, consecutive replays differing; a fit of
+     22 iterations in each form profiled (a replay's kernels against
+     eager's, the int64 fills of the generator's prologue counted against
+     the captures and replays, rng_prologue; busy share, peak memory);
+     each app run's busy share is that form's profiled device ms an
+     iteration times the run's iterations a second.
+  O. the two-phase creator (opt/creator.py) at CreatorConfig's defaults
+     (geometry 4000 steps of 1000 samples, colour 500 steps over 10 views
+     at 128x128, K=4) from the level-4 icosphere onto the deform app's
+     target coloured clip(0.5 + 0.5 v), captured, each phase counted, with
+     the JAX tests' gates (chamfer to under half its start, the RGB error
+     finite and falling, the OBJ export round-trips, colours in [0, 1]);
+     the colour fit's topk_select, gather_tiles_fwd and untile_scatter
+     against their plain versions on its own slab (the deformed mesh, its
+     10 poses, the settings the fit resolves), with their launches in the
+     captured colour phase; both phases eager over shorter windows against
+     the captured ones; both phases' forms profiled.
 
 Every kernel time and every plain time is taken with CUDA events; the fits
 are timed by CUDA events and by host wall time. Each kernel's bound is the
@@ -2315,47 +2350,96 @@ def untile_check(tag: str, bins, fields: dict, image_size, tile: int,
     return rec, n_read
 
 
-def batch_phase(device, card: str) -> dict:
-    import torch_renderer_tpu_torch as trt
+def batch_app_forms(card: str) -> dict:
+    """The app at its defaults in both forms, each counted: eager (every
+    call launches hard_k1, gather_tiles_fwd and untile_scatter once) and
+    captured (each launches them once a call run from the host, the
+    graphs' warm-ups and captures: "traced"); each form's rates, wall
+    time and peak device memory, and its last pass's 120 views."""
     from torch_renderer_tpu_torch.apps import batch_render_bench
+
+    H, W = BATCH_SIZE
+    runs = {}
+    for form in ("eager", "captured"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        app = batch_render_bench.main(
+            ["--cards", "1"] + (["--eager"] if form == "eager" else []))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        calls, traced = app["calls"], app["traced"]
+        print(f"[batch] app at its defaults, {form} ({BATCH_VIEWS} views of "
+              f"{W}x{H}, chunks of {BATCH_CHUNK}, bin {BATCH_TILE}, "
+              f"--check-budgets warn): max_faces_per_bin "
+              f"{app['max_faces_per_bin']}, active_tiles "
+              f"{app['active_tiles']}, occupancy_split "
+              f"{app['occupancy_split']}; {app['images_per_s']:.1f} depth "
+              f"images/s batched, {app['serial_images_per_s']:.1f} images/s "
+              f"serial single-view (host clock over synchronized calls); "
+              f"{calls} render calls, {traced} run from the host; "
+              f"{wall_s:.1f} s in all; launches {counts}; peak device "
+              f"memory {peak:.3f} GiB; {card}", flush=True)
+        want = only(counts, hard_k1=traced, gather_tiles_fwd=traced,
+                    untile_scatter=traced)
+        if counts != want or (form == "eager") != (traced == calls):
+            raise AssertionError(f"batch render {form}: expected launches "
+                                 f"{want} ({calls} calls, {traced} from the "
+                                 f"host), got {counts}")
+        if not (0.05 < app["coverage"] < 0.9
+                and 1.5 < app["depth_max"] < 3.0):
+            raise AssertionError(f"batch render {form}: implausible depth "
+                                 f"(coverage {app['coverage']}, max "
+                                 f"{app['depth_max']})")
+        runs[form] = {"app": app, "counts": counts, "wall_s": wall_s,
+                      "peak_gb": peak}
+    return runs
+
+
+def batch_phase(device, card: str) -> dict:
+    import io
+
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.apps import render_compare
     from torch_renderer_tpu_torch.rasterize import cuda_hard
     from torch_renderer_tpu_torch.rasterize.binning import (
         set_budget_check_default,
     )
     from torch_renderer_tpu_torch.rasterize.geometry import setup_face_planes
+    from torch_renderer_tpu_torch.utils.graph import CapturedCall
 
-    H, W = BATCH_SIZE
-    # the app at its defaults; every count it launches is this run's
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    app = batch_render_bench.main(["--cards", "1"])
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak_app = torch.cuda.max_memory_allocated() / 2**30
-    calls = app["calls"]
-    print(f"[batch] app at its defaults ({BATCH_VIEWS} views of {W}x{H}, "
-          f"chunks of {BATCH_CHUNK}, bin {BATCH_TILE}, --check-budgets warn):"
-          f" max_faces_per_bin {app['max_faces_per_bin']}, active_tiles "
-          f"{app['active_tiles']}, occupancy_split {app['occupancy_split']}; "
-          f"{app['images_per_s']:.1f} depth images/s batched, "
-          f"{app['serial_images_per_s']:.1f} images/s serial single-view "
-          f"(host clock over synchronized calls); {calls} render calls, "
-          f"{wall_s:.1f} s in all; launches {counts}; peak device memory "
-          f"{peak_app:.3f} GiB; {card}", flush=True)
-    want = only(counts, hard_k1=calls, gather_tiles_fwd=calls,
-                untile_scatter=calls)
-    if counts != want:
-        raise AssertionError(f"batch render: expected launches {want}, got "
-                             f"{counts}")
-    if not (0.05 < app["coverage"] < 0.9 and 1.5 < app["depth_max"] < 3.0):
-        raise AssertionError(f"batch render: implausible depth (coverage "
-                             f"{app['coverage']}, max {app['depth_max']})")
+    forms = batch_app_forms(card)
+    app, counts = forms["eager"]["app"], forms["eager"]["counts"]
+    peak_app = forms["eager"]["peak_gb"]
+    views = {f: r["app"].pop("views") for f, r in forms.items()}
+    differ = int((views["captured"] != views["eager"]).sum())
+    print(f"[batch] the {BATCH_VIEWS} views, captured against eager: "
+          f"{differ} pixels differ ({card})", flush=True)
+    if differ:
+        raise AssertionError("the captured depth app's views are not the "
+                             "eager app's bit for bit")
+    # the captured app's first call against the float64 ray caster
+    batched, R, t, K, kw = _batch_chunk(device, app)
+    with torch.no_grad():
+        mesh0 = batched.verts[0], batched.faces[0].long()
+        ray = raycast_depth(*mesh0, K, R, t, BATCH_SIZE)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        worst = render_compare._diff_report(
+            "depth app captured vs ray caster",
+            views["captured"][:BATCH_CHUNK].cpu().numpy(), ray.cpu().numpy())
+    del ray, views
+    print(f"[batch] the captured app's first {BATCH_CHUNK} views against the "
+          f"float64 ray caster: worst interior |diff| {worst:.6f} (tol "
+          f"{RAY_TOL}) ({card})", flush=True)
+    if not worst < RAY_TOL:
+        raise AssertionError("captured depth app: depth is not within 2e-3 "
+                             "of the ray caster")
 
     set_budget_check_default("off")
-    batched, R, t, K, kw = _batch_chunk(device, app)
     rp = trt.DepthRender(K, BATCH_SIZE, **kw)
     with torch.no_grad():
         # one call's launches, then the kernel's epilogue against the plain
@@ -2412,22 +2496,51 @@ def batch_phase(device, card: str) -> dict:
     print(f"[batch] one {BATCH_CHUNK}-view call by CUDA events, in turns "
           f"(budget checks off): {call_ms} ms ({card})", flush=True)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        prof = _busy_share(lambda: [rp.render(batched, R, t)
-                                    for _ in range(PROFILE_ITERS)],
-                           PROFILE_ITERS, top=8)
-    print(f"[batch] profile of {PROFILE_ITERS} {BATCH_CHUNK}-view calls "
-          f"({card}): {prof}", flush=True)
-    peak_call = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[batch] peak device memory over the profiled calls "
-          f"{peak_call:.3f} GiB ({card})", flush=True)
+    # one call in both forms as the app makes it (a CapturedCall, the
+    # depth copied into a kept buffer): the replay's kernels against
+    # eager's, each form's busy share and peak memory
+    keep = torch.empty((BATCH_CHUNK,) + BATCH_SIZE, device=device)
+    calls = {f: CapturedCall(lambda R_, t_: rp.render(batched, R_, t_),
+                             device, capture=f == "captured")
+             for f in ("eager", "captured")}
+
+    def run(captured: bool, n: int = PROFILE_ITERS):
+        call = calls["captured" if captured else "eager"]
+        with torch.no_grad():
+            for _ in range(n):
+                keep.copy_(call(R, t))
+
+    run(True, 1)                  # the first call: warm-up and capture
+    kern = same_kernels("depth call", run, {
+        k: PROFILE_ITERS for k in ("hard_k1", "gather_tiles_fwd",
+                                   "untile_scatter")})
+    prof, peak_call = {}, {}
+    for f in ("eager", "captured"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof[f] = _busy_share(lambda: run(f == "captured"), PROFILE_ITERS,
+                              top=8)
+        peak_call[f] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[batch] profile of {PROFILE_ITERS} {BATCH_CHUNK}-view calls, "
+              f"{f} ({card}): {prof[f]}; peak device memory "
+              f"{peak_call[f]:.3f} GiB", flush=True)
+    for call in calls.values():
+        call.release()
     set_budget_check_default(None)
+    rates = {f: {k: r["app"][k] for k in ("images_per_s",
+                                          "serial_images_per_s")}
+             | {"wall_s": r["wall_s"], "peak_gb": r["peak_gb"],
+                "busy_share": prof[f]["busy_share"],
+                "launches": r["counts"], "traced": r["app"]["traced"],
+                "calls": r["app"]["calls"]}
+             for f, r in forms.items()}
     return {"app": app, "counts": counts, "per_call": per_call,
             "gather": gather, "untile": untile, "n_read": n_read,
-            "grad": grad, "call_ms": call_ms, "profile": prof, "hard_k1": k1,
-            "peak_app_gb": peak_app, "peak_call_gb": peak_call}
+            "grad": grad, "call_ms": call_ms, "profile": prof["eager"],
+            "profile_captured": prof["captured"], "kernels": kern,
+            "hard_k1": k1, "peak_app_gb": peak_app,
+            "peak_call_gb": peak_call["eager"], "forms": rates,
+            "views_differ": differ, "ray_worst": float(worst)}
 
 
 # ---------------------------------------------------------------------------
@@ -2448,56 +2561,198 @@ DEVICE_NAMES = {"soft_coverage_fwd": "soft_coverage_fwd_kernel",
                 "svd3": "svd3_kernel"}
 
 
+@contextlib.contextmanager
+def graph_calls():
+    """Counts the CUDA graph captures (capture_begin) and replays made in
+    the block: yields {"captures": n, "replays": m}."""
+    cls = torch.cuda.CUDAGraph
+    begin, replay = cls.capture_begin, cls.replay
+    n = {"captures": 0, "replays": 0}
+
+    def counted_begin(self, *args, **kw):
+        n["captures"] += 1
+        return begin(self, *args, **kw)
+
+    def counted_replay(self):
+        n["replays"] += 1
+        return replay(self)
+
+    cls.capture_begin, cls.replay = counted_begin, counted_replay
+    try:
+        yield n
+    finally:
+        cls.capture_begin, cls.replay = begin, replay
+
+
+# marker kernels (int16 fills) that open every profiler window, before the
+# call it counts: a window can lose the records of the first kernels after
+# the profiler starts (PERF.md section 7); the markers take that loss, and
+# are left out of the counts
+WINDOW_MARKS = 256
+MARK_NAME = "FillFunctor<short>"
+
+
 def kernel_counts(fn) -> dict:
     """The device kernels of one call of fn() by torch.profiler: every
-    kernel by short name, and the port's kernels by wrapper."""
+    kernel by short name, the port's kernels by wrapper, the CUDA graph
+    captures and replays the call made (graph_calls), and how many of the
+    window's WINDOW_MARKS opening markers it recorded ("marks")."""
     import collections
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    marks = torch.empty(WINDOW_MARKS, dtype=torch.int16, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with graph_calls() as graphs, profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        for i in range(WINDOW_MARKS):
+            marks[i].fill_(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
              and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    n_marks = sum(MARK_NAME in n for n in names)
+    names = [n for n in names if MARK_NAME not in n]
     return {"all": collections.Counter(_short(n) for n in names),
             "ours": {k: sum(v in n for n in names)
-                     for k, v in DEVICE_NAMES.items()}}
+                     for k, v in DEVICE_NAMES.items()},
+            "graphs": dict(graphs), "marks": n_marks}
 
 
-def _rest(counts: dict) -> dict:
+def full_window(fn, expect: dict) -> dict:
+    """kernel_counts(fn), profiled again, up to PROFILE_WINDOWS windows,
+    while the window kept none of its opening markers or recorded fewer
+    of one of the port's kernels than expect holds (a profiler drop:
+    PERF.md section 7); the last window is returned, and its gate is the
+    caller's."""
+    for _ in range(PROFILE_WINDOWS):
+        win = kernel_counts(fn)
+        if win["marks"] and all(win["ours"][k] >= v
+                                for k, v in expect.items()):
+            break
+    return win
+
+
+def _rest(counts: dict, prologue=None) -> dict:
     """A window's kernel counts by name, copies left out (a graph runs a
     device-to-device copy as a kernel of another name, and the bench's
-    captured step adds a copy into its static buffer)."""
-    return {n: c for n, c in counts.items() if "memcpy" not in n.lower()}
+    captured step adds a copy into its static buffer), and the names that
+    hold prologue's name (rng_prologue: compared apart, by their sum)."""
+    return {n: c for n, c in counts.items() if "memcpy" not in n.lower()
+            and not (prologue and prologue["name"] in n)}
 
 
-def _falls_short(window: dict, other: dict, expect: dict) -> bool:
+def _prologue_sum(window: dict, prologue: dict) -> int:
+    return sum(c for n, c in window["all"].items() if prologue["name"] in n)
+
+
+def _prologue_added(window: dict, prologue: dict) -> int:
+    """The prologue kernels the window's captures and replays add."""
+    g = window.get("graphs", {})
+    return (prologue["per_capture"] * g.get("captures", 0)
+            + prologue["per_replay"] * g.get("replays", 0))
+
+
+def _allowance(count: int) -> float:
+    """The events of one count a profiler window may drop: max(2, 1%)."""
+    return max(2, 0.01 * count)
+
+
+def _falls_short(window: dict, other: dict, expect: dict,
+                 prologue=None) -> bool:
     """Whether a profiler window recorded fewer events than its run
-    launched: fewer of one of the port's kernels than the run's wrapper
-    launches (expect), or fewer kernels in all than the other form's
-    window by more than the gate's allowance (max(2, 1%))."""
-    mine, theirs = (sum(_rest(w["all"]).values()) for w in (window, other))
-    return (any(window["ours"][k] < v for k, v in expect.items())
-            or mine < theirs - max(2, 0.01 * theirs))
+    launched: none of its opening markers (the loss may reach the call's
+    own records), fewer of one of the port's kernels than the run's
+    wrapper launches (expect), fewer kernels in all than the other form's
+    window by more than the gate's allowance, or fewer of one name than
+    the other form's window by more than it; with prologue, its name's
+    kernels are counted with each window's graphs' prologue taken off."""
+    mine, theirs = (_rest(w["all"], prologue) for w in (window, other))
+    total, mine_total = sum(theirs.values()), sum(mine.values())
+    if prologue:
+        # the fills of the step itself, each window's graphs' prologue
+        # taken off
+        mine[prologue["name"]], theirs[prologue["name"]] = (
+            _prologue_sum(w, prologue) - _prologue_added(w, prologue)
+            for w in (window, other))
+    return (window.get("marks", WINDOW_MARKS) == 0
+            or any(window["ours"][k] < v for k, v in expect.items())
+            or mine_total < total - _allowance(total)
+            or any(mine.get(n, 0) < c - _allowance(c)
+                   for n, c in theirs.items()))
 
 
 # profiler windows a form may take before the gate compares them
 PROFILE_WINDOWS = 3
+# the kernels a CUDA graph that draws from a registered generator
+# (CUDAGraph.register_generator_state) launches besides its step's: the
+# generators' seeds and offsets written on the device, int64 fills, at its
+# capture and before each replay (counted by rng_prologue)
+RNG_FILL = "FillFunctor<long>"
 
 
-def same_kernels(tag: str, run, expect: dict) -> dict:
+def rng_prologue(device, card: str) -> dict:
+    """The RNG_FILL kernels that a graph drawing from one registered
+    torch.Generator adds at its capture and at each replay, measured: a
+    StepGraph of one torch.rand draw, warmed up outside the windows, its
+    capture and 1 replay in one window; a new one's capture and 5 replays
+    in another. Each window is profiled PROFILE_WINDOWS times, each time
+    with a new graph, and the most fills it recorded stand for it: a
+    profiler window may drop records (PERF.md section 7) and never adds
+    one. {"name": RNG_FILL, "per_capture": a, "per_replay": b}."""
+    from torch_renderer_tpu_torch.utils.graph import StepGraph
+
+    fills, graphs, seen = [], [], []
+    for n in (1, 5):
+        tries = []
+        for _ in range(PROFILE_WINDOWS):
+            g = torch.Generator(device=device).manual_seed(0)
+            out = torch.empty(256, device=device)
+            step = StepGraph(
+                lambda g=g, out=out: out.copy_(torch.rand(
+                    256, device=device, generator=g)), device, True, (g,))
+            step()                      # the eager warm-up
+            win = kernel_counts(lambda step=step, n=n: [step()
+                                                        for _ in range(n)])
+            step.release()
+            tries.append((_prologue_sum(win, {"name": RNG_FILL}),
+                          win["marks"]))
+            graphs.append(win["graphs"])
+        fills.append(max(f for f, _ in tries))
+        seen.append(tries)
+    per_replay, rem = divmod(fills[1] - fills[0], 4)
+    rec = {"name": RNG_FILL, "per_capture": fills[0] - per_replay,
+           "per_replay": per_replay, "fills": fills,
+           "windows": seen}
+    print(f"[rng prologue] int64 fills of a graph drawing from a registered "
+          f"generator: {rec} (windows: [fills, opening markers kept] of "
+          f"each profile; {card})", flush=True)
+    want = ([{"captures": 1, "replays": 1}] * PROFILE_WINDOWS
+            + [{"captures": 1, "replays": 5}] * PROFILE_WINDOWS)
+    if (rem or per_replay < 1 or rec["per_capture"] < 0 or graphs != want):
+        raise AssertionError(f"the RNG prologue is not a fixed count a "
+                             f"capture and a replay: {rec}, graphs {graphs}")
+    return rec
+
+
+def same_kernels(tag: str, run, expect: dict, prologue=None) -> dict:
     """Gate: the captured run put the eager run's kernels on the device:
     the port's kernels count for count, every other kernel name for name,
     its count within the few events a profiler window drops (max(2, 1%)).
+    prologue (rng_prologue's record): the kernels whose names hold its
+    name are compared by their sum, the captured window's equal to the
+    eager window's plus what its captures and replays add (per_capture a
+    capture, per_replay a replay), within the same allowance.
     run(captured) runs one form; kernel_counts profiles it. A window that
     falls short of the launches its run made (_falls_short: expect holds
-    the port's kernels' launches) is profiled again, up to PROFILE_WINDOWS
-    windows a form, and only then are the two compared; the record keeps
-    each short window's totals. Copies are left out (_rest)."""
+    the port's kernels' launches; or short of the other form's window, in
+    all or in one name, by more than the allowance) is profiled again, up
+    to PROFILE_WINDOWS windows a form, and only then are the two
+    compared; the record keeps each short window's totals. Copies are
+    left out (_rest)."""
     win = {k: kernel_counts(lambda c=c: run(c))
            for k, c in (("eager", False), ("captured", True))}
     short = []
@@ -2505,7 +2760,7 @@ def same_kernels(tag: str, run, expect: dict) -> dict:
         redo = [k for k in win
                 if _falls_short(win[k], win[{"eager": "captured",
                                              "captured": "eager"}[k]],
-                                expect)]
+                                expect, prologue)]
         if not redo:
             break
         for k in redo:
@@ -2516,25 +2771,40 @@ def same_kernels(tag: str, run, expect: dict) -> dict:
                   flush=True)
             win[k] = kernel_counts(lambda c=(k == "captured"): run(c))
     eager, captured = win["eager"], win["captured"]
-    e, c = _rest(eager["all"]), _rest(captured["all"])
+
+    e, c = _rest(eager["all"], prologue), _rest(captured["all"], prologue)
     diff = {n: (e.get(n, 0), c.get(n, 0)) for n in set(e) | set(c)
             if e.get(n, 0) != c.get(n, 0)}
     far = {n: ec for n, ec in diff.items()
-           if abs(ec[0] - ec[1]) > max(2, 0.01 * ec[0])}
+           if abs(ec[0] - ec[1]) > _allowance(ec[0])}
+    rng = None
+    if prologue:
+        want = (_prologue_sum(eager, prologue)
+                + _prologue_added(captured, prologue)
+                - _prologue_added(eager, prologue))
+        rng = {"eager": _prologue_sum(eager, prologue),
+               "captured": _prologue_sum(captured, prologue), "want": want,
+               "graphs": {k: d.get("graphs") for k, d in
+                          (("eager", eager), ("captured", captured))}}
+        if abs(rng["captured"] - want) > _allowance(want):
+            far[prologue["name"]] = (want, rng["captured"])
     copies = {k: {n: v for n, v in d["all"].items()
                   if n not in _rest(d["all"])}
               for k, d in (("eager", eager), ("captured", captured))}
     print(f"[{tag}] device kernels: eager {sum(e.values())} of {len(e)} "
           f"names, captured {sum(c.values())}, copies {copies}; ours eager "
           f"{eager['ours']}, captured {captured['ours']}; counts that "
-          f"differ {dict(sorted(diff.items())[:12])}", flush=True)
+          f"differ {dict(sorted(diff.items())[:12])}"
+          + (f"; {prologue['name']} (the graphs' RNG prologue) {rng}"
+             if prologue else ""),
+          flush=True)
     if far or eager["ours"] != captured["ours"]:
         raise AssertionError(f"{tag}: the captured run's kernels are not "
                              f"the eager run's: {far}")
     return {"eager_kernels": sum(e.values()),
             "captured_kernels": sum(c.values()), "names": len(e),
             "ours": captured["ours"], "count_diff": diff, "copies": copies,
-            "short_windows": short}
+            "short_windows": short, "prologue": rng}
 
 
 @contextlib.contextmanager
@@ -3264,8 +3534,10 @@ def fd_phase(device, card: str) -> dict:
         fitter.fit(meshes, ref, start, n_steps=n, capture=True)
     if n_rep[0] != n - 1:
         raise AssertionError(f"fd: {n_rep[0]} replays of {n} steps")
-    kern = kernel_counts(lambda: fitter.fit(meshes, ref, start, n_steps=n,
-                                            capture=True))
+    kern = full_window(lambda: fitter.fit(meshes, ref, start, n_steps=n,
+                                          capture=True),
+                       {"hard_k1": 2 * n, "gather_tiles_fwd": 2 * n,
+                        "untile_scatter": 2 * n})
     print(f"[fd captured] the port's kernels on the device in a {n}-step "
           f"fit: {kern['ours']}", flush=True)
     if kern["ours"] != only(kern["ours"], hard_k1=2 * n,
@@ -3334,9 +3606,11 @@ def _rle_area(rle) -> int:
 
 def coco_app_run(tag: str, argv: list, out_dir: str, card: str) -> dict:
     """One run of the app through main(), counted: every chunk and every
-    visibility render launches hard_k1, gather_tiles_fwd and
-    untile_scatter once; every annotation clears min_visible_px and its
-    RLE covers the image."""
+    visibility render run from the host (each eager call, each graph's
+    warm-up and capture: "renders_traced") launches hard_k1,
+    gather_tiles_fwd and untile_scatter once, a replay none (eager: every
+    render is traced; captured: fewer); every annotation clears
+    min_visible_px and its RLE covers the image."""
     from torch_renderer_tpu_torch.apps import coco_data_generator as app
 
     torch.cuda.synchronize()
@@ -3348,6 +3622,7 @@ def coco_app_run(tag: str, argv: list, out_dir: str, card: str) -> dict:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     rasters = calls["chunks"] + calls["vis"]
+    traced = out["renders_traced"]
     anns = out["coco"]["annotations"]
     floor = int(argv[argv.index("--min-visible-px") + 1]) \
         if "--min-visible-px" in argv else 0
@@ -3358,20 +3633,24 @@ def coco_app_run(tag: str, argv: list, out_dir: str, card: str) -> dict:
     rec = {"images": out["images"], "annotations": len(anns),
            "seconds": out["seconds"], "images_per_s": out["images_per_s"],
            "s_per_scene": out["s_per_scene"], "chunks": calls["chunks"],
-           "vis_renders": calls["vis"], "launches": counts,
-           "max_faces_per_bin": out["max_faces_per_bin"],
+           "vis_renders": calls["vis"], "renders_traced": traced,
+           "launches": counts, "max_faces_per_bin": out["max_faces_per_bin"],
            "peak_gb": peak, "min_area": min((a["area"] for a in anns),
                                             default=None)}
     print(f"[coco] {tag}: {rec} ({card})", flush=True)
-    want = {"hard_k1": rasters, "gather_tiles_fwd": rasters,
-            "untile_scatter": rasters}
+    want = {"hard_k1": traced, "gather_tiles_fwd": traced,
+            "untile_scatter": traced}
     for k in counts:
         if k not in want and k != "texsample_fwd" and counts[k]:
             raise AssertionError(f"coco {tag}: unexpected launches {counts}")
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"coco {tag}: expected {want} launches (one a "
-                             f"chunk or visibility render), got {counts}")
-    if counts["texsample_fwd"] > calls["chunks"]:
+                             f"chunk or visibility render run from the "
+                             f"host), got {counts}")
+    if ("--eager" in argv) != (traced == rasters) or traced > rasters:
+        raise AssertionError(f"coco {tag}: {traced} renders run from the "
+                             f"host of {rasters}")
+    if counts["texsample_fwd"] > min(traced, calls["chunks"]):
         raise AssertionError(f"coco {tag}: texsample_fwd {counts}")
     if bad or not anns or out["images"] == 0:
         raise AssertionError(f"coco {tag}: annotations {bad} fail the "
@@ -3379,13 +3658,65 @@ def coco_app_run(tag: str, argv: list, out_dir: str, card: str) -> dict:
     return rec
 
 
-def coco_scene(device, **kw):
-    """A generator and one sampled scene (COCO_SEED), with its views and
-    lights drawn and bins sized as render_scene draws and sizes them."""
+def _same_outputs(a: str, b: str) -> dict:
+    """Two runs' written datasets file for file: the PNGs byte for byte,
+    the aux arrays (depth, seg, normals) element for element, the
+    annotations and poses equal."""
+    files = {d: sorted(os.path.relpath(os.path.join(r, f), d)
+                       for r, _, fs in os.walk(d) for f in fs)
+             for d in (a, b)}
+    differ = []
+    for rel in files[a]:
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if rel.endswith(".npy"):
+            same = np.array_equal(np.load(pa), np.load(pb))
+        elif rel.endswith(".json"):
+            with open(pa) as fa, open(pb) as fb:
+                same = json.load(fa) == json.load(fb)
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                same = fa.read() == fb.read()
+        if not same:
+            differ.append(rel)
+    return {"files": len(files[a]), "same_names": files[a] == files[b],
+            "differ": differ[:10], "n_differ": len(differ),
+            "kinds": sorted({os.path.splitext(f)[0].rsplit("_", 1)[-1]
+                             for f in files[a] if f.endswith(".npy")})}
+
+
+def coco_forms(tag: str, argv: list, out_dir: str, card: str) -> dict:
+    """The app captured (its default) and eager on the same seed into two
+    directories, each counted (coco_app_run), and their written datasets
+    compared (_same_outputs): every file equal."""
+    import shutil
+
+    runs = {}
+    try:
+        for form in ("captured", "eager"):
+            runs[form] = coco_app_run(
+                f"{tag}, {form}", argv + (["--eager"] if form == "eager"
+                                          else []),
+                os.path.join(out_dir, form), card)
+        same = _same_outputs(*(os.path.join(out_dir, f)
+                               for f in ("captured", "eager")))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"[coco] {tag}: captured against eager, written files {same} "
+          f"({card})", flush=True)
+    if same["n_differ"] or not same["same_names"] or not same["files"]:
+        raise AssertionError(f"coco {tag}: the captured run's dataset is "
+                             f"not the eager run's: {same}")
+    return {**runs, "same": same}
+
+
+def coco_scene(device, capture=False, **kw):
+    """A generator (capture: its chunk and visibility renders' form) and
+    one sampled scene (COCO_SEED)."""
     from torch_renderer_tpu_torch.datagen import coco
 
     gen = coco.COCODataGenerator(coco.ObjectLibrary.primitives(),
-                                 coco.DataGenConfig(**kw), device=device)
+                                 coco.DataGenConfig(**kw), device=device,
+                                 capture=capture)
     rng = np.random.default_rng(COCO_SEED)
     scene, _ = gen.sample_scene(rng)
     return gen, scene, rng
@@ -3419,7 +3750,7 @@ def coco_texture_args(gen, batched, R, t, lights, f2o) -> tuple:
 
     textures.sample_bilinear = spy
     try:
-        gen._render_views(batched, R, t, lights, f2o)
+        gen._render_chunk(batched, R, t, lights, f2o)
     finally:
         textures.sample_bilinear = saved
     if len(seen) != 1:
@@ -3528,16 +3859,102 @@ def settle_check(device, card: str) -> dict:
     return rec
 
 
+def coco_room_chunks(device) -> dict:
+    """A textured room scene's first chunk (with edges and the visibility
+    check) in a captured and an eager generator of the same seed: {form:
+    (generator, (batch, R, t, lights), face_to_object)}."""
+    gens = {}
+    for form in ("captured", "eager"):
+        gen, scene, rng = coco_scene(
+            device, capture=form == "captured", material_mode="texture",
+            room=True, min_visible_px=200, edge_maps=True)
+        gens[form] = (gen, coco_chunk_inputs(gen, scene, rng),
+                      scene.face_to_object)
+    return gens
+
+
+def coco_kernel_gates(device, card: str, where: str = "") -> dict:
+    """same_kernels for one chunk and one visibility count of a textured
+    room scene (coco_room_chunks), a replay against an eager call, one
+    call a profiler window; and each form's chunk kernels by name, the
+    port's once each. where: a note for the printed tags."""
+    gens = coco_room_chunks(device)
+
+    def chunk_of(form):
+        gen, (batched_, R_, t_, lights_), f2o_ = gens[form]
+        return lambda: gen._render_views(batched_, R_, t_, lights_, f2o_)
+
+    def vis_of(form):
+        gen, (batched_, R_, t_, _), f2o_ = gens[form]
+        return lambda: gen._vis_counts(batched_, R_, t_, f2o_)
+
+    chunk_of("captured")()        # the first calls: warm-up and capture
+    vis_of("captured")()
+    raster = {"hard_k1": 1, "gather_tiles_fwd": 1, "untile_scatter": 1}
+    want = {**raster, "texsample_fwd": 1}
+    out = {"chunk_kernels": same_kernels(
+        f"coco chunk{where}",
+        lambda c: chunk_of("captured" if c else "eager")(), want)}
+    out["vis_kernels"] = same_kernels(
+        f"coco visibility count (the chunk's views){where}",
+        lambda c: vis_of("captured" if c else "eager")(), raster)
+    for form in ("captured", "eager"):
+        chunk = full_window(chunk_of(form), want)
+        rec = {"ours": chunk["ours"], "kernels": sum(chunk["all"].values()),
+               "top": dict(chunk["all"].most_common(8))}
+        out["chunk" + ("" if form == "captured" else "_eager")] = rec
+        print(f"[coco] one chunk's kernels (8 views, textured room, edges)"
+              f"{where}, {form}: {rec} ({card})", flush=True)
+        if any(chunk["ours"][k] != v for k, v in want.items()):
+            raise AssertionError(f"a {form} chunk's kernels {chunk['ours']}")
+    return out
+
+
+def coco_kernels_in_child(card: str) -> dict:
+    """coco_kernel_gates in a process of its own, which has run nothing
+    else (phase K runs them in its own process too). Without the markers
+    that open kernel_counts' windows, a process that had run the earlier
+    phases lost the records of a window's first 18-28 kernels, the same
+    aten ops launching them (PERF.md section 7); a fresh process lost
+    them rarely."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.coco_kernel_gates_main()"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError("coco kernel gates (child process) failed: "
+                             + proc.stderr[-3000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def coco_kernel_gates_main() -> None:
+    """coco_kernel_gates on cuda:0 with main()'s settings; its record as
+    the last line."""
+    from torch_renderer_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    _build.load_kernels()
+    print(json.dumps(coco_kernel_gates(torch.device("cuda", 0),
+                                       card_line()), default=float),
+          flush=True)
+
+
 def coco_phase(device, card: str) -> dict:
     """K: the COCO data generator through the app's main() at its defaults
     (4 scenes x 25 views at 480x640) and at --material-mode texture --room
-    --placement physics --edge-maps --min-visible-px 200 (2 scenes), both
-    counted; a scene's profile (busy share, kernels and device ms of one
-    chunk); #7, #11, #13 and #14 at the chunk of a textured room scene
-    against their plain versions; the settle sim captured against eager;
-    Canny on the card against the CPU."""
-    import shutil
-
+    --placement physics --edge-maps --min-visible-px 200 (3 scenes), each
+    captured and eager, counted, their written datasets equal file for
+    file; a scene of each configuration profiled in each form (busy share,
+    peak memory); one chunk and one visibility count of a textured room
+    scene in each form (a replay's kernels against eager's, in a child
+    process, coco_kernels_in_child, and in this one; their device ms); #7,
+    #11, #13 and #14 at
+    that chunk against their plain versions; the settle sim captured
+    against eager; Canny on the card against the CPU."""
     from torch_renderer_tpu_torch.io import native
     from torch_renderer_tpu_torch.rasterize import cuda_hard
     from torch_renderer_tpu_torch.rasterize.binning import (
@@ -3554,51 +3971,74 @@ def coco_phase(device, card: str) -> dict:
           f"{time.perf_counter() - t0:.2f} s (None: the pure-Python "
           "fallbacks run)", flush=True)
     out = {"native": lib is not None}
-    try:
-        out["defaults"] = coco_app_run("app defaults", [], out_dir, card)
-        shutil.rmtree(out_dir, ignore_errors=True)
-        out["textured"] = coco_app_run(
-            "textured room, physics, edges", [
-                "--material-mode", "texture", "--room", "--placement",
-                "physics", "--edge-maps", "--min-visible-px", "200",
-                "--scenes", "2"], out_dir, card)
-        if out["textured"]["launches"]["texsample_fwd"] < 1:
-            raise AssertionError("the textured run launched no texsample_fwd")
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    # both configurations captured (the default) and eager, every written
+    # file compared
+    out["defaults_forms"] = coco_forms("app defaults", [], out_dir, card)
+    out["textured_forms"] = coco_forms(
+        "textured room, physics, edges", [
+            "--material-mode", "texture", "--room", "--placement",
+            "physics", "--edge-maps", "--min-visible-px", "200",
+            "--scenes", "3"], out_dir, card)
+    out["defaults"] = out["defaults_forms"]["captured"]
+    out["textured"] = out["textured_forms"]["captured"]
+    if out["textured"]["launches"]["texsample_fwd"] < 1:
+        raise AssertionError("the textured run launched no texsample_fwd")
     set_budget_check_default(None)
 
-    # one scene of the app's defaults, profiled
-    gen, scene, rng = coco_scene(device)
-    gen.render_scene(scene, np.random.default_rng(1))     # warm
-    out["scene_profile"] = _busy_share(
-        lambda: gen.render_scene(scene, np.random.default_rng(1)), 1, top=8,
-        named=("hard_k1_kernel", "gather_fwd_kernel", "untile_kernel",
-               "texsample_fwd"))
-    print(f"[coco] one scene of the defaults (25 views), profiled: "
-          f"{out['scene_profile']} ({card})", flush=True)
+    # one scene of each configuration in each form, profiled (the captured
+    # generator's graphs made by the first render; the textured room's
+    # scene runs the visibility count too)
+    named = ("hard_k1_kernel", "gather_fwd_kernel", "untile_kernel",
+             "texsample_fwd")
+    textured = dict(material_mode="texture", room=True, min_visible_px=200,
+                    edge_maps=True, placement_mode="physics")
+    for config, kw in (("", {}), ("_textured", textured)):
+        for form in ("captured", "eager"):
+            gen, scene, rng = coco_scene(device, capture=form == "captured",
+                                         **kw)
+            gen.render_scene(scene, np.random.default_rng(1))     # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prof = _busy_share(
+                lambda: gen.render_scene(scene, np.random.default_rng(1)), 1,
+                top=8, named=named)
+            prof["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+            out["scene_profile" + config
+                + ("" if form == "captured" else "_eager")] = prof
+            print(f"[coco] one scene of the {config[1:] or 'defaults'} (25 "
+                  f"views), {form}, profiled: {prof} ({card})", flush=True)
+            del gen
 
-    # a textured room scene: one chunk and its kernels
-    gen, scene, rng = coco_scene(device, material_mode="texture", room=True,
-                                 min_visible_px=200, edge_maps=True)
-    batched, R, t, lights = coco_chunk_inputs(gen, scene, rng)
-    f2o = scene.face_to_object
-    chunk = kernel_counts(lambda: gen._render_views(batched, R, t, lights,
-                                                    f2o))
-    chunk_ms = device_ms(lambda: gen._render_views(batched, R, t, lights,
-                                                   f2o), None, reps=5)
-    out["chunk"] = {"ours": chunk["ours"], "kernels": sum(
-        chunk["all"].values()), "device_ms": chunk_ms,
-        "ms": time_ms(lambda: gen._render_views(batched, R, t, lights, f2o),
-                      reps=5),
-        "top": dict(chunk["all"].most_common(8)),
-        "max_faces_per_bin": gen._mfb, "vis_max_faces_per_bin": gen._vis_mfb}
-    print(f"[coco] one chunk (8 views, textured room, edges): "
-          f"{out['chunk']} ({card})", flush=True)
-    want = {"hard_k1": 1, "gather_tiles_fwd": 1, "untile_scatter": 1,
-            "texsample_fwd": 1}
-    if any(chunk["ours"][k] != v for k, v in want.items()):
-        raise AssertionError(f"a chunk's kernels {chunk['ours']}")
+    # a textured room scene: one chunk and one visibility count in both
+    # forms, their kernels gated in a process of their own
+    out.update(coco_kernels_in_child(card))
+    out["in_process"] = coco_kernel_gates(device, card,
+                                          " (in this process)")
+    gens = coco_room_chunks(device)
+
+    for form in ("captured", "eager"):
+        gen, (batched_, R_, t_, lights_), f2o_ = gens[form]
+
+        def chunk():
+            return gen._render_views(batched_, R_, t_, lights_, f2o_)
+
+        def vis():
+            return gen._vis_counts(batched_, R_, t_, f2o_)
+
+        chunk()                   # captured: its warm-up and capture
+        vis()
+        rec = {"device_ms": device_ms(chunk, None, reps=5),
+               "ms": time_ms(chunk, reps=5),
+               "vis_device_ms": device_ms(vis, None, reps=5),
+               "vis_ms": time_ms(vis, reps=5), "max_faces_per_bin": gen._mfb,
+               "vis_max_faces_per_bin": gen._vis_mfb}
+        out["chunk_times" + ("" if form == "captured" else "_eager")] = rec
+        print(f"[coco] one chunk (8 views, textured room, edges), {form}: "
+              f"{rec} ({card})", flush=True)
+    gens["captured"][0]._chunk_call.release()
+    gens["captured"][0]._vis_call.release()
+    gen, (batched, R, t, lights), f2o = gens.pop("eager")
+    del gens
     st = gen.renderer.settings
     with torch.no_grad():
         fd = setup_face_planes(batched, gen.renderer.camera_with_pose(R, t))
@@ -3928,7 +4368,8 @@ def mc_coco(mesh, device, rank: int, out_dir: str) -> dict:
     out = {"counts": counts, "images": res["images"],
            "images_per_s": res["images_per_s"],
            "annotations": res["annotations"],
-           "chunks": 2 * -(-DataGenConfig().views_per_scene // COCO_CHUNK)}
+           "chunks": 2 * -(-DataGenConfig().views_per_scene // COCO_CHUNK),
+           "traced": res["renders_traced"]}
 
     def one_scene(mesh_):
         gen = COCODataGenerator(ObjectLibrary.primitives(), DataGenConfig(),
@@ -4080,9 +4521,12 @@ def multicard_phase(card: str) -> dict:
         gate(pc == only(pc, points_select=1, gather_tiles_fwd=1),
              f"rank {k} points launches {pc}")
         cc, chunks = r["coco"]["counts"], r["coco"]["chunks"]
-        gate(all(cc[n] == chunks for n in ("hard_k1", "gather_tiles_fwd",
-                                           "untile_scatter")),
-             f"rank {k} coco launches {cc}, {chunks} chunks")
+        traced = r["coco"]["traced"]
+        gate(all(cc[n] == traced for n in ("hard_k1", "gather_tiles_fwd",
+                                           "untile_scatter"))
+             and 1 <= traced <= chunks,
+             f"rank {k} coco launches {cc}, {chunks} chunks, {traced} run "
+             "from the host (an eager chunk, a graph's warm-up or capture)")
         gate(r["fit"]["counts"]["topk_select"] >= 1,
              f"rank {k} fit launched no topk_select")
     sil = r0["silhouette"]
@@ -4158,6 +4602,7 @@ WIDE_ROWS = {
     "hard_k1_tile64": (("raster tile 64 K=1", "hard_k1"),
                        ("pose app pallas", "hard_k1")),
     "hard_k1_tile64_depth_call": (("depth app", "hard_k1"),
+                                  ("depth app captured", "hard_k1"),
                                   ("depth call vs ray caster", "hard_k1")),
     "topk_select_tile64_k4": (("raster tile 64 K=4", "topk_select"),
                               ("pose app fragments", "topk_select")),
@@ -4330,15 +4775,40 @@ def wide_main_path(device, card: str) -> dict:
         if int((pf.idx[..., 0] >= 0).sum()) < 1000:
             raise AssertionError(f"wide bins: points tile {tile} K={Kq}")
     # the depth app at --bin-size 64 at its defaults (120 views of 1280x720
-    # in calls of 12)
+    # in calls of 12), eager (every call launches its kernels) and captured
+    # (the default: each call run from the host launches them once, the
+    # graphs' warm-ups and captures, "traced"; a capture fails on a host
+    # read), its 120 views bit for bit the eager run's
     with launches_into(cases, "depth app"):
         app = batch_render_bench.main(["--cards", "1", "--bin-size",
-                                       str(WIDE_TILE)])
+                                       str(WIDE_TILE), "--eager"])
+    with launches_into(cases, "depth app captured"):
+        app_c = batch_render_bench.main(["--cards", "1", "--bin-size",
+                                         str(WIDE_TILE)])
+    differ = int((app.pop("views") != app_c.pop("views")).sum())
     calls, app_counts = app["calls"], cases["depth app"]
+    traced, counts_c = app_c["traced"], cases["depth app captured"]
+    print(f"[wide] depth app --bin-size {WIDE_TILE} captured: {calls} "
+          f"calls, {traced} run from the host, launches {counts_c}, "
+          f"{app_c['images_per_s']:.1f} images/s batched, "
+          f"{app_c['serial_images_per_s']:.1f} serial; against eager "
+          f"({app['images_per_s']:.1f} / {app['serial_images_per_s']:.1f}): "
+          f"{differ} pixels of the {BATCH_VIEWS} views differ ({card})",
+          flush=True)
     if app_counts != {"hard_k1": calls, "gather_tiles_fwd": calls,
                       "untile_scatter": calls}:
         raise AssertionError(f"depth app --bin-size {WIDE_TILE}: "
                              f"launches {app_counts}")
+    if not 0 < traced < app_c["calls"] or counts_c != {
+            "hard_k1": traced, "gather_tiles_fwd": traced,
+            "untile_scatter": traced}:
+        raise AssertionError(f"depth app --bin-size {WIDE_TILE} captured: "
+                             f"{traced} calls run from the host of "
+                             f"{app_c['calls']}, launches {counts_c}")
+    if differ:
+        raise AssertionError(f"depth app --bin-size {WIDE_TILE}: the "
+                             "captured views are not the eager views bit "
+                             "for bit")
     budgets = {k: app[k] for k in ("max_faces_per_bin", "active_tiles",
                                    "occupancy_split")}
     batched, Rb, tb, Kb, kw = _batch_chunk(device, budgets, WIDE_TILE)
@@ -4363,7 +4833,10 @@ def wide_main_path(device, card: str) -> dict:
                              "2e-3 of the ray caster")
     out["depth_app"] = {"worst": float(worst), "calls": calls,
                         "images_per_s": app["images_per_s"],
-                        "budgets": budgets}
+                        "captured": {k: app_c[k] for k in (
+                            "images_per_s", "serial_images_per_s",
+                            "traced")},
+                        "captured_differ": differ, "budgets": budgets}
     # the pose app at --bin-size 64 on both routes at its defaults (face
     # budget: the whole mesh, so no tile drops a face)
     out["pose_app"] = {}
@@ -4704,15 +5177,18 @@ def wide_phase(device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 DEFORM_BOUND = 1.5   # every fitted vertex within this radius of the origin
+DEFORM_EAGER_ITERS = 500   # the eager app's shorter window
+DRAWS = 4            # StepGraph calls of the sampling check
 
 
-def deform_phase(device, card: str) -> dict:
-    """apps/deform_from_pcd.main at its defaults (level 4, 1000 samples,
-    2000 iterations, eager) with tests/test_torch_deform.py's gates: every
-    chamfer finite, the last below 0.5x the first (the target-mesh test's
-    gate), and the fitted mesh bounded (every vertex within DEFORM_BOUND
-    of the origin; source and target lie within the unit sphere). Its
-    iterations a second, as the app prints them."""
+def deform_app_run(argv: list, form: str, card: str) -> dict:
+    """apps/deform_from_pcd.main with argv (and --eager for the eager
+    form), with tests/test_torch_deform.py's gates: every chamfer finite,
+    the last below 0.5x the first (the target-mesh test's gate), and the
+    fitted mesh bounded (every vertex within DEFORM_BOUND of the origin;
+    source and target lie within the unit sphere). Its iterations a
+    second as the app prints them (its clock times the whole fit, the
+    warm-up and capture included), its peak device memory."""
     import io
     import re
     import shutil
@@ -4720,26 +5196,387 @@ def deform_phase(device, card: str) -> dict:
     from torch_renderer_tpu_torch.apps import deform_from_pcd
     from torch_renderer_tpu_torch.io.obj import load_obj
 
-    out_dir = os.path.join("build", "deform_smoke")
+    out_dir = os.path.join("build", f"deform_smoke_{form}")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        cham = deform_from_pcd.main(["--device", "cuda", "--out-dir",
-                                     out_dir])
+        cham, mb = peak_mb(lambda: deform_from_pcd.main(
+            ["--device", "cuda", "--out-dir", out_dir] + argv
+            + (["--eager"] if form == "eager" else [])))
     log = buf.getvalue()
     print(log, end="", flush=True)
     verts = load_obj(os.path.join(out_dir, "geometry_result.obj")).verts
     radius = float(torch.as_tensor(verts).norm(dim=-1).max())
     shutil.rmtree(out_dir, ignore_errors=True)
     it_s = float(re.search(r"= ([0-9.]+) iters/sec", log).group(1))
-    print(f"[deform] app defaults: chamfer {cham[0]:.5f} -> {cham[-1]:.5f}, "
-          f"largest vertex radius {radius:.4f} (bound {DEFORM_BOUND}), "
-          f"{it_s:.1f} it/s (the app's own clock, set-up excluded; eager) "
-          f"({card})", flush=True)
+    print(f"[deform] app, {form}{' ' + ' '.join(argv) if argv else ''}: "
+          f"chamfer {cham[0]:.5f} -> {cham[-1]:.5f}, largest vertex radius "
+          f"{radius:.4f} (bound {DEFORM_BOUND}), {it_s:.1f} it/s (the app's "
+          f"clock: the fit, warm-up and capture included), peak {mb:.1f} "
+          f"MiB ({card})", flush=True)
     if not (np.isfinite(cham).all() and cham[-1] < 0.5 * cham[0]
             and radius < DEFORM_BOUND):
-        raise AssertionError("deform app: the fit failed its gates")
+        raise AssertionError(f"deform app {form}: the fit failed its gates")
     return {"chamfer": [float(cham[0]), float(cham[-1])], "radius": radius,
-            "it_s": it_s, "iters": int(len(cham))}
+            "it_s": it_s, "iters": int(len(cham)), "peak_mb": mb,
+            "history": cham}
+
+
+def replay_draws(device, card: str) -> dict:
+    """A StepGraph of one surface sampling (sample_points_from_meshes of
+    the deform app's level-4 source, 1000 samples, from a seeded CUDA
+    generator registered with the graph) called DRAWS times against the
+    same sampling eager from a generator of the same seed: call k's
+    points equal eager's k-th draw bit for bit, consecutive calls differ,
+    and the generator's offset moves as eager's does after each call."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.ops.sample_points import (
+        sample_points_from_meshes,
+    )
+    from torch_renderer_tpu_torch.utils.graph import StepGraph
+
+    mesh = trt.Meshes.from_single(*trt.icosphere(4), device=device)
+    gens = {f: torch.Generator(device=device).manual_seed(11)
+            for f in ("captured", "eager")}
+    buf = torch.empty((1, 1000, 3), device=device)
+
+    def step():
+        buf.copy_(sample_points_from_meshes(mesh, 1000, gens["captured"]))
+
+    graph = StepGraph(step, device, True, (gens["captured"],))
+    got, want, offsets = [], [], []
+    for _ in range(DRAWS):
+        graph()
+        got.append(buf.clone())
+        want.append(sample_points_from_meshes(mesh, 1000, gens["eager"]))
+        offsets.append([gens[f].get_offset() for f in ("captured",
+                                                       "eager")])
+    graph.release()
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    differ = [not bool(torch.equal(got[k], got[k + 1]))
+              for k in range(DRAWS - 1)]
+    rec = {"equal_to_eager": equal, "consecutive_differ": differ,
+           "offsets": offsets,
+           "register_generator_state": hasattr(torch.cuda.CUDAGraph,
+                                               "register_generator_state")}
+    print(f"[deform] sampling as a StepGraph (warm-up, capture + replay, "
+          f"replays) against eager draws: {rec} ({card})", flush=True)
+    if not (all(equal) and all(differ)
+            and all(a == b for a, b in offsets)):
+        raise AssertionError("the captured sampling does not draw as eager "
+                             "does")
+    return rec
+
+
+def fit_forms(tag: str, run_fit, n_profile: int, card: str,
+              expect: dict, prologue=None) -> dict:
+    """run_fit(captured, n) in both forms for n_profile iterations: the
+    captured fit's replays without a host sync, its kernels against the
+    eager fit's (same_kernels; prologue: rng_prologue's record, for a
+    fit that draws from a registered generator), each form's busy share and peak memory."""
+    with replays_without_sync() as n_rep:
+        run_fit(True, n_profile)
+    if n_rep[0] != n_profile - 1:
+        raise AssertionError(f"{tag}: {n_rep[0]} replays of {n_profile} "
+                             "iterations")
+    kern = same_kernels(tag, lambda c: run_fit(c, n_profile), expect,
+                        prologue)
+    prof = {}
+    for form in ("captured", "eager"):
+        prof[form], mb = peak_mb(lambda: _busy_share(
+            lambda: run_fit(form == "captured", n_profile), n_profile))
+        prof[form]["peak_mb"] = mb
+        print(f"[{tag}] {form}, a {n_profile}-iteration fit profiled (its "
+              f"first iteration and the capture included): busy "
+              f"{prof[form]['busy_ms_per_iter']:.4f} ms of "
+              f"{prof[form]['wall_ms_per_iter']:.4f} wall ms an iteration "
+              f"(share {prof[form]['busy_share']:.3f}), "
+              f"{prof[form]['kernels_per_iter']} kernels an iteration, peak "
+              f"{mb:.1f} MiB ({card})", flush=True)
+    return {"kernels": kern, "profile": prof}
+
+
+def close_start(tag: str, hc: dict, he: dict, metric: str) -> float:
+    """Gate: the captured fit's first two metrics within 1e-4 (relative)
+    of the eager fit's (the same draws and parameters; float32 atomics in
+    the backward part them in their last bits later)."""
+    a, b = (torch.as_tensor(h[metric][:2]).double() for h in (hc, he))
+    err = float(((a - b).abs() / b.abs().clamp_min(1e-6)).max())
+    print(f"[{tag}] {metric} captured {a.tolist()} eager {b.tolist()}: "
+          f"relative err {err:.2e}", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"{tag}: the captured fit's first steps differ "
+                             f"from eager's by {err}")
+    return err
+
+
+def deform_phase(device, card: str) -> dict:
+    """N: apps/deform_from_pcd.main at its defaults (level 4, 1000
+    samples, 2000 iterations), captured (the default), and eager for
+    DEFORM_EAGER_ITERS iterations, each with the app's gates; their first
+    two chamfers within 1e-4 (the same draws: the generator is registered
+    with the graph); the sampling check (replay_draws); a 22-iteration fit
+    of the app's problem in both forms, profiled (fit_forms)."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.opt.deform import DeformConfig, MeshDeformer
+
+    captured = deform_app_run([], "captured", card)
+    eager = deform_app_run(["--iters", str(DEFORM_EAGER_ITERS)], "eager",
+                           card)
+    err = close_start("deform app", {"chamfer": captured.pop("history")},
+                      {"chamfer": eager.pop("history")}, "chamfer")
+    draws = replay_draws(device, card)
+    verts, faces = trt.icosphere(4)
+    src = trt.Meshes.from_single(verts, faces, device=device)
+    tgt = trt.Meshes.from_single(verts * np.float32([1.0, 0.6, 0.4]), faces,
+                                 device=device)
+    deformer = MeshDeformer(src, target_meshes=tgt, config=DeformConfig())
+    forms = fit_forms(
+        "deform fit",
+        lambda c, n: deformer.fit(
+            torch.Generator(device=device).manual_seed(0), n_steps=n,
+            capture=c), PROFILE_ITERS + 2, card, {},
+        rng_prologue(device, card))
+    for k, rec in (("captured", captured), ("eager", eager)):
+        rec["busy_share"] = forms["profile"][k]["busy_ms_per_iter"] \
+            * rec["it_s"] / 1e3
+    return {"captured": captured, "eager": eager, "first_err": err,
+            "draws": draws, **forms, "it_s": captured["it_s"],
+            "chamfer": captured["chamfer"]}
+
+
+# ---------------------------------------------------------------------------
+# O. the two-phase creator (opt/creator.py) at CreatorConfig's defaults
+# ---------------------------------------------------------------------------
+
+CREATOR_EAGER_GEOMETRY = 200   # the eager forms' shorter windows
+CREATOR_EAGER_COLOR = 50
+OBJ_RGB_TOL = 5e-5 * (1 + 1e-6)  # save_obj writes colours to 4 decimals
+
+
+def creator_target(device):
+    """The deform app's target (the level-4 icosphere scaled by (1, 0.6,
+    0.4)) coloured as tests/test_creator.py colours its target
+    (clip(0.5 + 0.5 * v)), and the level-4 icosphere as the source."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.structures.textures import TexturesVertex
+
+    verts, faces = trt.icosphere(4)
+    tv = (verts * np.float32([1.0, 0.6, 0.4])).astype(np.float32)
+    rgb = np.clip(0.5 + 0.5 * tv, 0.0, 1.0).astype(np.float32)
+    target = dataclasses.replace(
+        trt.Meshes.from_single(tv, faces, device=device),
+        textures=TexturesVertex(torch.as_tensor(rgb, device=device)[None]))
+    return trt.Meshes.from_single(verts, faces, device=device), target
+
+
+def obj_colors(path: str) -> np.ndarray:
+    """The r g b columns of an OBJ's xyzrgb v lines."""
+    with open(path) as f:
+        rows = [line.split()[4:7] for line in f if line.startswith("v ")]
+    return np.asarray(rows, np.float64)
+
+
+def creator_color_checks(creator, launches: dict, card: str) -> dict:
+    """The colour fit's kernels (topk_select K=4, gather_tiles_fwd,
+    untile_scatter) against their plain versions on the fit's own binned
+    inputs: the creator's deformed mesh under its colour views (10 at
+    128x128), with the settings the fit resolves (VertexColorFitter.fit's
+    prepare: the auto resolution that the reference views' render of the
+    target cached, as the mesh sizes and settings are the same). Each
+    record holds the main run's colour phase launches (launches), all at
+    these settings: the reference render's and the fit's warm-up and
+    capture."""
+    import torch_renderer_tpu_torch as trt
+    from torch_renderer_tpu_torch.cameras.look_at import (
+        look_at_view_transform,
+    )
+    from torch_renderer_tpu_torch.opt.deform import VertexColorFitter
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    cfg = creator.config
+    device = creator.deformed.device
+    azims = torch.linspace(-180.0, 180.0, cfg.n_color_views + 1)[:-1]
+    Rs, ts = look_at_view_transform(cfg.view_dist, cfg.view_elev, azims)
+    Rs, ts = Rs.to(device), ts.to(device)
+    fitter = VertexColorFitter(creator.K, cfg.image_size, cfg.color,
+                               device=device)
+    meshes = fitter._views_batch(creator.deformed, cfg.n_color_views)
+    st = fitter.renderer.prepare(meshes, Rs, ts)
+    with torch.no_grad():
+        fp = trt.setup_face_planes(meshes,
+                                   fitter.renderer.camera_with_pose(Rs, ts))
+        inp = cuda_hard.binned_inputs(fp, st)
+    out = {"topk_select": topk_check("creator colour fit", inp, st),
+           "gather_tiles_fwd": gather_check(
+               "creator colour fit slab", *_slab_gather_inputs(inp), card,
+               bwd=False)}
+    with torch.no_grad():
+        bins, fields = cuda_hard.binned_tile_fields(fp, st)
+        out["untile_scatter"], _ = untile_check(
+            "creator colour fit", bins, fields, tuple(cfg.image_size),
+            st.bin_size, card)
+    out["untile_scatter"].update(max_abs_err=0.0,
+                                 shape=list(inp.slab.shape))
+    for name, rec in out.items():
+        rec["launches"] = launches[name]
+        print(f"[creator] colour fit's {name} at {rec['shape']} (tile "
+              f"{st.bin_size}, K={st.faces_per_pixel}): kernel "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']} ms), plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}), {rec['launches']} launches in the "
+              f"captured colour phase ({card})", flush=True)
+    return out
+
+
+def creator_phase(device, card: str) -> dict:
+    """O: TwoPhaseCreator at CreatorConfig's defaults (geometry 4000 SGD
+    steps of 1000 samples; colour 500 steps over 10 views at 128x128, K=4)
+    from the level-4 icosphere onto the deform app's coloured target,
+    captured (the default), each phase counted, with the JAX tests' gates
+    (tests/test_creator.py): the chamfer's last value below 0.5x its
+    first, the RGB error finite and falling, the OBJ export round-trips
+    (vertices within 1e-5, faces equal, colours in [0, 1] and within
+    the writer's 4 decimals), the direct colour transfer in
+    [0, 1]. Then each phase eager for a shorter window against the
+    captured phase over the same window (first two metrics within 1e-4;
+    the colour phases on one geometry), and both phases' forms profiled
+    (fit_forms)."""
+    import shutil
+
+    from torch_renderer_tpu_torch.io.obj import load_obj
+    from torch_renderer_tpu_torch.opt.creator import (
+        CreatorConfig,
+        TwoPhaseCreator,
+    )
+    from torch_renderer_tpu_torch.rasterize import autotune
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        set_budget_check_default,
+    )
+
+    src, target = creator_target(device)
+    cfg = CreatorConfig()
+
+    def run(form, n_geo=None, n_col=None, creator=None,
+            phases=("geometry", "color")):
+        """A creator's phases in one form (on a new creator, or the colour
+        phase on a given one's geometry): (creator, per phase its outputs,
+        rates by events and by the host clock, launches and peak)."""
+        creator = creator or TwoPhaseCreator(src, target, cfg)
+        capture = form == "captured"
+        rec = {}
+        for name, fn in (
+                ("geometry", lambda: creator.geometry_train(
+                    torch.Generator(device=device).manual_seed(0),
+                    n_steps=n_geo, capture=capture)),
+                ("color", lambda: creator.color_train(n_steps=n_col,
+                                                      capture=capture))):
+            if name not in phases:
+                continue
+            reset_counts()
+            (out, events_s, wall_s), mb = peak_mb(lambda: timed(fn))
+            n = out["history"]["loss"].shape[0]
+            rec[name] = {"out": out, "iters": n, "it_s_events": n / events_s,
+                         "it_s_wall": n / wall_s, "launches": read_counts(),
+                         "peak_mb": mb}
+            print(f"[creator] {name}, {form}: {n} iterations, "
+                  f"{n / events_s:.1f} it/s by CUDA events, "
+                  f"{n / wall_s:.1f} by the host clock (the phase whole, "
+                  f"set-up, warm-up and capture included), peak {mb:.1f} "
+                  f"MiB, launches {rec[name]['launches']} ({card})",
+                  flush=True)
+        return creator, rec
+
+    creator, main_run = run("captured")
+    geo, col = main_run["geometry"], main_run["color"]
+    cham = geo["out"]["history"]["chamfer"].cpu().numpy()
+    mse = col["out"]["history"]["rgb_mse"].cpu().numpy()
+    out_dir = os.path.join("build", "creator_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "result.obj")
+    creator.export(path)
+    back = load_obj(path)
+    v, f = creator.deformed.detach_to_lists()[0]
+    rgb = obj_colors(path)
+    want = np.clip(creator.verts_rgb.cpu().numpy(), 0, 1)[:v.shape[0]]
+    round_trip = {
+        "verts_err": float(np.abs(back.verts - v).max()),
+        "faces_equal": bool(np.array_equal(back.faces, f)),
+        "colors_err": float(np.abs(rgb - want).max()),
+        "colors_in_range": bool(rgb.min() >= 0 and rgb.max() <= 1)}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    transfer = creator.transfer_colors()
+    transfer_range = [float(transfer.min()), float(transfer.max())]
+    gates = {"chamfer": [float(cham[0]), float(cham[-1])],
+             "rgb_mse": [float(mse[0]), float(mse[-1])],
+             "rgb_mse_finite": bool(np.isfinite(mse).all()),
+             "round_trip": round_trip, "transfer_range": transfer_range}
+    print(f"[creator] CreatorConfig defaults, captured: {gates} ({card})",
+          flush=True)
+    lc = col["launches"]
+    if not (np.isfinite(cham).all() and cham[-1] < 0.5 * cham[0]
+            and np.isfinite(mse).all() and mse[-1] < mse[0]
+            and round_trip["verts_err"] <= 1e-5
+            and round_trip["faces_equal"]
+            and round_trip["colors_err"] <= OBJ_RGB_TOL
+            and round_trip["colors_in_range"]
+            and 0.0 <= transfer_range[0] and transfer_range[1] <= 1.0):
+        raise AssertionError(f"creator: the gates failed: {gates}")
+    if any(geo["launches"].values()) or lc != only(
+            lc, topk_select=lc["topk_select"],
+            gather_tiles_fwd=lc["topk_select"],
+            untile_scatter=lc["topk_select"]) or lc["topk_select"] < 1:
+        raise AssertionError(f"creator: launches {geo['launches']} / {lc}")
+    color_checks = creator_color_checks(creator, lc, card)
+    # the eager forms over shorter windows, against the captured phases
+    # over the same windows; the colour phase of both forms on one
+    # geometry (two geometry fits part in their last bits: float32
+    # atomics in the backward)
+    windows, shared = {}, None
+    for form in ("captured", "eager"):
+        creator_w, windows[form] = run(form, CREATOR_EAGER_GEOMETRY,
+                                       phases=("geometry",))
+        shared = shared or creator_w
+    for form in ("captured", "eager"):
+        windows[form].update(run(form, n_col=CREATOR_EAGER_COLOR,
+                                 creator=shared, phases=("color",))[1])
+    errs = {name: close_start(f"creator {name}",
+                              windows["captured"][name]["out"]["history"],
+                              windows["eager"][name]["out"]["history"],
+                              metric)
+            for name, metric in (("geometry", "chamfer"),
+                                 ("color", "rgb_mse"))}
+    # both phases' forms profiled, budget checks off (as phase H profiles
+    # the pose fits): the colour fit's auto budgets check "warn" by
+    # default, read once after the loop, inside replays_without_sync's
+    # window
+    set_budget_check_default("off")
+    autotune.clear_cache()
+    creator_p = TwoPhaseCreator(src, target, cfg)
+    creator_p.geometry_train(torch.Generator(device=device).manual_seed(0),
+                             n_steps=1, capture=False)
+    profiles = {
+        "geometry": fit_forms(
+            "creator geometry", lambda c, n: creator_p.geometry_train(
+                torch.Generator(device=device).manual_seed(0), n_steps=n,
+                capture=c), PROFILE_ITERS + 2, card, {},
+            rng_prologue(device, card)),
+        "color": fit_forms(
+            "creator color", lambda c, n: creator_p.color_train(
+                n_steps=n, capture=c), PROFILE_ITERS + 2, card,
+            {k: PROFILE_ITERS + 2 for k in ("topk_select",
+                                            "gather_tiles_fwd",
+                                            "untile_scatter")})}
+    set_budget_check_default(None)
+    autotune.clear_cache()
+
+    def summary(rec):
+        return {k: v for k, v in rec.items() if k != "out"}
+
+    return {"gates": gates, "captured": {k: summary(r)
+                                         for k, r in main_run.items()},
+            "windows": {f: {k: summary(r) for k, r in w.items()}
+                        for f, w in windows.items()},
+            "first_err": errs, "color_checks": color_checks, **profiles}
 
 
 def main() -> None:
@@ -4812,6 +5649,7 @@ def main() -> None:
     multi = timed_phase("L", multicard_phase, card)
     wide = timed_phase("M", wide_phase, device, card)
     deform = timed_phase("N", deform_phase, device, card)
+    creator = timed_phase("O", creator_phase, device, card)
     print(f"phases' seconds (host clock, {card}): "
           + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; build {build_s:.1f}", flush=True)
@@ -5029,7 +5867,8 @@ def main() -> None:
     runs = ("defaults", "textured")
 
     def coco_launches(name):
-        return {r: cocok[r]["launches"][name] for r in runs}
+        return {f"{r}_{f}": cocok[f"{r}_forms"][f]["launches"][name]
+                for r in runs for f in ("captured", "eager")}
 
     def pick(rec, keys):
         return {k: rec[k] for k in keys}
@@ -5093,20 +5932,42 @@ def main() -> None:
             byname[name.split("_tile")[0]].setdefault("wide", {})[name] = {
                 **{k: rec.get(k) for k in keys},
                 **{k: rec[k] for k in ("plan", "device_lists") if k in rec}}
-    d, tx = cocok["defaults"], cocok["textured"]
-    print(f"coco data generator ({card}): defaults {d['images']} images in "
-          f"{d['seconds']:.2f} s = {d['images_per_s']:.1f} images/s, "
-          f"{d['s_per_scene']:.3f} s a scene, {d['annotations']} "
-          f"annotations, peak {d['peak_gb']:.3f} GiB; textured room "
-          f"{tx['images']} images, {tx['images_per_s']:.1f} images/s, "
-          f"{tx['s_per_scene']:.3f} s a scene, {tx['annotations']} "
-          f"annotations (min area {tx['min_area']}), peak "
-          f"{tx['peak_gb']:.3f} GiB; a scene's busy share "
-          f"{cocok['scene_profile']['busy_share']:.3f}", flush=True)
-    app = batch["app"]
-    print(f"batch depth render ({card}): {app['images_per_s']:.1f} images/s "
-          f"batched, {app['serial_images_per_s']:.1f} serial; one call "
-          f"{batch['call_ms']} ms", flush=True)
+    # phase O: the creator's colour fit's kernels at its own slab, with
+    # their launches in the captured colour phase (the fit's warm-up and
+    # capture); the depth app and COCO captured: their launches (each
+    # graph's warm-up and capture)
+    for name, rec in creator["color_checks"].items():
+        byname[name]["creator_color"] = {
+            k: rec.get(k) for k in keys + ("library_ms",)}
+    for name in ("hard_k1", "gather_tiles_fwd", "untile_scatter"):
+        byname[name]["launches_depth_app_captured"] = \
+            batch["forms"]["captured"]["launches"][name]
+    for r in runs:
+        f = cocok[f"{r}_forms"]
+        print(f"coco data generator, {r} ({card}): " + "; ".join(
+            f"{form} {f[form]['images']} images in {f[form]['seconds']:.2f} "
+            f"s = {f[form]['images_per_s']:.1f} images/s, "
+            f"{f[form]['s_per_scene']:.3f} s a scene, "
+            f"{f[form]['annotations']} annotations (min area "
+            f"{f[form]['min_area']}), peak {f[form]['peak_gb']:.3f} GiB"
+            for form in ("captured", "eager"))
+            + f"; {f['same']['files']} files equal", flush=True)
+    for config in ("", "_textured"):
+        busy = [cocok["scene_profile" + config + f]["busy_share"]
+                for f in ("", "_eager")]
+        print(f"coco, a scene of the {config[1:] or 'defaults'} ({card}): "
+              f"busy share captured {busy[0]:.3f}, eager {busy[1]:.3f}",
+              flush=True)
+    ct, ce = cocok["chunk_times"], cocok["chunk_times_eager"]
+    print(f"coco, a textured room chunk ({card}): device ms captured / eager "
+          f"{ct['device_ms']:.3f} / {ce['device_ms']:.3f}, the visibility "
+          f"count's {ct['vis_device_ms']:.3f} / {ce['vis_device_ms']:.3f}",
+          flush=True)
+    for form, r in batch["forms"].items():
+        print(f"batch depth render, {form} ({card}): {r['images_per_s']:.1f} "
+              f"images/s batched, {r['serial_images_per_s']:.1f} serial, "
+              f"busy share {r['busy_share']:.3f}, peak {r['peak_gb']:.3f} "
+              f"GiB; one eager call {batch['call_ms']} ms", flush=True)
     print(f"point renders ({card}): " + ", ".join(
         f"{n} fwd {r['fwd_ms']:.3f} / grad {r['grad_ms']:.3f} ms"
         for n, r in pts["runs"].items()), flush=True)
@@ -5133,13 +5994,25 @@ def main() -> None:
                                  for r in fd_r[f])
                        for f in ("captured", "eager"))
           + " steps/s (captured / eager, events)", flush=True)
-    print(f"deform app ({card}): {deform['it_s']:.1f} it/s, chamfer "
-          f"{deform['chamfer'][0]:.5f} -> {deform['chamfer'][1]:.5f}",
-          flush=True)
+    print(f"deform app ({card}): captured {deform['it_s']:.1f} it/s "
+          f"(2000 iterations), eager {deform['eager']['it_s']:.1f} "
+          f"({DEFORM_EAGER_ITERS}); chamfer {deform['chamfer'][0]:.5f} -> "
+          f"{deform['chamfer'][1]:.5f}", flush=True)
+    print(f"two-phase creator ({card}): " + "; ".join(
+        f"{name} captured {creator['captured'][name]['it_s_wall']:.1f} it/s "
+        f"({creator['captured'][name]['iters']} it.), window "
+        + " / ".join(f"{creator['windows'][f][name]['it_s_wall']:.1f}"
+                     for f in ("captured", "eager"))
+        + " it/s (captured / eager)" for name in ("geometry", "color")),
+        flush=True)
     print(json.dumps({"captured": captured, "depth_apps": apps,
                       "registration": reg, "coco": cocok,
                       "multicard": multi, "wide_bins": wide,
-                      "deform": deform}, default=float), flush=True)
+                      "deform": deform, "creator": creator,
+                      "batch": {k: batch[k] for k in (
+                          "forms", "kernels", "profile",
+                          "profile_captured", "views_differ",
+                          "ray_worst")}}, default=float), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

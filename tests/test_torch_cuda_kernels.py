@@ -1412,6 +1412,156 @@ def test_canny_on_card_matches_cpu(device):
     torch.testing.assert_close(thr[~near], cthr[~near], rtol=0, atol=tol)
 
 
+# -- the jitted loops and calls captured (deform and vertex-colour fits, the
+# depth app's calls, the COCO chunk and visibility count) -------------------
+
+def test_captured_sampling_draws_as_eager(device):
+    """A StepGraph of a surface sampling from a registered generator:
+    every call draws what the same sampling draws eagerly from a
+    generator of the same seed, consecutive replays differ, and the
+    generator's offset moves as eager's does."""
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.ops.sample_points import (
+        sample_points_from_meshes,
+    )
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+    from torch_renderer_tpu_torch.utils.graph import StepGraph
+
+    mesh = Meshes.from_single(*icosphere(2), device=device)
+    gc = torch.Generator(device=device).manual_seed(7)
+    ge = torch.Generator(device=device).manual_seed(7)
+    buf = torch.empty((1, 300, 3), device=device)
+
+    def step():
+        buf.copy_(sample_points_from_meshes(mesh, 300, gc))
+
+    graph = StepGraph(step, device, True, (gc,))
+    prev = None
+    for _ in range(4):
+        graph()
+        want = sample_points_from_meshes(mesh, 300, ge)
+        assert torch.equal(buf, want)
+        assert gc.get_offset() == ge.get_offset()
+        if prev is not None:
+            assert not torch.equal(buf, prev)
+        prev = buf.clone()
+    assert graph.graph is not None
+
+
+def _deform_problem(device):
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt.deform import DeformConfig, MeshDeformer
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+
+    verts, faces = icosphere(2)
+    src = Meshes.from_single(verts, faces, device=device)
+    tgt = Meshes.from_single(verts * np.float32([1.0, 0.6, 0.4]), faces,
+                             device=device)
+    return MeshDeformer(src, target_meshes=tgt,
+                        config=DeformConfig(n_samples=200))
+
+
+def test_captured_deform_fit_matches_eager(device):
+    """The same seed in both forms: the same draws each step (the
+    generator is registered with the graph), so the first two chamfers
+    within 1e-4 and the offsets within 1e-3 after 8 steps (float32
+    atomics in the backward part them in their last bits)."""
+    deformer = _deform_problem(device)
+    out = {c: deformer.fit(torch.Generator(device=device).manual_seed(1),
+                           n_steps=8, snapshot_every=3, capture=c)
+           for c in (True, False)}
+    (mc, dc_, hc, sc), (me, de, he, se) = out[True], out[False]
+    torch.testing.assert_close(hc["chamfer"][:2], he["chamfer"][:2],
+                               rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(dc_, de, rtol=0, atol=1e-3)
+    assert len(sc) == len(se) == 2
+    torch.testing.assert_close(sc[1].verts, se[1].verts, rtol=0, atol=1e-3)
+    assert not torch.equal(sc[0].verts, sc[1].verts)
+    assert float(hc["chamfer"][-1]) < float(hc["chamfer"][0])
+
+
+def test_captured_vertex_color_fit_matches_eager(device):
+    import dataclasses
+
+    from torch_renderer_tpu_torch.apps._common import pinhole_K
+    from torch_renderer_tpu_torch.cameras.look_at import (
+        look_at_view_transform,
+    )
+    from torch_renderer_tpu_torch.ops.icosphere import icosphere
+    from torch_renderer_tpu_torch.opt.deform import (
+        ColorFitConfig,
+        VertexColorFitter,
+    )
+    from torch_renderer_tpu_torch.structures.meshes import Meshes
+    from torch_renderer_tpu_torch.structures.textures import TexturesVertex
+
+    verts, faces = icosphere(2)
+    meshes = Meshes.from_single(verts, faces, device=device)
+    gt = dataclasses.replace(meshes, textures=TexturesVertex(torch.as_tensor(
+        np.clip(0.5 + 0.5 * verts, 0, 1), device=device)[None]))
+    Rs, ts = look_at_view_transform(2.7, 15.0,
+                                    torch.tensor([0.0, 120.0, 240.0]))
+    fitter = VertexColorFitter(pinhole_K((48, 48)), (48, 48),
+                               ColorFitConfig(lr=5.0), device=device)
+    refs = fitter.make_reference_views(gt, Rs, ts)
+    rc, hc = fitter.fit(meshes, Rs, ts, refs, n_steps=8, capture=True)
+    re_, he = fitter.fit(meshes, Rs, ts, refs, n_steps=8, capture=False)
+    torch.testing.assert_close(hc["rgb_mse"][:2], he["rgb_mse"][:2],
+                               rtol=1e-4, atol=1e-7)
+    torch.testing.assert_close(rc, re_, rtol=0, atol=0.25 * 5.0 * 1e-3)
+    assert float(hc["rgb_mse"][-1]) < float(hc["rgb_mse"][0])
+
+
+def test_captured_depth_app_matches_eager(device):
+    """The depth app's calls as replays (one graph for the chunk, one for
+    the single view): its last pass's views equal the eager app's bit for
+    bit; each kernel launches once a call run from the host."""
+    from torch_renderer_tpu_torch.apps import batch_render_bench
+    from torch_renderer_tpu_torch.rasterize import cuda_hard
+
+    argv = ["--n-views", "6", "--view-chunk", "3", "--height", "72",
+            "--width", "128", "--reps", "3", "--cards", "1"]
+    out = {}
+    for form in ("captured", "eager"):
+        before = cuda_hard.HARD_LAUNCHES
+        out[form] = batch_render_bench.main(
+            argv + (["--eager"] if form == "eager" else []))
+        out[form]["launched"] = cuda_hard.HARD_LAUNCHES - before
+    c, e = out["captured"], out["eager"]
+    assert torch.equal(c["views"], e["views"])
+    assert c["calls"] == e["calls"] == e["traced"] == e["launched"]
+    assert c["traced"] == c["launched"] == 4 < c["calls"]
+
+
+def test_captured_coco_matches_eager(device):
+    """Two scenes of different content through one captured generator
+    (textured room, edges, the visibility check; four chunks a scene, so
+    chunks replay) and an eager one: the packed outputs and the drawn
+    views bit for bit."""
+    from torch_renderer_tpu_torch.datagen import coco
+
+    cfg = coco.DataGenConfig(image_size=(96, 128), views_per_scene=8,
+                             view_chunk=2, material_mode="texture",
+                             room=True, edge_maps=True, min_visible_px=60)
+    gens = {form: coco.COCODataGenerator(
+        coco.ObjectLibrary.primitives(), cfg, device=device,
+        capture=form == "captured") for form in ("captured", "eager")}
+    outs = {}
+    for form, gen in gens.items():
+        rng = np.random.default_rng(4)
+        outs[form] = []
+        for _ in range(2):
+            scene, _ = gen.sample_scene(rng)
+            outs[form].append(gen.render_scene(scene, rng))
+    assert gens["captured"].renders_traced < gens["eager"].renders_traced
+    for c, e in zip(outs["captured"], outs["eager"]):
+        for k in ("rgb", "depth", "normals", "segmentation", "edges", "R",
+                  "t"):
+            np.testing.assert_array_equal(c[k], e[k], err_msg=k)
+    assert not np.array_equal(outs["captured"][0]["rgb"],
+                              outs["captured"][1]["rgb"])
+
+
 # -- the multi-card layer (parallel/): two ranks -------------------------------
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,21 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_eager_option(p: argparse.ArgumentParser, what: str) -> None:
+    """--eager, for an app whose loop or calls run as replays of captured
+    CUDA graphs on the card (utils/graph.py): run what (e.g. "each
+    iteration") op by op instead."""
+    p.add_argument("--eager", action="store_true",
+                   help=f"run {what} op by op, not as a replay of a "
+                        "captured CUDA graph")
+
+
+def app_capture(args):
+    """The capture= argument --eager gives (utils/graph.resolve_capture):
+    False, or None (captured on the card, eager on the CPU)."""
+    return False if args.eager else None
+
+
 def resolve_app_device(args):
     """The app's torch device, from --device (RuntimeError for a CUDA
     device when no card is present: there is no fallback); also sets the

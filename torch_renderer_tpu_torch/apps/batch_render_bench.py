@@ -9,6 +9,17 @@ Budgets left at 0 are sized from all N views. Every call runs the K=1
 hard-raster kernel once, the tile-gather kernel once and the untile kernel
 once, for all four fragment fields.
 
+On the card each call is a replay of a captured CUDA graph
+(utils/graph.CapturedCall: one graph for the chunk of --view-chunk views,
+one for the single view, each warmed up and captured by its first call,
+as a jitted function compiles in its first; each call copies its R and t
+into the graph's static inputs), the counterpart of the JAX app's jax.jit
+of the render;
+--eager runs each call op by op. Either way each chunk's depth is copied
+into one preallocated (chunks x views, H, W) result inside the timed
+region, as the JAX app's list keeps every chunk's array (a replay
+overwrites its output).
+
   python -m torch_renderer_tpu_torch.apps.batch_render_bench
   python -m torch_renderer_tpu_torch.apps.batch_render_bench --device cpu --n-views 4 --view-chunk 2 --height 72 --width 128 --reps 1
 
@@ -33,6 +44,8 @@ import numpy as np
 import torch
 
 from ._common import (
+    add_eager_option,
+    app_capture,
     base_parser,
     describe_mesh,
     load_scene_mesh,
@@ -74,12 +87,16 @@ def parse_args(argv=None):
     p.add_argument("--cards", type=int, default=None,
                    help="ranks, one card each (default: every visible "
                         "card; 1 on the CPU)")
+    add_eager_option(p, "each render call")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    """Run the benchmark; returns its numbers and the number of render
-    calls it made (rank 0's on several cards)."""
+    """Run the benchmark; returns its numbers, the number of render calls
+    it made and of those run from the host ("traced": each eager call,
+    each graph's warm-up and capture; a replay launches from its graph),
+    rank 0's on several cards, and on one process its last pass's depth
+    images ("views", on the device)."""
     import torch
     import torch.distributed as dist
 
@@ -111,6 +128,7 @@ def run(args, device_mesh) -> dict:
     )
     from ..rasterize.geometry import setup_faces
     from ..renderer import DepthRender
+    from ..utils.graph import CapturedCall
     from ..utils.timing import StageTimer, time_fn
 
     H, W = args.height, args.width
@@ -187,14 +205,33 @@ def run(args, device_mesh) -> dict:
         print(f"NOT sharding: view_chunk {vc} % {n_cards} cards != 0")
 
     calls = [0]
+    capture = app_capture(args)
 
-    @torch.no_grad()
-    def render(m, R, t):
+    def call_of(m):
+        @torch.no_grad()
+        def render_mesh(R, t):
+            return renderer.render(m, R, t)
+
+        return CapturedCall(render_mesh, device, capture)
+
+    graphs = {"batched": call_of(batched), "single": call_of(meshes)}
+
+    def render(kind, R, t):
         calls[0] += 1
-        return renderer.render(m, R, t)
+        return graphs[kind](R, t)
+
+    views = torch.empty((len(chunks) * batched.batch_size, H, W),
+                        device=device)
+    single_view = torch.empty((1, H, W), device=device)
 
     def render_all():
-        return [render(batched, R, t) for R, t in chunks]
+        vb = batched.batch_size
+        for i, (R, t) in enumerate(chunks):
+            views[i * vb:(i + 1) * vb].copy_(render("batched", R, t))
+        return views
+
+    def render_single(R, t):
+        return single_view.copy_(render("single", R, t))
 
     res = time_fn(render_all, reps=args.reps,
                   name=f"batched depth render {N}x{H}x{W} (chunks of {vc})")
@@ -212,14 +249,18 @@ def run(args, device_mesh) -> dict:
              if shard else ""))
 
     # serial single-view loop for comparison (the pyrender-style pattern)
-    r1 = time_fn(render, meshes, Rs[:1], ts[:1], reps=min(args.reps, 5),
+    r1 = time_fn(render_single, Rs[:1], ts[:1], reps=min(args.reps, 5),
                  name="serial single-view render")
     print(r1)
     print(f"serial-equivalent: {1.0 / r1.mean_s:.1f} images/sec "
           f"-> batching speedup {fps * r1.mean_s:.1f}x")
 
     R0, t0 = chunks[0]
-    depth = render(batched, R0, t0)
+    depth = render("batched", R0, t0)
+    # "warn" budget checks: each call recorded its counts on the device;
+    # one read for the whole run
+    for graph in graphs.values():
+        graph.warn_budgets()
     if shard:
         from ..parallel.mesh import all_gather_batch
 
@@ -232,8 +273,10 @@ def run(args, device_mesh) -> dict:
             "occupancy_split": split if act > 0 else None,
             "images_per_s": fps, "serial_images_per_s": 1.0 / r1.mean_s,
             "calls": calls[0], "cards": n_cards, "sharded": shard,
+            "traced": sum(g.traced for g in graphs.values()),
             "coverage": float((depth > 0).mean()),
-            "depth_max": float(depth.max())}
+            "depth_max": float(depth.max()),
+            "views": views if device_mesh is None else None}
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ cuda raises when no CUDA device is present (there is no fallback); pass
 --device cpu to run on the CPU. --mesh-shape d,m runs the app on d * m
 ranks (apps/_common.run_on_mesh: one card a rank under NCCL, or gloo)
 with each chunk's views split over the 'data' axis; rank 0 writes the
-dataset, which equals the unsplit run's.
+dataset, which equals the unsplit run's. On the card each chunk render
+and visibility count is a replay of a captured CUDA graph; --eager runs
+them op by op (the same outputs).
 
   python -m torch_renderer_tpu_torch.apps.coco_data_generator --mesh-shape 2,1 --scenes 2
 """
@@ -30,6 +32,8 @@ import time
 import numpy as np
 
 from ._common import (
+    add_eager_option,
+    app_capture,
     base_parser,
     describe_mesh,
     parse_mesh_shape,
@@ -91,6 +95,7 @@ def parse_args(argv=None):
                    help="min,max distractors per scene (default 0,0; with "
                         "--distractor-objs and no explicit value: "
                         "1,len(library))")
+    add_eager_option(p, "each chunk's render")
     return p.parse_args(argv)
 
 
@@ -159,7 +164,8 @@ def run(args, device_mesh) -> dict:
         print(describe_mesh(device_mesh))
     gen = COCODataGenerator(library, cfg, device_mesh=device_mesh,
                             distractor_library=distractor_library,
-                            device=device)
+                            device=device,
+                            capture=app_capture(args))
 
     t0 = time.perf_counter()
     coco = gen.generate(args.out_dir, args.scenes,
@@ -181,7 +187,8 @@ def run(args, device_mesh) -> dict:
     return {"images": n_imgs, "annotations": len(coco["annotations"]),
             "seconds": elapsed, "images_per_s": n_imgs / elapsed,
             "s_per_scene": elapsed / max(args.scenes, 1),
-            "max_faces_per_bin": gen._mfb, "coco": coco}
+            "max_faces_per_bin": gen._mfb,
+            "renders_traced": gen.renders_traced, "coco": coco}
 
 
 if __name__ == "__main__":

@@ -10,7 +10,9 @@ snapshots), with its CLI and printout and --device in place of --cpu.
 The default target is the level-``--level`` icosphere scaled by
 (1, 0.6, 0.4). Saves the snapshots and geometry_result.obj under --out-dir.
 The default --device cuda raises when no CUDA device is present (there is
-no fallback); pass --device cpu to run on the CPU.
+no fallback); pass --device cpu to run on the CPU. On the card each
+iteration is a replay of a captured CUDA graph (--eager: each runs op by
+op); the printed rate times the whole fit, warm-up and capture included.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import time
 
 import numpy as np
 import torch
+
+from ._common import add_eager_option, app_capture
 
 
 def parse_args(argv=None):
@@ -38,6 +42,7 @@ def parse_args(argv=None):
     p.add_argument("--level", type=int, default=4,
                    help="icosphere subdivision of the source (4 = 2562 "
                         "verts)")
+    add_eager_option(p, "each iteration")
     return p.parse_args(argv)
 
 
@@ -69,7 +74,8 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     t0 = time.perf_counter()
     mesh, _, hist, snaps = deformer.fit(gen,
-                                        snapshot_every=args.snapshot_every)
+                                        snapshot_every=args.snapshot_every,
+                                        capture=app_capture(args))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     elapsed = time.perf_counter() - t0

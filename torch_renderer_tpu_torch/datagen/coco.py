@@ -20,8 +20,14 @@ the ``hard_k1`` kernel, the tile gather and the untile kernel), then hard
 Phong shading, depth, camera-space normals and instance ids, packed on the
 device to u8 rgb, u16 millimetre depth, i8 normals and u8 seg (255 =
 background). Each chunk is copied into pinned host memory without waiting;
-the host waits once a scene, after the last chunk. The chunk render runs
-eagerly; annotations are decoded on the host from the packed seg.
+the host waits once a scene, after the last chunk. On the card the chunk
+render and the visibility count are replays of captured CUDA graphs
+(utils/graph.CapturedCall, the JAX package's jitted calls), which read a
+scene's meshes, textures, lights, face-to-object table and the chunk's
+poses from static copies; one graph per renderer build and input shape
+(a bin budget that grows rebuilds the renderers and captures anew).
+capture=False runs them op by op. Annotations are decoded on the host
+from the packed seg.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..structures.scenes import (
     sample_nonoverlapping_xy,
 )
 from ..transforms.so3 import euler_angles_to_matrix
+from ..utils.graph import CapturedCall
 from .texgen import pack_atlas, planar_uvs, random_texture, resize_texture
 
 
@@ -281,13 +288,20 @@ class COCODataGenerator:
     outputs); view_chunk is rounded up to a multiple of the axis size.
     Every rank samples the same scenes from the same rng and holds every
     image; rank 0 alone writes files. The outputs equal the single-card
-    generator's."""
+    generator's.
+
+    capture (utils/graph.py): None renders each chunk and visibility count
+    as a replay of a captured CUDA graph on the card and eagerly on the
+    CPU; True requires the card; False runs them eagerly. Both forms give
+    the same outputs. The settle sim (physics.Settler) is captured on the
+    card either way."""
 
     def __init__(self, library: ObjectLibrary,
                  config: DataGenConfig = DataGenConfig(), device_mesh=None,
                  distractor_library: Optional[ObjectLibrary] = None,
-                 device=None):
+                 device=None, capture=None):
         self.library = library
+        self.capture = capture
         self.device_mesh = device_mesh
         self._writer = True
         if device_mesh is not None:
@@ -366,6 +380,12 @@ class COCODataGenerator:
                     f"texture_dir {config.texture_dir!r} contains no "
                     "readable images")
         self._tile_cache: Dict = {}
+        self._calls: list = []
+        self._traced_before = 0
+        if config.edge_maps:
+            from ..ops.canny import sobel_taps
+
+            sobel_taps(self.device)     # before any capture
         self._build_renderers()
         self._settler = None
         if config.placement_mode == "physics":
@@ -386,7 +406,15 @@ class COCODataGenerator:
     def _build_renderers(self) -> None:
         """(Re)build the full-size renderer and, when the camera visibility
         check is on, the quarter-size seg-count renderer, at the current
-        bin budgets."""
+        bin budgets, with new captured calls (the old graphs released)."""
+        for call in self._calls:
+            self._traced_before += call.traced
+            call.release()
+        self._chunk_call = CapturedCall(self._render_chunk, self.device,
+                                        self.capture)
+        self._vis_call = CapturedCall(self._vis_chunk, self.device,
+                                      self.capture)
+        self._calls = [self._chunk_call, self._vis_call]
         config = self.config
         H, W = config.image_size
         self.renderer = MeshRenderer(
@@ -405,10 +433,28 @@ class COCODataGenerator:
                 select_impl=config.select_impl, pixel_chunk=131072,
                 device=self.device)
 
-    @torch.no_grad()
+    @property
+    def renders_traced(self) -> int:
+        """Chunk renders and visibility counts run from the host so far
+        (eager calls, and each graph's warm-up and capture): each launched
+        its kernels once; a replay launches from its graph."""
+        return self._traced_before + sum(c.traced for c in self._calls)
+
     def _vis_counts(self, batched, Rs, ts, face_to_object) -> torch.Tensor:
         """(B, n_max) pixel count of each object in the quarter-size
-        render of every candidate view (one batched render)."""
+        render of every candidate view (one batched render, a replay on
+        the card); "warn" budget checks report here."""
+        Rs, ts = (torch.as_tensor(x if isinstance(x, torch.Tensor)
+                                  else np.asarray(x, np.float32),
+                                  dtype=torch.float32, device=self.device)
+                  for x in (Rs, ts))
+        counts = self._vis_call(dataclasses.replace(batched, textures=None),
+                                Rs, ts, face_to_object)
+        self._vis_call.warn_budgets()
+        return counts
+
+    @torch.no_grad()
+    def _vis_chunk(self, batched, Rs, ts, face_to_object) -> torch.Tensor:
         n_max = self.config.objects_per_scene[1]
         frags, _ = self._vis_renderer.rasterize(batched, Rs, ts)
         return instance_masks(frags, face_to_object, n_max).sum(dim=(-2, -1))
@@ -444,11 +490,16 @@ class COCODataGenerator:
         if changed:
             self._build_renderers()
 
-    @torch.no_grad()
     def _render_views(self, batched, Rs, ts, lights, face_to_object):
         """One chunk: K=1 raster, hard Phong rgb, depth, camera-space
         normals, instance ids; packed on the device unless pack_outputs is
-        off; Canny edges on the device when edge_maps is set."""
+        off; Canny edges on the device when edge_maps is set. On the card
+        a replay: its outputs live until the next chunk's."""
+        return self._chunk_call(batched, Rs, ts, lights, face_to_object)
+
+    @torch.no_grad()
+    def _render_chunk(self, batched, Rs, ts, lights, face_to_object):
+        """_render_views' body, run from the host."""
         from ..shading.phong import hard_phong_shader
 
         frags, cam = self.renderer.rasterize(batched, Rs, ts)
@@ -727,10 +778,10 @@ class COCODataGenerator:
         to a whole chunk and cut on the device). Every chunk is started
         before the host waits: each output is copied into pinned host
         memory without blocking, and the host waits once, after the last
-        chunk. "warn" budget checks are deferred to that wait
-        (binning.deferred_budget_checks)."""
-        from ..rasterize.binning import deferred_budget_checks
-
+        chunk. "warn" budget checks are recorded on the device and report
+        after that wait. On the card each chunk is a replay whose outputs
+        the next replay overwrites: their copies are queued on the same
+        stream before it."""
         parts, index = 1, 0
         if self.device_mesh is not None:
             from ..parallel.mesh import (
@@ -750,27 +801,27 @@ class COCODataGenerator:
         td = torch.as_tensor(ts[idx], device=self.device)
         cuda = self.device.type == "cuda"
         pending = []
-        with deferred_budget_checks():
-            for v0 in range(0, nr, vc):
-                a = v0 + index * vl
-                chunk = self._render_views(batched, Rd[a:a + vl],
-                                           td[a:a + vl], lights, f2o)
-                if parts > 1:
-                    chunk = all_gather_batch(chunk, self.device_mesh)
-                keep = min(vc, nr - v0)
-                host = []
-                for arr in chunk:
-                    arr = arr[:keep]
-                    if cuda:
-                        h = torch.empty(arr.shape, dtype=arr.dtype,
-                                        pin_memory=True)
-                        h.copy_(arr, non_blocking=True)
-                    else:
-                        h = arr
-                    host.append(h)
-                pending.append(host)
-            if cuda:
-                torch.cuda.current_stream(self.device).synchronize()
+        for v0 in range(0, nr, vc):
+            a = v0 + index * vl
+            chunk = self._render_views(batched, Rd[a:a + vl], td[a:a + vl],
+                                       lights, f2o)
+            if parts > 1:
+                chunk = all_gather_batch(chunk, self.device_mesh)
+            keep = min(vc, nr - v0)
+            host = []
+            for arr in chunk:
+                arr = arr[:keep]
+                if cuda:
+                    h = torch.empty(arr.shape, dtype=arr.dtype,
+                                    pin_memory=True)
+                    h.copy_(arr, non_blocking=True)
+                else:
+                    h = arr
+                host.append(h)
+            pending.append(host)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        self._chunk_call.warn_budgets()
         return [np.concatenate([c[i].numpy() for c in pending])
                 for i in range(len(pending[0]))]
 

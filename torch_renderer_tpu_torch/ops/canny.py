@@ -76,6 +76,23 @@ def gaussian_blur(img: torch.Tensor, size: int = 5, sigma: float = 1.0,
 # over unflipped.
 SOBEL_X = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 
+_SOBEL: dict = {}
+
+
+def sobel_taps(device) -> torch.Tensor:
+    """SOBEL_X as a float32 tensor on ``device``, made once per device: a
+    tensor from host data is a host-to-device copy, which a CUDA graph
+    capture cannot hold, so a captured caller makes the taps before its
+    capture (COCODataGenerator does, when it renders edge maps)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    taps = _SOBEL.get(device)
+    if taps is None:
+        taps = _SOBEL[device] = torch.tensor(SOBEL_X, dtype=torch.float32,
+                                             device=device)
+    return taps
+
 # Neighbour offset (dy, dx) of directional filter k: the neighbour 45k
 # degrees from east, y down.
 _NEIGHBOR_SHIFTS = (
@@ -99,7 +116,7 @@ def canny_edges(images: torch.Tensor, low_threshold: float = 10.0,
         images = images[..., None]
     blurred = gaussian_blur(images, blur_size, blur_sigma, normalize=False)
 
-    sobel = torch.tensor(SOBEL_X, dtype=torch.float32, device=images.device)
+    sobel = sobel_taps(images.device)
     gx = _conv2d_same(blurred, sobel)          # (B, H, W, C) per channel
     gy = _conv2d_same(blurred, sobel.T)
 

@@ -5,7 +5,9 @@ The rebuild of the reference's TheCreator (mesh_deformer.py:62-88): phase 1
 deforms a source mesh onto a target by chamfer + regularizers
 (geometry_train), phase 2 freezes the geometry and fits per-vertex RGB
 against rendered views of the colored target (color_train). Exports OBJ or
-PLY with vertex colors. Everything runs on the source mesh's device.
+PLY with vertex colors. Everything runs on the source mesh's device; on
+the card both phases' steps are replays of captured CUDA graphs by default
+(``capture``, as the fits take it).
 """
 
 from __future__ import annotations
@@ -52,26 +54,27 @@ class TwoPhaseCreator:
     # -- phase 1 --------------------------------------------------------------
     def geometry_train(self, generator: Optional[torch.Generator] = None,
                        n_steps: Optional[int] = None,
-                       snapshot_every: int = 0) -> Dict:
+                       snapshot_every: int = 0, capture=None) -> Dict:
         """The chamfer deformation; generator (on the source mesh's device)
-        draws the surface samples."""
+        draws the surface samples. capture: MeshDeformer.fit's."""
         deformer = MeshDeformer(self.src, target_meshes=self.target,
                                 config=self.config.geometry)
         mesh, deform, hist, snaps = deformer.fit(
-            generator, n_steps=n_steps, snapshot_every=snapshot_every)
+            generator, n_steps=n_steps, snapshot_every=snapshot_every,
+            capture=capture)
         self.deformed = mesh
         return {"mesh": mesh, "deform": deform, "history": hist,
                 "snapshots": snaps}
 
     # -- phase 2 --------------------------------------------------------------
     def color_train(self, generator: Optional[torch.Generator] = None,
-                    n_steps: Optional[int] = None) -> Dict:
+                    n_steps: Optional[int] = None, capture=None) -> Dict:
         """Fit per-vertex RGB of the (frozen) deformed mesh from rendered
         views of the colored target. Needs geometry_train first and a
         target with TexturesVertex; for targets without colors use
         transfer_colors(). The fit draws nothing: generator is accepted
         for the surface's symmetry with geometry_train (the JAX package's
-        key)."""
+        key). capture: VertexColorFitter.fit's."""
         if self.deformed is None:
             raise RuntimeError("run geometry_train before color_train")
         cfg = self.config
@@ -87,7 +90,7 @@ class TwoPhaseCreator:
                                    device=device)
         refs = fitter.make_reference_views(self.target, Rs, ts)
         verts_rgb, hist = fitter.fit(self.deformed, Rs, ts, refs,
-                                     n_steps=n_steps)
+                                     n_steps=n_steps, capture=capture)
         self.verts_rgb = verts_rgb
         return {"verts_rgb": verts_rgb, "history": hist, "refs": refs}
 

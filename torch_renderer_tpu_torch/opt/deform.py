@@ -9,10 +9,13 @@
     per-vertex RGB fitted to rendered reference views with the geometry
     frozen, plus a penalty on colors outside [0, 1]; SGD with momentum.
 
-Both fits are Python loops whose metrics stay on the device, stacked, so no
-step reads a value back to the host. torch.optim.SGD with momentum equals
-optax.sgd(momentum=...): the trace starts at the first gradient and the
-update is -lr times it.
+Both fits run each step through utils/graph.StepGraph: on the card a replay
+of one captured CUDA graph (the JAX package's jitted lax.scan over the
+fit), eagerly on the CPU or with capture=False. Their metrics stay on the
+device (opt.history.MetricHistory), so no step reads a value back to the
+host. torch.optim.SGD with momentum equals optax.sgd(momentum=...): the
+trace starts at the first gradient (made by the eager first step, before
+any capture) and the update is -lr times it; both update in place.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ from ..ops.mesh_losses import (
     mesh_normal_consistency,
 )
 from ..ops.sample_points import sample_points_from_meshes
+from ..rasterize.binning import deferred_budget_checks
 from ..renderer import MeshRenderer
 from ..structures.meshes import Meshes
 from ..structures.textures import TexturesVertex
+from ..utils.graph import StepGraph
 from .history import MetricHistory
 
 
@@ -99,26 +104,41 @@ class MeshDeformer:
                        "normal": normal, "laplacian": lap}
 
     def fit(self, generator: Optional[torch.Generator] = None,
-            n_steps: Optional[int] = None, snapshot_every: int = 0):
+            n_steps: Optional[int] = None, snapshot_every: int = 0,
+            capture=None):
         """Run the deformation; returns (final mesh, deform_verts, history,
-        snapshots). generator (on the source mesh's device) draws the
-        surface samples; snapshot_every > 0 records the mesh after every
-        that many steps but the last."""
+        snapshots). generator (on the source mesh's device; None: the
+        device's default generator) draws the surface samples;
+        snapshot_every > 0 records the mesh after every that many steps
+        but the last, between steps.
+
+        capture (utils/graph.py): None runs each step as a replay of one
+        captured CUDA graph on the card and eagerly on the CPU; True
+        requires the card; False runs it eagerly. The generator is
+        registered with the graph, so each replay draws new samples and
+        advances it as an eager step does: both forms draw the same
+        samples."""
         cfg = self.config
         n = int(n_steps if n_steps is not None else cfg.n_steps)
         deform = self.init_params().requires_grad_(True)
         opt = torch.optim.SGD([deform], lr=cfg.lr, momentum=cfg.momentum)
         snapshots: List[Meshes] = []
         history = MetricHistory(n, deform.device)
-        for i in range(n):
+
+        def iteration():
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(deform, generator)
             total.backward()
             opt.step()
             history.add(metrics)
+
+        step = StepGraph(iteration, deform.device, capture, (generator,))
+        for i in range(n):
+            step()
             if snapshot_every > 0 and (i + 1) % snapshot_every == 0 \
                     and i + 1 < n:
                 snapshots.append(self.src.offset_verts(deform.detach()))
+        step.release()
         deform = deform.detach()
         return (self.src.offset_verts(deform), deform, history.result(),
                 snapshots)
@@ -178,8 +198,12 @@ class VertexColorFitter:
 
     def fit(self, meshes: Meshes, Rs, ts, refs,
             verts_rgb0: Optional[torch.Tensor] = None,
-            n_steps: Optional[int] = None):
-        """Returns (verts_rgb (V, 3), history of (n_steps,) tensors)."""
+            n_steps: Optional[int] = None, capture=None):
+        """Returns (verts_rgb (V, 3), history of (n_steps,) tensors).
+
+        capture: as MeshDeformer.fit's. The raster settings are resolved
+        before the loop (a capture holds fixed budgets) and "warn" budget
+        checks report once, after it (binning.deferred_budget_checks)."""
         cfg = self.config
         n = int(n_steps if n_steps is not None else cfg.n_steps)
         if verts_rgb0 is None:
@@ -189,12 +213,22 @@ class VertexColorFitter:
             self.renderer.prepare(self._views_batch(meshes, refs.shape[0]),
                                   Rs, ts)
         rgb = verts_rgb0.detach().clone().requires_grad_(True)
+        # the poses on the device once, not a host copy in every step
+        Rs, ts = (torch.as_tensor(x, dtype=torch.float32, device=rgb.device)
+                  for x in (Rs, ts))
         opt = torch.optim.SGD([rgb], lr=cfg.lr, momentum=cfg.momentum)
         history = MetricHistory(n, rgb.device)
-        for _ in range(n):
+
+        def iteration():
             opt.zero_grad(set_to_none=True)
             total, metrics = self.loss(rgb, meshes, Rs, ts, refs)
             total.backward()
             opt.step()
             history.add(metrics)
+
+        step = StepGraph(iteration, rgb.device, capture)
+        with deferred_budget_checks():
+            for _ in range(n):
+                step()
+        step.release()
         return rgb.detach(), history.result()

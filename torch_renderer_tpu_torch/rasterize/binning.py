@@ -128,13 +128,20 @@ class BudgetRecord:
 def deferred_budget_checks():
     """Defer the "warn" checks made inside to the end of the block: one
     warning per overflowing budget, with its largest count."""
-    record = BudgetRecord()
+    with recording_budgets(BudgetRecord()) as record:
+        yield record
+    record.warn()
+
+
+@contextlib.contextmanager
+def recording_budgets(record: BudgetRecord):
+    """Record the "warn" checks made inside in ``record`` (on the device),
+    which the caller reads when it chooses (utils.graph.CapturedCall)."""
     _DEFERRED.append(record)
     try:
         yield record
     finally:
         _DEFERRED.remove(record)
-    record.warn()
 
 
 @contextlib.contextmanager
