@@ -1663,16 +1663,11 @@ def _busy_share(fn, iters: int, top: int = 0, named: tuple = (),
               and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
     cpu_ops = [e for e in prof.events()
                if e.device_type == DeviceType.CPU and e.kernels]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    out = {"kernels_per_iter": len(spans) / iters,
-           "busy_ms_per_iter": busy_us / 1e3 / iters,
+    busy_ms = _union_ms(events)
+    out = {"kernels_per_iter": len(events) / iters,
+           "busy_ms_per_iter": busy_ms / iters,
            "wall_ms_per_iter": wall_ms / iters,
-           "busy_share": busy_us / 1e3 / wall_ms}
+           "busy_share": busy_ms / wall_ms}
     if top:
         per_name: dict = {}
         for e in events:
@@ -2189,8 +2184,178 @@ def points_phase(device, card: str) -> dict:
     print(f"[points] alpha grad-step profile over {PROFILE_ITERS} steps "
           f"({card}): {prof}", flush=True)
     set_budget_check_default(None)
+    autotune.clear_cache()     # the twin resolves its DEFAULT row anew
+    twin = point_twin(device, card)
     return {"counts": counts, "kernel": kern, "runs": runs, "rim": rim,
-            "budgets": bud, "peak_gb": peak_gb, "profile": prof}
+            "budgets": bud, "peak_gb": peak_gb, "profile": prof,
+            "twin": twin}
+
+
+# the point twin (torch_renderer_tpu_torch/bench_points.py) in phase F:
+# chained steps a body in the forms' agreement run, and in each form's
+# profiled window
+TWIN_STEPS = 5
+TWIN_WINDOW_STEPS = 3
+TWIN_TOL = 1e-5      # captured against eager, relative to the largest |x|
+
+
+def twin_body(name: str, body: str, fn, cloud, binned: bool,
+              card: str) -> dict:
+    """One twin row's body in both forms (bench_points.Chain, eager and
+    captured): TWIN_STEPS chained steps each, from the same points, with
+    each form's peak memory; the last outputs and the chain states held
+    within TWIN_TOL of the largest |eager value| (and whether bit for
+    bit); the wrapper launches (eager: one points_select and one
+    gather_tiles_fwd a step on a binned row, none dense; captured: the
+    warm-up's and the capture's, 2 each, however many replays, which run
+    without a host sync); then a profiled window of TWIN_WINDOW_STEPS steps
+    of each form, its kernels against the other's (same_kernels) and its
+    busy share."""
+    from torch_renderer_tpu_torch import bench_points as bp
+
+    chains, rec = {}, {}
+    for form, capture in (("eager", False), ("captured", True)):
+        reset_counts()
+        chain = chains[form] = bp.Chain(fn, cloud.points, capture)
+
+        def run(chain=chain):
+            out = None
+            for _ in range(TWIN_STEPS):
+                out = chain.step()
+            return out.clone()
+
+        with graph_calls() as graphs:
+            out, peak = peak_mb(run)
+        rec[form] = {"out": out, "c": chain.c.clone(),
+                     "counts": read_counts(), "graphs": dict(graphs),
+                     "peak_mb": peak}
+    e, c = rec["eager"], rec["captured"]
+    err = {k: float((c[k] - e[k]).abs().max()
+                    / e[k].abs().max().clamp_min(1e-30))
+           for k in ("out", "c")}
+    bitwise = {k: bool(torch.equal(c[k], e[k])) for k in ("out", "c")}
+    n = TWIN_STEPS if binned else 0
+    want_e = only(e["counts"], points_select=n, gather_tiles_fwd=n)
+    want_c = only(c["counts"], points_select=2 * binned,
+                  gather_tiles_fwd=2 * binned)
+    # TWIN_STEPS more steps of each form timed by events; the replays
+    # launch nothing from the host and never sync
+    ms = {}
+    for form, block in (("eager", host_reads_raise),
+                        ("captured", replays_without_sync)):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        with block() as n_replays:
+            start.record()
+            for _ in range(TWIN_STEPS):
+                chains[form].step()
+            stop.record()
+        torch.cuda.synchronize()
+        ms[form] = start.elapsed_time(stop) / TWIN_STEPS
+    after = read_counts()
+    finite = bool(torch.isfinite(e["out"]).all()
+                  and torch.isfinite(c["out"]).all())
+    expect = ({"points_select": TWIN_WINDOW_STEPS,
+               "gather_tiles_fwd": TWIN_WINDOW_STEPS} if binned else {})
+    kern = same_kernels(
+        f"point twin {name} {body}",
+        lambda captured: [chains["captured" if captured else "eager"].step()
+                          for _ in range(TWIN_WINDOW_STEPS)], expect)
+    for chain in chains.values():
+        chain.release()
+    row = {"rel_err": err, "bitwise": bitwise, "ms": ms,
+           "launches": {k: {n_: v for n_, v in rec[k]["counts"].items() if v}
+                        for k in rec},
+           "graphs": rec["captured"]["graphs"],
+           "peak_mb": {k: rec[k]["peak_mb"] for k in rec},
+           "busy": kern["busy"], "kernels": kern["eager_kernels"],
+           "captured_kernels": kern["captured_kernels"],
+           "shape": list(e["out"].shape)}
+    busy = {k: v["busy_ms"] / v["wall_ms"] for k, v in kern["busy"].items()}
+    print(f"[point twin] {name} {body} ({card}): captured against eager "
+          f"after {TWIN_STEPS} chained steps: output rel err "
+          f"{err['out']:.2e} (bit for bit {bitwise['out']}), points rel err "
+          f"{err['c']:.2e} (bit for bit {bitwise['c']}); launches eager "
+          f"{row['launches']['eager']}, captured {row['launches']['captured']}"
+          f" (graphs {row['graphs']}), then {n_replays[0]} replays without "
+          f"a host sync; peak eager {row['peak_mb']['eager']:.1f} / captured "
+          f"{row['peak_mb']['captured']:.1f} MiB; ms a step (events, "
+          f"{TWIN_STEPS} steps) eager {ms['eager']:.4f} / captured "
+          f"{ms['captured']:.4f}; busy share eager "
+          f"{busy['eager']:.3f} / captured {busy['captured']:.3f} over "
+          f"{TWIN_WINDOW_STEPS} steps; {kern['eager_kernels']} kernels",
+          flush=True)
+    fails = []
+    if not finite:
+        fails.append("a non-finite output")
+    if max(err.values()) > TWIN_TOL:
+        fails.append(f"captured differs from eager: {err}")
+    if e["counts"] != want_e or c["counts"] != want_c:
+        fails.append(f"launches eager {e['counts']} (want {want_e}), "
+                     f"captured {c['counts']} (want {want_c})")
+    # the timed eager steps launched as the first TWIN_STEPS did
+    if (after != {k: c["counts"][k] + e["counts"][k] for k in after}
+            or n_replays[0] != TWIN_STEPS):
+        fails.append(f"replays launched from the host: {after}")
+    if c["graphs"] != {"captures": 1, "replays": TWIN_STEPS - 1}:
+        fails.append(f"graphs {c['graphs']}")
+    if fails:
+        raise AssertionError(f"point twin {name} {body}: "
+                             + "; ".join(fails))
+    return row
+
+
+def _twin_launches(twin: dict, kernel: str) -> dict:
+    """A wrapper's launches over the twin's bodies in phase F, by form
+    (eager: one a step; captured: the warm-up's and the capture's)."""
+    return {form: sum(r[b]["launches"][form].get(kernel, 0)
+                      for r in twin["rows"].values() for b in r)
+            for form in ("eager", "captured")}
+
+
+def point_twin(device, card: str) -> dict:
+    """The point twin (bench_points) at full width, every row, in both
+    forms: twin_body for each row's forward and grad step, budget checks
+    deferred as the twin defers them; then each form's busy share over
+    the binned rows' windows and the largest peak."""
+    from torch_renderer_tpu_torch import bench_points as bp
+    from torch_renderer_tpu_torch.rasterize.binning import (
+        deferred_budget_checks,
+    )
+
+    p = bp.FULL
+    cloud, K, R, t = bp.scene(p["batch"], p["points"], p["image"], device)
+    bud = bp.size_budgets(cloud, K, R, t, p["image"], device)
+    renderers, auto = bp.make_renderers(cloud, K, R, t, p["image"], bud,
+                                        device)
+    print(f"[point twin] {p['batch']} x {p['points']} points at "
+          f"{p['image']}^2, budgets {bud}, DEFAULT resolved to bin "
+          f"{auto.bin_size}, {auto.max_points_per_bin} a bin, active tiles "
+          f"{auto.active_tiles} ({card})", flush=True)
+    rows = {}
+    with deferred_budget_checks():
+        for name, r in renderers.items():
+            rows[name] = {body: twin_body(name, body, fn, cloud,
+                                          name != bp.DENSE, card)
+                          for body, fn in bp.bodies(r, cloud, R, t).items()}
+    forms = {}
+    for form in ("eager", "captured"):
+        for body in bp.BODIES:
+            binned = [rows[n][body]["busy"][form] for n in rows
+                      if n != bp.DENSE]
+            forms[f"{form} {body}"] = {
+                "busy_share": (sum(b["busy_ms"] for b in binned)
+                               / sum(b["wall_ms"] for b in binned)),
+                "peak_mb": max(rows[n][body]["peak_mb"][form]
+                               for n in rows)}
+    bit = sorted(f"{n} {b}" for n in rows for b in rows[n]
+                 if rows[n][b]["bitwise"]["out"])
+    print(f"[point twin] busy share over the binned rows' windows and the "
+          f"largest peak, by form and body ({card}): {forms}; bit for bit "
+          f"captured against eager: {bit}", flush=True)
+    return {"rows": rows, "forms": forms, "budgets": bud,
+            "bit_for_bit": bit}
 
 
 # ---------------------------------------------------------------------------
@@ -2610,16 +2775,31 @@ def kernel_counts(fn) -> dict:
         for i in range(WINDOW_MARKS):
             marks[i].fill_(1)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
-    n_marks = sum(MARK_NAME in n for n in names)
-    names = [n for n in names if MARK_NAME not in n]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Optimizer.", "ProfilerStep"))]
+    n_marks = sum(MARK_NAME in e.name for e in events)
+    events = [e for e in events if MARK_NAME not in e.name]
+    names = [e.name for e in events]
     return {"all": collections.Counter(_short(n) for n in names),
             "ours": {k: sum(v in n for n in names)
                      for k, v in DEVICE_NAMES.items()},
-            "graphs": dict(graphs), "marks": n_marks}
+            "graphs": dict(graphs), "marks": n_marks,
+            "busy_ms": _union_ms(events), "wall_ms": wall_ms}
+
+
+def _union_ms(events) -> float:
+    """The device time covered by the events' spans (their union), ms."""
+    busy_us, end = 0.0, -math.inf
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in events):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
 
 
 def full_window(fn, expect: dict) -> dict:
@@ -2804,7 +2984,10 @@ def same_kernels(tag: str, run, expect: dict, prologue=None) -> dict:
     return {"eager_kernels": sum(e.values()),
             "captured_kernels": sum(c.values()), "names": len(e),
             "ours": captured["ours"], "count_diff": diff, "copies": copies,
-            "short_windows": short, "prologue": rng}
+            "short_windows": short, "prologue": rng,
+            "busy": {k: {m: w.get(m) for m in ("busy_ms", "wall_ms")}
+                     for k, w in (("eager", eager),
+                                  ("captured", captured))}}
 
 
 @contextlib.contextmanager
@@ -5779,6 +5962,7 @@ def main() -> None:
          "per_point_bound_every_pair_ms": kp["bound_every_pair_ms"],
          "per_point_box_pairs": kp["box_pairs"],
          "per_point_plan": kp["plan"],
+         "launches_twin": _twin_launches(pts["twin"], "points_select"),
          "ptxas": ptxas.get("points_select_kernel")})
     g7, gs = batch["gather"], soft_gather
     source = "torch_renderer_tpu_torch/csrc/gather_tiles.cu"
@@ -5786,6 +5970,7 @@ def main() -> None:
         {"name": "gather_tiles_fwd", "route": "cuda", "source": source,
          "replaces": "torch_renderer_tpu/rasterize/pallas_gather.py:129",
          "launches": batch["counts"]["gather_tiles_fwd"],
+         "launches_twin": _twin_launches(pts["twin"], "gather_tiles_fwd"),
          "max_abs_err": max(g7["max_abs_err"], gs["max_abs_err"]),
          "ms": g7["ms"], "device_ms": g7["device_ms"],
          "plain_ms": g7["plain_ms"], "bound_ms": g7["bound_ms"],
@@ -5968,6 +6153,14 @@ def main() -> None:
               f"images/s batched, {r['serial_images_per_s']:.1f} serial, "
               f"busy share {r['busy_share']:.3f}, peak {r['peak_gb']:.3f} "
               f"GiB; one eager call {batch['call_ms']} ms", flush=True)
+    tw = pts["twin"]
+    print(f"point twin, ms a step captured / eager ({card}): " + "; ".join(
+        f"{n} fwd {r['forward']['ms']['captured']:.3f} / "
+        f"{r['forward']['ms']['eager']:.3f}, grad "
+        f"{r['grad step']['ms']['captured']:.3f} / "
+        f"{r['grad step']['ms']['eager']:.3f}"
+        for n, r in tw["rows"].items()) + f"; busy share and peak "
+        f"{tw['forms']}", flush=True)
     print(f"point renders ({card}): " + ", ".join(
         f"{n} fwd {r['fwd_ms']:.3f} / grad {r['grad_ms']:.3f} ms"
         for n, r in pts["runs"].items()), flush=True)

@@ -1,6 +1,6 @@
 """torch_renderer_tpu_torch: the PyTorch + CUDA port of torch_renderer_tpu.
 
-Eight slices are ported:
+These slices are ported:
 
   * the soft-silhouette render + backward: padded meshes, the pinhole
     camera, face setup, active-tile binning (in raster or count order), the
@@ -41,7 +41,10 @@ Eight slices are ported:
     point render, pose step and data-parallel fit, and the sharded forms of
     registration, pose search, the COCO generator and the benches; with
     the utilities (utils.checkpoint, utils.debug, utils.metrics,
-    utils.plotting.image_grid) and the open3d oracle (baselines).
+    utils.plotting.image_grid) and the open3d oracle (baselines);
+  * the point-renderer bench twin (bench_points): the JAX package's
+    scripts/bench_points.py, its forward and grad steps as captured CUDA
+    graphs on the card.
 
 Entry points that build tensors from host data put them on the card unless
 given device="cpu" (``_device.resolve_device``). The CUDA kernels are built

@@ -7,18 +7,31 @@ the objects are linked into one shared library under
 ``build/kernels/<hash of the sources and flags>/`` at the repository root,
 which is loaded with ctypes. Nothing is built or loaded when the package is
 imported, and a failed build raises: no caller falls back.
+
+Processes that reach a build at once (the ranks of a launch, test
+workers, another checkout's processes sharing the tree) are safe: the
+build holds an exclusive ``flock`` on a lock file in its hash directory
+and looks for the library again under it, so one process compiles and the
+others load its file; temporary files are named by ``mkstemp`` (unique by
+``O_EXCL``, not by pid, which can repeat across pid namespaces) and the
+library is published by an atomic ``os.replace``. ``locked_build`` holds
+this protocol for the host library (io/native.py) too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(sorted((_PKG / "csrc").glob("*.cu")))
@@ -69,29 +82,81 @@ def _run(cmds):
     return f"{log}# {secs:.2f} s\n", rc
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; returns the
-    library path. The compiler's report goes to build.log beside it."""
-    out = library_path()
+@contextlib.contextmanager
+def _exclusive(directory: Path):
+    """Hold an exclusive flock on ``directory/.lock`` for the block."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def temp_file(out: Path, prefix: str, suffix: str) -> Path:
+    """A new empty file beside ``out`` with a name no other process holds
+    (mkstemp: O_EXCL), for a compiler to write over."""
+    fd, name = tempfile.mkstemp(dir=out.parent, prefix=prefix, suffix=suffix)
+    os.close(fd)
+    return Path(name)
+
+
+def locked_build(out: Path, compile_to: Callable[[Path], bool]
+                 ) -> Optional[Path]:
+    """``out``, built once however many processes ask at the same time.
+
+    Under the lock of out's directory: out when it exists (another process
+    built it); else compile_to(tmp) writes the library into a temp file
+    beside it and returns whether it succeeded, and on success tmp is
+    renamed onto out (atomic). Returns out, or None when compile_to
+    failed. A rename that fails while out exists yields out."""
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    nvcc = find_nvcc()
-    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in SOURCES]
-    log, rc = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(src)]
-                    for src, o in zip(SOURCES, objs)])
-    tmp = out.with_name(f"{LIB_NAME}.{tag}")
-    if not rc:
-        link_log, rc = _run([[nvcc, *LINK_FLAGS, "-o", str(tmp),
-                              *map(str, objs)]])
-        log += link_log
-    for o in objs:
-        o.unlink(missing_ok=True)
-    (out.parent / "build.log").write_text(log)
-    if rc:
-        raise RuntimeError(f"nvcc failed:\n{log}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    with _exclusive(out.parent):
+        if out.exists():
+            return out
+        tmp = temp_file(out, f"{out.name}.", ".tmp")
+        try:
+            if not compile_to(tmp):
+                return None
+            try:
+                os.replace(tmp, out)   # a loader never sees half a file
+            except OSError:
+                if not out.exists():
+                    raise
+            return out
+        finally:
+            tmp.unlink(missing_ok=True)
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; returns the
+    library path. The compiler's report goes to build.log beside it; a
+    failed compile raises RuntimeError with it."""
+    out = library_path()
+    failed = []
+
+    def compile_to(tmp: Path) -> bool:
+        nvcc = find_nvcc()
+        objs = [temp_file(out, f"{src.stem}.", ".o") for src in SOURCES]
+        try:
+            log, rc = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(src)]
+                            for src, o in zip(SOURCES, objs)])
+            if not rc:
+                link_log, rc = _run([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                                      *map(str, objs)]])
+                log += link_log
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        (out.parent / "build.log").write_text(log)
+        if rc:
+            failed.append(log)
+        return not rc
+
+    if locked_build(out, compile_to) is None:
+        raise RuntimeError(f"nvcc failed:\n{failed[0]}")
     return out
 
 

@@ -31,3 +31,13 @@ def draw(fn, generator: torch.Generator, shape, device) -> torch.Tensor:
     its own device, then moved to ``device``: a seeded CPU generator gives
     the same draws whatever device the work runs on."""
     return fn(shape, generator=generator, device=generator.device).to(device)
+
+
+def scalar_tensor(x, dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)`` for a tensor or a
+    Python number, with the same values; a number is written on the device
+    by a fill kernel instead of copied from the host, a copy that waits for
+    the device and that a captured CUDA graph cannot hold."""
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)

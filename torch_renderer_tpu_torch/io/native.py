@@ -5,9 +5,11 @@ and PNG encoding, the host-side hot spots of IO and data generation.
 The C++ sources are the repository's shared ``native/objparse.cpp`` and
 ``native/pngwrite.cpp``. At first use they are compiled by one ``g++`` into
 ``build/native/<hash of the sources and flags>/`` at the repository root
-and loaded with ctypes; nothing is written under ``native/``. Every entry
-point has a pure-Python fallback (None / False when the library cannot be
-built), so the package works without a toolchain: this is host code only.
+and loaded with ctypes; nothing is written under ``native/``. Processes
+that reach the build at once are safe (``_build.locked_build``: one
+compiles under a lock, the others load its file). Every entry point has a
+pure-Python fallback (None / False when there is no g++ or its build
+fails), so the package works without a toolchain: this is host code only.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+
+from .._build import locked_build
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCES = (_ROOT / "native" / "objparse.cpp", _ROOT / "native" / "pngwrite.cpp")
@@ -41,29 +45,33 @@ def library_path() -> Path:
 
 def build() -> Optional[Path]:
     """Compile the library unless this exact build exists; its path, or
-    None when there is no g++ or the build fails (build.log beside it)."""
+    None when there is no g++ or the build fails (build.log beside it).
+    Never raises for a concurrent build: one process compiles, the others
+    wait for it and return its file."""
     out = library_path()
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None or not all(s.is_file() for s in SOURCES):
         return None
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [cxx, *FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS]
+
+    def compile_to(tmp: Path) -> bool:
+        cmd = [cxx, *FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS]
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            (out.parent / "build.log").write_text(f"$ {' '.join(cmd)}\n{e}\n")
+            return False
+        (out.parent / "build.log").write_text(
+            f"$ {' '.join(cmd)}\n# rc {res.returncode}\n{res.stdout}"
+            f"{res.stderr}")
+        return res.returncode == 0
+
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=300)
-    except (OSError, subprocess.SubprocessError) as e:
-        (out.parent / "build.log").write_text(f"$ {' '.join(cmd)}\n{e}\n")
-        return None
-    (out.parent / "build.log").write_text(
-        f"$ {' '.join(cmd)}\n# rc {res.returncode}\n{res.stdout}{res.stderr}")
-    if res.returncode:
-        tmp.unlink(missing_ok=True)
-        return None
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    return out
+        return locked_build(out, compile_to)
+    except OSError:
+        return None    # the build directory cannot be written
 
 
 @functools.cache

@@ -26,6 +26,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .._device import scalar_tensor
 from ..cameras.perspective import PerspectiveCamera
 from ..structures.pointclouds import Pointclouds
 from .soft import pixel_coords_raster
@@ -104,8 +105,7 @@ def project_points_screen(pcls: Pointclouds, camera: PerspectiveCamera,
 def _radius_array(radius, default: float, B: int, N: int, device):
     """(B, N) float32 per-point radii: the override, else the default."""
     r = default if radius is None else radius
-    return torch.as_tensor(r, dtype=torch.float32, device=device).expand(
-        B, N)
+    return scalar_tensor(r, torch.float32, device).expand(B, N)
 
 
 def _select_chunk(pix, q, z, valid, radius2, K: int) -> torch.Tensor:

@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._device import resolve_device
+from ._device import resolve_device, scalar_tensor
 from .cameras.perspective import PerspectiveCamera, _as_batched
 from .rasterize.fragments import Fragments
 from .rasterize.points import PointsRasterizationSettings, rasterize_points
@@ -275,8 +275,8 @@ class PointsRenderer(DifferentiableRenderer):
         (PointFragments.features); the dense path gathers them per hit."""
         st = self.resolved_settings(pointclouds, R, tvec, radius)
         B, N = pointclouds.points.shape[:2]
-        r_arr = None if radius is None else torch.as_tensor(
-            radius, dtype=torch.float32, device=self.device).expand(B, N)
+        r_arr = None if radius is None else scalar_tensor(
+            radius, torch.float32, self.device).expand(B, N)
         nf, extra = 0, None
         if st.bin_size:
             cols = []
@@ -369,9 +369,9 @@ class PulsarRenderer(PointsRenderer):
         hit)."""
         pts_cam = cam.world_to_camera(pointclouds.points)
         B, N = pts_cam.shape[:2]
-        r_w = torch.as_tensor(
+        r_w = scalar_tensor(
             self.settings.radius if radius is None else radius,
-            dtype=torch.float32, device=pts_cam.device).expand(B, N)
+            torch.float32, pts_cam.device).expand(B, N)
         fmax = torch.maximum(cam.fx, cam.fy)[:, None]
         r_ndc = r_w * fmax / (cam.ndc_scale * torch.clamp_min(
             pts_cam[..., 2] - r_w, self.settings.znear))
@@ -400,9 +400,8 @@ class PulsarRenderer(PointsRenderer):
         cam = self.camera_with_pose(R, tvec)
         pts_cam, r_w, r_ndc = self._selection_radii(pointclouds, cam, radius)
         B, N = pts_cam.shape[:2]
-        o = torch.as_tensor(1.0 if opacity is None else opacity,
-                            dtype=torch.float32,
-                            device=pts_cam.device).expand(B, N)
+        o = scalar_tensor(1.0 if opacity is None else opacity,
+                          torch.float32, pts_cam.device).expand(B, N)
         feats = (torch.ones((B, N, 3), device=pts_cam.device)
                  if pointclouds.features is None else pointclouds.features)
         st = self.settings

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import scalar_tensor
 from ..rasterize.points import PointFragments
 from ..structures.pointclouds import Pointclouds
 
@@ -42,12 +43,23 @@ def splat_weights(fragments: PointFragments, radius) -> torch.Tensor:
     """pytorch3d splat weight w = 1 - d^2 / r^2 clipped to [0, 1], 0 at
     empty slots. radius: a scalar, or a tensor broadcastable to
     fragments.dists2 (the per-hit radius the splats were selected with)."""
-    radius = torch.as_tensor(radius, dtype=torch.float32,
-                             device=fragments.dists2.device)
+    radius = scalar_tensor(radius, torch.float32, fragments.dists2.device)
     if radius.ndim:                    # dead slots carry a 0 per-hit radius
         radius = torch.where(fragments.mask, radius, 1.0)
     w = 1.0 - fragments.dists2 / (radius * radius)
     return torch.where(fragments.mask, w.clamp(0.0, 1.0), 0.0)
+
+
+def _exclusive_cumprod(x: torch.Tensor) -> torch.Tensor:
+    """prod_{j<k} x_j along the last dim (1 at k = 0) by sequential
+    products, the order torch.cumprod multiplies in on the CPU. Its
+    backward is the product rule's and reads nothing back to the host:
+    torch.cumprod's backward asks the host whether an input is 0 (a
+    saturated splat's 1 - w is), which a captured CUDA graph cannot do."""
+    out = [torch.ones_like(x[..., 0])]
+    for k in range(x.shape[-1] - 1):
+        out.append(out[-1] * x[..., k])
+    return torch.stack(out, dim=-1)
 
 
 def alpha_composite(weights: torch.Tensor,
@@ -56,9 +68,7 @@ def alpha_composite(weights: torch.Tensor,
     (B, H, W, K) nearest first, features (B, H, W, K, C) ->
     (B, H, W, C + 1) with the accumulated alpha last.
     out_c = sum_k w_k prod_{j<k} (1 - w_j) c_k."""
-    cum = torch.cumprod(1.0 - weights, dim=-1)
-    excl = torch.cat([torch.ones_like(cum[..., :1]), cum[..., :-1]], dim=-1)
-    contrib = weights * excl
+    contrib = weights * _exclusive_cumprod(1.0 - weights)
     rgb = torch.einsum("...k,...kc->...c", contrib, features)
     return torch.cat([rgb, contrib.sum(-1, keepdim=True)], dim=-1)
 
