@@ -550,46 +550,26 @@ def _short(name: str) -> str:
     return name.split("(")[0][:80]
 
 
-def reset_counts() -> None:
-    from torch_renderer_tpu_torch.ops import cuda_svd3, cuda_texsample
-    from torch_renderer_tpu_torch.rasterize import (
-        cuda_gather,
-        cuda_hard,
-        cuda_points,
-        cuda_soft,
-        cuda_untile,
-    )
+# The wrappers' launch counters (utils.timing), counted from the host: an
+# eager call, a graph's warm-up and its capture each launch once; a replay
+# launches from its graph and counts nothing.
+LAUNCH_COUNTERS = ("soft_coverage_fwd", "soft_coverage_bwd", "hard_k1",
+                   "topk_select", "texsample_fwd", "texsample_bwd",
+                   "points_select", "gather_tiles_fwd", "gather_tiles_bwd",
+                   "untile_scatter", "svd3")
 
-    cuda_soft.FWD_LAUNCHES = cuda_soft.BWD_LAUNCHES = 0
-    cuda_hard.HARD_LAUNCHES = cuda_hard.TOPK_LAUNCHES = 0
-    cuda_texsample.FWD_LAUNCHES = cuda_texsample.BWD_LAUNCHES = 0
-    cuda_points.POINTS_LAUNCHES = 0
-    cuda_gather.GATHER_FWD_LAUNCHES = cuda_gather.GATHER_BWD_LAUNCHES = 0
-    cuda_untile.UNTILE_LAUNCHES = 0
-    cuda_svd3.SVD3_LAUNCHES = 0
+
+def reset_counts() -> None:
+    from torch_renderer_tpu_torch.utils import timing
+
+    timing.reset_counters()
 
 
 def read_counts() -> dict:
-    from torch_renderer_tpu_torch.ops import cuda_svd3, cuda_texsample
-    from torch_renderer_tpu_torch.rasterize import (
-        cuda_gather,
-        cuda_hard,
-        cuda_points,
-        cuda_soft,
-        cuda_untile,
-    )
+    from torch_renderer_tpu_torch.utils import timing
 
-    return {"soft_coverage_fwd": cuda_soft.FWD_LAUNCHES,
-            "soft_coverage_bwd": cuda_soft.BWD_LAUNCHES,
-            "hard_k1": cuda_hard.HARD_LAUNCHES,
-            "topk_select": cuda_hard.TOPK_LAUNCHES,
-            "texsample_fwd": cuda_texsample.FWD_LAUNCHES,
-            "texsample_bwd": cuda_texsample.BWD_LAUNCHES,
-            "points_select": cuda_points.POINTS_LAUNCHES,
-            "gather_tiles_fwd": cuda_gather.GATHER_FWD_LAUNCHES,
-            "gather_tiles_bwd": cuda_gather.GATHER_BWD_LAUNCHES,
-            "untile_scatter": cuda_untile.UNTILE_LAUNCHES,
-            "svd3": cuda_svd3.SVD3_LAUNCHES}
+    counts = timing.counters()
+    return {k: counts[k] for k in LAUNCH_COUNTERS}
 
 
 def only(counts: dict, **want) -> dict:
@@ -1476,10 +1456,12 @@ def tex_check(tag: str, args, g, card: str, host: bool = False) -> dict:
     maps, y0, x0, wy, wx = args
     B, Hm, Wm, C = maps.shape
     P = y0.shape[1]
-    launches = (ts.FWD_LAUNCHES, ts.BWD_LAUNCHES)
+    before = read_counts()
     out_k = ts.texsample_fwd(*args)
     grads_k = ts.texsample_bwd(*args, g)
-    launches = (ts.FWD_LAUNCHES - launches[0], ts.BWD_LAUNCHES - launches[1])
+    after = read_counts()
+    launches = (after["texsample_fwd"] - before["texsample_fwd"],
+                after["texsample_bwd"] - before["texsample_bwd"])
     out_p = ts.texsample_fwd_reference(*args)
     grads_p = ts.texsample_bwd_reference(*args, g)
     torch.cuda.synchronize()

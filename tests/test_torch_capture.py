@@ -40,6 +40,7 @@ from torch_renderer_tpu_torch.structures.textures import (
     TexturesVertex,
     sphere_uv_mapping,
 )
+from torch_renderer_tpu_torch.utils import timing
 from torch_renderer_tpu_torch.utils.graph import (
     CapturedCall,
     StepGraph,
@@ -394,11 +395,13 @@ def test_depth_app_static_chunks_equal_fresh_renders():
 
     call = StaticCopies(render, "cpu")
     single = StaticCopies(lambda R, t: renderer.render(meshes, R, t), "cpu")
+    counted = timing.counters()["call_bodies"]
     views = torch.empty((6, IMG, IMG))
     for rep in range(2):
         for i in range(2):
             views[3 * i:3 * i + 3].copy_(call(Rs[3 * i:3 * i + 3],
                                               ts[3 * i:3 * i + 3]))
+    counted = timing.counters()["call_bodies"] - counted
     with torch.no_grad():
         want = torch.cat([renderer.render(batched, Rs[:3], ts[:3]),
                           renderer.render(batched, Rs[3:], ts[3:])])
@@ -406,7 +409,9 @@ def test_depth_app_static_chunks_equal_fresh_renders():
     assert torch.equal(views, want)
     assert not torch.equal(views[:3], views[3:])
     assert torch.equal(single(Rs[4:5], ts[4:5]), one)
-    assert call.traced == 4 and len(call._graphs) == 1
+    assert call.bodies == 4 and len(call._graphs) == 1
+    # each body is counted on the call and on the shared counter
+    assert counted == call.bodies
 
 
 def _expanded_dims(x):
@@ -478,10 +483,13 @@ def test_coco_render_scene_through_static_calls():
     gen._chunk_call = StaticCopies(gen._render_chunk, "cpu")
     gen._vis_call = StaticCopies(gen._vis_chunk, "cpu")
     gen._calls = [gen._chunk_call, gen._vis_call]
+    before = gen.renders_traced
     got = gen.render_scene(scene, np.random.default_rng(3))
     for k in ("rgb", "depth", "normals", "segmentation", "edges", "R", "t"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    assert gen._chunk_call.traced == 2 and gen._vis_call.traced >= 1
+    assert gen._chunk_call.bodies == 2 and gen._vis_call.bodies >= 1
+    assert gen.renders_traced - before == \
+        gen._chunk_call.bodies + gen._vis_call.bodies
 
 
 def test_capture_on_cpu_raises():

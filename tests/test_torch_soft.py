@@ -25,6 +25,7 @@ from torch_renderer_tpu.rasterize.soft import soft_silhouette_streaming
 from torch_renderer_tpu.structures.meshes import Meshes
 from torch_renderer_tpu_torch.interop import face_planes_from_arrays
 from torch_renderer_tpu_torch.rasterize import cuda_soft
+from torch_renderer_tpu_torch.utils import timing
 
 IMG = 32
 B = 2
@@ -38,6 +39,12 @@ T_POSES = np.array([[0.0, 0.0, 3.0], [0.15, -0.1, 2.6]], np.float32)
 # tests/test_packed_soft.py, and the lane route over every tile
 ROUTES = [("packed", 4, None, 80), ("packed", 4, 256, 80),
           ("packed", 9, 256, 80), ("lane", None, None, 128)]
+
+
+def _launches(*names) -> tuple:
+    """The wrappers' launch counters (utils.timing), in order."""
+    counts = timing.counters()
+    return tuple(counts[n] for n in names)
 
 
 @pytest.fixture(scope="module")
@@ -147,14 +154,14 @@ def test_plain_backward_splits_ties_evenly():
 def test_wrappers_take_the_plain_version_on_cpu():
     q, count, tile, inv_s = _random_slabs(2)
     g = torch.ones((q.shape[0], q.shape[1], tile * tile))
-    launches = (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES)
+    launches = _launches("soft_coverage_fwd", "soft_coverage_bwd")
     assert torch.equal(
         cuda_soft.soft_coverage_fwd(q, count, tile, inv_s, 1e4),
         cuda_soft.soft_coverage_fwd_reference(q, count, tile, inv_s, 1e4))
     assert torch.equal(
         cuda_soft.soft_coverage_bwd(q, count, g, tile, inv_s, 1e4),
         cuda_soft.soft_coverage_bwd_reference(q, count, g, tile, inv_s, 1e4))
-    assert (cuda_soft.FWD_LAUNCHES, cuda_soft.BWD_LAUNCHES) == launches
+    assert _launches("soft_coverage_fwd", "soft_coverage_bwd") == launches
 
 
 def test_wrappers_reject_bad_inputs():

@@ -318,29 +318,17 @@ def run_all(data5, data3, ref_np, target_np, datagen_dirs) -> dict:
 # ---------------------------------------------------------------------------
 
 def _counted(fn):
-    from torch_renderer_tpu_torch.ops import cuda_svd3
-    from torch_renderer_tpu_torch.rasterize import (
-        cuda_gather,
-        cuda_hard,
-        cuda_points,
-        cuda_soft,
-        cuda_untile,
-    )
+    from torch_renderer_tpu_torch.utils import timing
 
-    mods = {"soft_coverage_fwd": (cuda_soft, "FWD_LAUNCHES"),
-            "soft_coverage_bwd": (cuda_soft, "BWD_LAUNCHES"),
-            "hard_k1": (cuda_hard, "HARD_LAUNCHES"),
-            "topk_select": (cuda_hard, "TOPK_LAUNCHES"),
-            "points_select": (cuda_points, "POINTS_LAUNCHES"),
-            "gather_tiles_fwd": (cuda_gather, "GATHER_FWD_LAUNCHES"),
-            "gather_tiles_bwd": (cuda_gather, "GATHER_BWD_LAUNCHES"),
-            "untile_scatter": (cuda_untile, "UNTILE_LAUNCHES"),
-            "svd3": (cuda_svd3, "SVD3_LAUNCHES")}
+    names = ("soft_coverage_fwd", "soft_coverage_bwd", "hard_k1",
+             "topk_select", "points_select", "gather_tiles_fwd",
+             "gather_tiles_bwd", "untile_scatter", "svd3")
     torch.cuda.synchronize()
-    before = {k: getattr(m, a) for k, (m, a) in mods.items()}
+    before = timing.counters()
     out = fn()
     torch.cuda.synchronize()
-    return out, {k: getattr(m, a) - before[k] for k, (m, a) in mods.items()}
+    after = timing.counters()
+    return out, {k: after[k] - before[k] for k in names}
 
 
 def card_cases() -> dict:

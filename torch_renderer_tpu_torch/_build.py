@@ -206,6 +206,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.trt_untile_scatter_fields.restype = i32
     lib.trt_svd3.argtypes = [vp, vp, vp, vp, i32, i32, vp]
     lib.trt_svd3.restype = i32
+    lib.trt_span_marker_launch.argtypes = [i32, i32, i32, vp]
+    lib.trt_span_marker_launch.restype = i32
     lib.trt_error_string.argtypes = [i32]
     lib.trt_error_string.restype = ctypes.c_char_p
     return lib

@@ -26,6 +26,12 @@ overwrites its output).
 With active tiles the app sizes the occupancy split as the JAX app does
 (binning.suggest_occupancy_split_fd; --no-occupancy-split turns it off).
 
+--spans turns the program's spans on (utils/timing.span) for the whole
+run, so every graph is captured with its span markers: a profiler trace
+of the run (torch.profiler, or utils/timing.profiler_trace) then names
+each layer of every replay on the card's clock. A graph captured with
+spans off shows none.
+
 The default --device cuda raises when no CUDA device is present (there is
 no fallback). With several cards (--cards N, default every visible card)
 the app runs on N ranks (apps/_common.run_on_mesh: one card a rank under
@@ -87,6 +93,9 @@ def parse_args(argv=None):
     p.add_argument("--cards", type=int, default=None,
                    help="ranks, one card each (default: every visible "
                         "card; 1 on the CPU)")
+    p.add_argument("--spans", action="store_true",
+                   help="capture every graph with the program's spans on "
+                        "(utils/timing.span), for a profiler trace")
     add_eager_option(p, "each render call")
     return p.parse_args(argv)
 
@@ -116,7 +125,17 @@ def main(argv=None) -> dict:
 
 def run(args, device_mesh) -> dict:
     """The benchmark on this process (device_mesh None) or on one rank of a
-    data mesh."""
+    data mesh; with spans on for the run under --spans."""
+    from ..utils import timing
+
+    before = timing.enable_spans(args.spans or timing.spans_enabled())
+    try:
+        return _run(args, device_mesh)
+    finally:
+        timing.enable_spans(before)
+
+
+def _run(args, device_mesh) -> dict:
     device = resolve_app_device(args)
 
     from ..cameras.look_at import look_at_view_transform
@@ -273,7 +292,7 @@ def run(args, device_mesh) -> dict:
             "occupancy_split": split if act > 0 else None,
             "images_per_s": fps, "serial_images_per_s": 1.0 / r1.mean_s,
             "calls": calls[0], "cards": n_cards, "sharded": shard,
-            "traced": sum(g.traced for g in graphs.values()),
+            "traced": sum(g.bodies for g in graphs.values()),
             "coverage": float((depth > 0).mean()),
             "depth_max": float(depth.max()),
             "views": views if device_mesh is None else None}

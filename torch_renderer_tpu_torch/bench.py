@@ -53,9 +53,10 @@ import torch
 from ._device import resolve_device
 from .cameras.perspective import PerspectiveCamera
 from .ops.icosphere import icosphere
-from .rasterize import cuda_gather, cuda_soft
+from .rasterize import cuda_soft
 from .rasterize.geometry import setup_face_planes
 from .structures.meshes import Meshes
+from .utils import timing
 from .utils.graph import StepGraph
 
 SIGMA = 1e-4
@@ -176,10 +177,11 @@ def time_passes(step, v, batch: int, steps: int, warmup: int,
 
 
 def _counters() -> dict:
-    return {"soft_coverage_fwd": cuda_soft.FWD_LAUNCHES,
-            "soft_coverage_bwd": cuda_soft.BWD_LAUNCHES,
-            "gather_tiles_fwd": cuda_gather.GATHER_FWD_LAUNCHES,
-            "gather_tiles_bwd": cuda_gather.GATHER_BWD_LAUNCHES}
+    """The step's wrappers' launch counters (launches from the host: eager
+    calls, warm-ups and captures; a replay counts nothing)."""
+    counts = timing.counters()
+    return {k: counts[k] for k in ("soft_coverage_fwd", "soft_coverage_bwd",
+                                   "gather_tiles_fwd", "gather_tiles_bwd")}
 
 
 # the device kernels of the step's wrappers, by the names a profiler reads

@@ -381,7 +381,7 @@ class COCODataGenerator:
                     "readable images")
         self._tile_cache: Dict = {}
         self._calls: list = []
-        self._traced_before = 0
+        self._bodies_before = 0
         if config.edge_maps:
             from ..ops.canny import sobel_taps
 
@@ -408,7 +408,7 @@ class COCODataGenerator:
         check is on, the quarter-size seg-count renderer, at the current
         bin budgets, with new captured calls (the old graphs released)."""
         for call in self._calls:
-            self._traced_before += call.traced
+            self._bodies_before += call.bodies
             call.release()
         self._chunk_call = CapturedCall(self._render_chunk, self.device,
                                         self.capture)
@@ -438,7 +438,7 @@ class COCODataGenerator:
         """Chunk renders and visibility counts run from the host so far
         (eager calls, and each graph's warm-up and capture): each launched
         its kernels once; a replay launches from its graph."""
-        return self._traced_before + sum(c.traced for c in self._calls)
+        return self._bodies_before + sum(c.bodies for c in self._calls)
 
     def _vis_counts(self, batched, Rs, ts, face_to_object) -> torch.Tensor:
         """(B, n_max) pixel count of each object in the quarter-size

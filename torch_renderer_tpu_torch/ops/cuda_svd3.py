@@ -23,10 +23,11 @@ from typing import Tuple
 import torch
 
 from .._build import launch
+from ..utils.timing import count as count_event
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-SVD3_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "svd3": the launches made
+# from the host (an eager call, a graph's warm-up or capture); a replay
+# launches from its graph and counts nothing.
 
 SWEEPS = 8   # kSweeps in csrc/svd3.cu
 
@@ -114,9 +115,8 @@ def svd3(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     vt = torch.empty_like(u)
     s = torch.empty((n, 3), dtype=a.dtype, device=a.device)
     if n:
-        global SVD3_LAUNCHES
         launch("trt_svd3", flat.data_ptr(), u.data_ptr(), s.data_ptr(),
                vt.data_ptr(), n, device=a.device)
-        SVD3_LAUNCHES += 1
+        count_event("svd3")
     return (u.reshape(shape + (3, 3)), s.reshape(shape + (3,)),
             vt.reshape(shape + (3, 3)))

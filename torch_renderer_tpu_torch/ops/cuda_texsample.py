@@ -33,11 +33,12 @@ import struct
 import torch
 
 from .._build import check_launch, load_kernels, raw_stream
+from ..utils.timing import count as count_event
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "texsample_fwd" or
+# "texsample_bwd": the launches made from the host (an eager call, a
+# graph's warm-up or capture); a replay launches from its graph and counts
+# nothing.
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +178,6 @@ def _kernels():
 def texsample_fwd(maps, y0, x0, wy, wx) -> torch.Tensor:
     """Bilinear samples (B, P, C) of maps (B, Hm, Wm, C) at the int32
     corners y0, x0 (B, P) with the float32 weights wy, wx (B, P)."""
-    global FWD_LAUNCHES
     stride, dev, B, P, Hm, Wm, C = _check_inputs(maps, y0, x0, wy, wx)
     if dev < 0:
         return texsample_fwd_reference(maps, y0, x0, wy, wx)
@@ -188,7 +188,7 @@ def texsample_fwd(maps, y0, x0, wy, wx) -> torch.Tensor:
         maps.data_ptr(), stride, y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
         wx.data_ptr(), 0, out.data_ptr(), 0, 0, raw_stream(dev), B, P, Hm,
         Wm, C, dev)))
-    FWD_LAUNCHES += 1
+    count_event("texsample_fwd")
     return out
 
 
@@ -196,7 +196,6 @@ def texsample_bwd(maps, y0, x0, wy, wx, g):
     """(d_maps (B, Hm, Wm, C), d_wy (B, P), d_wx (B, P)) of the samples
     contracted with the cotangent g (B, P, C). On the card d_maps is summed
     with float32 atomics, so its summation order varies from run to run."""
-    global BWD_LAUNCHES
     stride, dev, B, P, Hm, Wm, C = _check_inputs(maps, y0, x0, wy, wx, g)
     if dev < 0:
         return texsample_bwd_reference(maps, y0, x0, wy, wx, g)
@@ -209,7 +208,7 @@ def texsample_bwd(maps, y0, x0, wy, wx, g):
         maps.data_ptr(), stride, y0.data_ptr(), x0.data_ptr(), wy.data_ptr(),
         wx.data_ptr(), g.data_ptr(), d_maps.data_ptr(), d_wy.data_ptr(),
         d_wx.data_ptr(), raw_stream(dev), B, P, Hm, Wm, C, dev)))
-    BWD_LAUNCHES += 1
+    count_event("texsample_bwd")
     return d_maps, d_wy, d_wx
 
 

@@ -32,6 +32,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.timing import span
 from .cuda_gather import gather_tiles
 
 # Non-overlap sentinel for rank slots (int32 max, as in the JAX package).
@@ -347,13 +348,14 @@ def slot_faces(bins: ActiveBins, per_tile: int,
     Slots at or beyond a tile's capped count hold ``empty`` (0 keeps them in
     bounds, never read as a candidate; -1 marks them for
     cuda_gather.gather_tiles); faces ranked beyond per_tile land in a trash
-    column."""
-    B, A, F = bins.slot.shape
-    dest = bins.slot.clamp(max=per_tile)
-    faces = torch.arange(F, device=dest.device).expand(B, A, F)
-    table = torch.full((B, A, per_tile + 1), empty, dtype=torch.int64,
-                       device=dest.device)
-    return table.scatter(2, dest, faces)[..., :per_tile].contiguous()
+    column. Runs in the span "binning"."""
+    with span("binning", bins.slot):
+        B, A, F = bins.slot.shape
+        dest = bins.slot.clamp(max=per_tile)
+        faces = torch.arange(F, device=dest.device).expand(B, A, F)
+        table = torch.full((B, A, per_tile + 1), empty, dtype=torch.int64,
+                           device=dest.device)
+        return table.scatter(2, dest, faces)[..., :per_tile].contiguous()
 
 
 def scatter_active(values: torch.Tensor, bins: ActiveBins) -> torch.Tensor:
@@ -394,13 +396,17 @@ def face_channel_planes(fd, znear: float = 1e-5) -> torch.Tensor:
     """(B, F, 12) per-face channels of the hard raster, in slab order
     qx0 qy0 qx1 qy1 qx2 qy2 z0 z1 z2 invz0 invz1 invz2, from FacePlanes
     (invz = 1/clip(z, znear), znear fixed at its default as in the JAX
-    package's channel sources) or FaceRasterData (its own invz)."""
-    if hasattr(fd, "q"):
-        return torch.cat([fd.q.flatten(2), fd.z, fd.invz], dim=-1)
-    z = torch.stack([fd.z0, fd.z1, fd.z2], dim=-1)
-    return torch.cat([
-        torch.stack([fd.x0, fd.y0, fd.x1, fd.y1, fd.x2, fd.y2], dim=-1),
-        z, 1.0 / z.clamp_min(znear)], dim=-1)
+    package's channel sources) or FaceRasterData (its own invz). Runs in
+    the span "setup"."""
+    with span("setup", fd.valid) as sp:
+        fd = sp.inputs(fd)
+        if hasattr(fd, "q"):
+            return sp.outputs(torch.cat([fd.q.flatten(2), fd.z, fd.invz],
+                                        dim=-1))
+        z = torch.stack([fd.z0, fd.z1, fd.z2], dim=-1)
+        return sp.outputs(torch.cat([
+            torch.stack([fd.x0, fd.y0, fd.x1, fd.y1, fd.x2, fd.y2], dim=-1),
+            z, 1.0 / z.clamp_min(znear)], dim=-1))
 
 
 def tile_channel_slabs(planes: torch.Tensor, bins: ActiveBins,

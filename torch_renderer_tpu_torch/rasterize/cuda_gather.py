@@ -27,11 +27,12 @@ from typing import NamedTuple
 import torch
 
 from .._build import launch
+from ..utils.timing import count as count_event
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-GATHER_FWD_LAUNCHES = 0
-GATHER_BWD_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "gather_tiles_fwd" or
+# "gather_tiles_bwd": the launches made from the host (an eager call, a
+# graph's warm-up or capture); a replay launches from its graph and counts
+# nothing.
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +115,6 @@ def _check_idx(idx: torch.Tensor, other: torch.Tensor, name: str):
 
 def gather_tiles_fwd(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """The forward kernel: (B, T, S, C) slab of table (B, F, C) rows."""
-    global GATHER_FWD_LAUNCHES
     _check_idx(idx, table, "table")
     B, T, S = idx.shape
     if table.ndim != 3 or table.shape[0] != B:
@@ -131,7 +131,7 @@ def gather_tiles_fwd(idx: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     launch("trt_gather_tiles_fwd", idx.data_ptr(),
            int(idx.dtype == torch.int64), table.data_ptr(), out.data_ptr(), B,
            T, S, F, C, *gather_plan(S, C), device=idx.device)
-    GATHER_FWD_LAUNCHES += 1
+    count_event("gather_tiles_fwd")
     return out
 
 
@@ -140,7 +140,6 @@ def gather_tiles_bwd(idx: torch.Tensor, g: torch.Tensor,
     """The backward kernel: dtable (B, F, C) from the slab cotangent g
     (B, T, S, C), in one launch that zeroes dtable and then adds; float32
     atomics sum a row's terms in an order that changes from run to run."""
-    global GATHER_BWD_LAUNCHES
     _check_idx(idx, g, "g")
     B, T, S = idx.shape
     if g.ndim != 4 or tuple(g.shape[:3]) != (B, T, S):
@@ -155,7 +154,7 @@ def gather_tiles_bwd(idx: torch.Tensor, g: torch.Tensor,
     launch("trt_gather_tiles_bwd", idx.data_ptr(),
            int(idx.dtype == torch.int64), g.data_ptr(), dtable.data_ptr(), B,
            T * S, F, C, device=idx.device)
-    GATHER_BWD_LAUNCHES += 1
+    count_event("gather_tiles_bwd")
     return dtable
 
 

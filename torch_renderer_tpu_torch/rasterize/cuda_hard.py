@@ -52,6 +52,7 @@ from typing import NamedTuple
 import torch
 
 from .._build import launch, load_kernels
+from ..utils.timing import count as count_event, span
 from .binning import (
     ActiveBins,
     bin_faces_active,
@@ -65,10 +66,10 @@ from .cuda_untile import tile_slot_table, untile_scatter_fields
 from .fragments import EMPTY_DIST, Fragments
 from .geometry import channel_edge_bary, channel_min_edge_dist2, fragment_math
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-HARD_LAUNCHES = 0
-TOPK_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "hard_k1" or
+# "topk_select": the launches made from the host (an eager call, a graph's
+# warm-up or capture); a replay launches from its graph and counts
+# nothing.
 
 INF = 3.0e38
 SLAB_CHANNELS = 13
@@ -200,7 +201,6 @@ def hard_k1(slab, count, origin, tile: int, inv_s: float, blur: float,
     """out (B, A, 8, tile^2): per pixel of each active tile, the nearest
     face among the first count[b, a] slots of slab (B, A, F, 13) that
     covers it, interpolated (rows as in hard_k1_reference)."""
-    global HARD_LAUNCHES
     _check_inputs(slab, count, origin, tile)
     if slab.device.type == "cpu":
         return hard_k1_reference(slab, count, origin, tile, inv_s, blur,
@@ -210,7 +210,7 @@ def hard_k1(slab, count, origin, tile: int, inv_s: float, blur: float,
     launch("trt_hard_k1", slab.data_ptr(), count.data_ptr(),
             origin.data_ptr(), out.data_ptr(), B, A, F, tile, inv_s, blur,
             znear, int(clip_bary), device=slab.device)
-    HARD_LAUNCHES += 1
+    count_event("hard_k1")
     return out
 
 
@@ -218,7 +218,6 @@ def topk_select(slab, count, origin, K: int, tile: int, inv_s: float,
                 blur: float, znear: float) -> torch.Tensor:
     """Winner slots (B, A, K, tile^2) int32 of the K nearest covering faces
     per pixel (-1 = none), ascending in selection z."""
-    global TOPK_LAUNCHES
     _check_inputs(slab, count, origin, tile)
     if K <= 0:
         raise ValueError(f"K must be positive; got {K}")
@@ -235,7 +234,7 @@ def topk_select(slab, count, origin, K: int, tile: int, inv_s: float,
            origin.data_ptr(), lane.data_ptr(),
            None if zs is None else zs.data_ptr(), B, A, F, K, tile, inv_s,
            blur, znear, device=slab.device)
-    TOPK_LAUNCHES += 1
+    count_event("topk_select")
     return lane
 
 
@@ -332,7 +331,8 @@ def binned_inputs(fd, settings) -> BinnedInputs:
     max(1, hi) keep max_faces_per_bin slots and the rest min(lo,
     max_faces_per_bin), dropping their higher-id candidates beyond it
     (binning.split_bins). hi at or above the active-tile count means no
-    split."""
+    split. Binning and the budget checks run in the span "binning", the
+    candidate gather in "raster"."""
     H, W = settings.image_size
     tile = settings.bin_size
     blur = settings.blur_radius
@@ -340,24 +340,27 @@ def binned_inputs(fd, settings) -> BinnedInputs:
     A = TH * TW if settings.active_tiles is None else settings.active_tiles
     Fmax = min(settings.max_faces_per_bin, fd.num_faces)
     split = settings.occupancy_split
-    bins = bin_faces_active(fd, (H, W), tile,
-                            math.sqrt(blur) if blur > 0 else 0.0, A,
-                            order="tile" if split is None else "count")
-    if settings.active_tiles is not None:
-        check_budget("active_tiles", bins.n_active.max(),
-                     settings.active_tiles, settings.check_budgets,
-                     hint="size with binning.suggest_active_tiles_fd")
-    check_budget("max_faces_per_bin", bins.count.max(), Fmax,
-                 settings.check_budgets,
-                 hint="size with cuda_soft.suggest_faces_per_tile")
-    if split is not None and int(split[0]) < bins.count.shape[1]:
-        hi, lo = max(1, int(split[0])), int(split[1])
-        check_budget("occupancy_split lo_lanes", bins.count[:, hi:].max(),
-                     lo, settings.check_budgets,
-                     hint="size with binning.suggest_occupancy_split_fd")
-        bins = split_bins(bins, hi, min(lo, Fmax))
+    with span("binning", fd.valid):
+        bins = bin_faces_active(fd, (H, W), tile,
+                                math.sqrt(blur) if blur > 0 else 0.0, A,
+                                order="tile" if split is None else "count")
+        if settings.active_tiles is not None:
+            check_budget("active_tiles", bins.n_active.max(),
+                         settings.active_tiles, settings.check_budgets,
+                         hint="size with binning.suggest_active_tiles_fd")
+        check_budget("max_faces_per_bin", bins.count.max(), Fmax,
+                     settings.check_budgets,
+                     hint="size with cuda_soft.suggest_faces_per_tile")
+        if split is not None and int(split[0]) < bins.count.shape[1]:
+            hi, lo = max(1, int(split[0])), int(split[1])
+            check_budget("occupancy_split lo_lanes",
+                         bins.count[:, hi:].max(), lo,
+                         settings.check_budgets,
+                         hint="size with binning.suggest_occupancy_split_fd")
+            bins = split_bins(bins, hi, min(lo, Fmax))
     planes = face_channel_planes(fd)
-    slab, count, table = tile_channel_slabs(planes.detach(), bins, Fmax)
+    with span("raster", planes):
+        slab, count, table = tile_channel_slabs(planes.detach(), bins, Fmax)
     return BinnedInputs(bins, planes, slab, count, table,
                         bins.origin.contiguous(), 1.0 / (min(H, W) / 2.0))
 
@@ -365,12 +368,22 @@ def binned_inputs(fd, settings) -> BinnedInputs:
 def binned_tile_fields(fd, settings):
     """Selection and interpolation on the active tiles: (bins, {field:
     (values (B, A, tile^2, K, ...), background)}) for the four Fragments
-    fields, before the epilogue maps them to the image."""
+    fields, before the epilogue maps them to the image. The selection
+    and interpolation run in the span "raster"."""
+    bins, planes, slab, count, table, origin, inv_s = binned_inputs(
+        fd, settings)
+    with span("raster", planes) as sp:
+        fields = _select(sp.inputs(planes), slab, count, table, origin,
+                         inv_s, settings)
+        return bins, sp.outputs(fields)
+
+
+def _select(planes, slab, count, table, origin, inv_s, settings) -> dict:
+    """binned_tile_fields' selection and interpolation on the kernels'
+    inputs."""
     K = settings.faces_per_pixel
     tile = settings.bin_size
     blur = settings.blur_radius
-    bins, planes, slab, count, table, origin, inv_s = binned_inputs(
-        fd, settings)
     if K == 1:
         out = HardK1.apply(planes, slab, count, origin, tile, inv_s, blur,
                            settings.znear, settings.clip_bary)
@@ -394,17 +407,19 @@ def binned_tile_fields(fd, settings):
         bary = torch.where(live[:, :, :, None], torch.stack(pc, dim=3), 0.0)
         bary = bary.permute(0, 1, 4, 2, 3)                    # (B,A,P,K,3)
         p2f = torch.where(live, fid, -1).transpose(2, 3)
-    return bins, {"pix_to_face": (p2f, -1), "zbuf": (zbuf, -1.0),
-                  "bary": (bary, 0.0), "dists": (dists, EMPTY_DIST)}
+    return {"pix_to_face": (p2f, -1), "zbuf": (zbuf, -1.0),
+            "bary": (bary, 0.0), "dists": (dists, EMPTY_DIST)}
 
 
 def rasterize_binned_cuda(fd, settings) -> Fragments:
     """Coarse-to-fine top-K rasterization through the CUDA kernels; the
     counterpart of ``rasterize_binned_pallas``. fd: FacePlanes or
     FaceRasterData; settings: a resolved RasterizationSettings (bin_size >
-    0)."""
+    0). The epilogue runs in the span "untile"."""
     bins, fields = binned_tile_fields(fd, settings)
-    table = tile_slot_table(bins.rank, bins.invrank.shape[1],
-                            bins.n_tiles_hw)
-    return Fragments(**_to_images(fields, table, settings.image_size,
-                                  settings.bin_size, bins.n_tiles_hw))
+    with span("untile", bins.rank) as sp:
+        table = tile_slot_table(bins.rank, bins.invrank.shape[1],
+                                bins.n_tiles_hw)
+        return sp.outputs(Fragments(**_to_images(
+            sp.inputs(fields), table, settings.image_size,
+            settings.bin_size, bins.n_tiles_hw)))

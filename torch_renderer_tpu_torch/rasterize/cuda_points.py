@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .._build import launch, load_kernels
+from ..utils.timing import count as count_event
 from .binning import (
     ActiveBins,
     bin_ranks_active,
@@ -57,9 +58,9 @@ from .binning import (
 )
 from .points import INF, PointFragments
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-POINTS_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "points_select": the
+# launches made from the host (an eager call, a graph's warm-up or
+# capture); a replay launches from its graph and counts nothing.
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +148,6 @@ def points_select(slab, count, origin, offs, K: int, znear: float,
     int32 live slots per tile; origin (B, A, 2) raster coords of each
     tile's pixel 0; offs (tile^2, 2) binning.tile_pixel_coords; r2 the
     uniform squared radius, or None for per-point radii."""
-    global POINTS_LAUNCHES
     _check_inputs(slab, count, origin, offs, K, r2)
     if slab.device.type == "cpu":
         return points_select_reference(slab, count, origin, offs, K, znear,
@@ -164,7 +164,7 @@ def points_select(slab, count, origin, offs, K: int, znear: float,
            None if zs is None else zs.data_ptr(), B, A, P, C,
            K, math.isqrt(tp), 0.0 if r2 is None else r2,
            -1 if r2 is not None else 3, znear, device=slab.device)
-    POINTS_LAUNCHES += 1
+    count_event("points_select")
     return lane
 
 

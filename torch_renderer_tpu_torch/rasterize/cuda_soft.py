@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from .._build import launch
+from ..utils.timing import count as count_event, span
 from .binning import (
     ActiveBins,
     bin_faces_active,
@@ -53,11 +54,10 @@ from .cuda_gather import gather_tiles
 from .geometry import FacePlanes, setup_face_planes
 from .soft import SOFT_CUTOFF
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-
+# Each launch adds 1 to the utils.timing counter "soft_coverage_fwd" or
+# "soft_coverage_bwd": the launches made from the host (an eager call, a
+# graph's warm-up or capture); a replay launches from its graph and counts
+# nothing.
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions of the kernels
@@ -176,7 +176,6 @@ def soft_coverage_fwd(q, count, tile: int, inv_s: float,
                       inv_sigma: float) -> torch.Tensor:
     """S (B, A, tile^2) = per-pixel coverage sums of each active tile's
     first count[b, a] candidate slots of q (B, A, K, 6)."""
-    global FWD_LAUNCHES
     _check_inputs(q, count, tile)
     if q.device.type == "cpu":
         return soft_coverage_fwd_reference(q, count, tile, inv_s, inv_sigma)
@@ -186,7 +185,7 @@ def soft_coverage_fwd(q, count, tile: int, inv_s: float,
     S = q.new_empty((B, A, tile * tile))      # the kernel writes every pixel
     launch("trt_soft_coverage_fwd", q.data_ptr(), count.data_ptr(),
             S.data_ptr(), B, A, K, tile, inv_s, inv_sigma, device=q.device)
-    FWD_LAUNCHES += 1
+    count_event("soft_coverage_fwd")
     return S
 
 
@@ -194,7 +193,6 @@ def soft_coverage_bwd(q, count, g, tile: int, inv_s: float,
                       inv_sigma: float) -> torch.Tensor:
     """dS/dq (B, A, K, 6) contracted with the cotangent g (B, A, tile^2);
     zero at slots beyond count."""
-    global BWD_LAUNCHES
     _check_inputs(q, count, tile, g)
     if q.device.type == "cpu":
         return soft_coverage_bwd_reference(q, count, g, tile, inv_s,
@@ -206,7 +204,7 @@ def soft_coverage_bwd(q, count, g, tile: int, inv_s: float,
     launch("trt_soft_coverage_bwd", q.data_ptr(), count.data_ptr(),
             g.data_ptr(), dq.data_ptr(), B, A, K, tile, inv_s, inv_sigma,
             device=q.device)
-    BWD_LAUNCHES += 1
+    count_event("soft_coverage_bwd")
     return dq
 
 
@@ -307,6 +305,10 @@ def soft_silhouette_fd(
     faces_per_tile), dropping their higher-id candidates beyond it. Size
     it with suggest_occupancy_split(); hi_tiles must be a multiple of 8
     below the active-tile count.
+
+    Spans: binning and the budget checks in "binning", the candidate
+    gather and the kernel pair in "raster", the scatter to the tile grid,
+    1 - exp and the untile in "untile".
     """
     if layout not in ("lane", "packed", "sublane"):
         raise ValueError(f"unknown layout {layout!r}")
@@ -325,27 +327,32 @@ def soft_silhouette_fd(
     if layout == "packed" and hi_tiles is not None and hi_tiles > 0:
         split = (hi_tiles, min(lo_lanes, K))
     pad = math.sqrt(SOFT_CUTOFF * sigma)
-    bins = bin_faces_active(fp, image_size, tile, pad,
-                            T if active_tiles is None else active_tiles,
-                            order="tile" if split is None else "count")
-    A = bins.count.shape[1]
-    if split is not None and (hi_tiles % 8 or hi_tiles >= A):
-        raise ValueError(
-            f"hi_tiles must be a multiple of 8 and < active tiles ({A}); "
-            f"got {hi_tiles}")
-    if layout != "sublane":
-        _budget_checks(bins, active_tiles, K, layout, group_lanes, split,
-                       check_budgets)
-    if split is not None:
-        bins = split_bins(bins, *split)
+    with span("binning", fp.valid):
+        bins = bin_faces_active(fp, image_size, tile, pad,
+                                T if active_tiles is None else active_tiles,
+                                order="tile" if split is None else "count")
+        A = bins.count.shape[1]
+        if split is not None and (hi_tiles % 8 or hi_tiles >= A):
+            raise ValueError(
+                f"hi_tiles must be a multiple of 8 and < active tiles ({A}); "
+                f"got {hi_tiles}")
+        if layout != "sublane":
+            _budget_checks(bins, active_tiles, K, layout, group_lanes, split,
+                           check_budgets)
+        if split is not None:
+            bins = split_bins(bins, *split)
 
-    q, count = tile_slabs(fp, bins, K)
-    inv_s = 1.0 / (min(H, W) / 2.0)
-    S = SoftCoverage.apply(q, count, tile, inv_s, 1.0 / sigma)  # (B, A, tp)
-    per_tile = scatter_active(S, bins)                      # (B, T, tp)
-    if not return_sum:
-        per_tile = 1.0 - torch.exp(-per_tile)
-    return untile_image(per_tile, image_size, tile, bins.n_tiles_hw)
+    with span("raster", fp.valid) as sp:
+        q, count = tile_slabs(sp.inputs(fp), bins, K)
+        inv_s = 1.0 / (min(H, W) / 2.0)
+        S = sp.outputs(SoftCoverage.apply(q, count, tile, inv_s,
+                                          1.0 / sigma))       # (B, A, tp)
+    with span("untile", S) as sp:
+        per_tile = scatter_active(sp.inputs(S), bins)           # (B, T, tp)
+        if not return_sum:
+            per_tile = 1.0 - torch.exp(-per_tile)
+        return sp.outputs(untile_image(per_tile, image_size, tile,
+                                       bins.n_tiles_hw))
 
 
 def soft_silhouette_cuda(

@@ -30,11 +30,12 @@ import struct
 import torch
 
 from .._build import launch
+from ..utils.timing import count as count_event
 from .binning import gather_rows_bg, untile_image
 
-# Kernel launches since import (or since a caller reset them): one per
-# launched kernel, counted where the wrapper launches it and nowhere else.
-UNTILE_LAUNCHES = 0
+# Each launch adds 1 to the utils.timing counter "untile_scatter": the
+# launches made from the host (an eager call, a graph's warm-up or
+# capture); a replay launches from its graph and counts nothing.
 
 _MAX_FIELDS = 8   # field descriptors one launch takes (csrc/untile.cu)
 
@@ -122,7 +123,6 @@ def untile_scatter_fields_fwd(fields, tileof, image_size, tile: int,
     rows (B, A, tile^2, C) of 4- or 8-byte elements (any strides, C per
     field), tileof (B, TH * TW) int32 -> the cropped images (B, H, W, C),
     one per field."""
-    global UNTILE_LAUNCHES
     H, W = image_size
     TH, TW = n_tiles_hw
     if not 0 < len(fields) <= _MAX_FIELDS:
@@ -167,7 +167,7 @@ def untile_scatter_fields_fwd(fields, tileof, image_size, tile: int,
                   rows.shape[3], *rows.stride(), _bg_bits(bg, rows.dtype))])
     launch("trt_untile_scatter_fields", ctypes.addressof(desc), len(todo),
            tileof.data_ptr(), B, H, W, tile, TH, TW, A, device=dev)
-    UNTILE_LAUNCHES += 1
+    count_event("untile_scatter")
     return outs
 
 

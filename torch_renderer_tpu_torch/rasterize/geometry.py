@@ -17,6 +17,7 @@ import torch
 
 from ..cameras.perspective import PerspectiveCamera
 from ..structures.meshes import Meshes
+from ..utils.timing import span
 
 
 class FacePlanes(NamedTuple):
@@ -49,8 +50,17 @@ def setup_face_planes(
     Faces with any corner at z <= znear are invalid (no near-plane clipping,
     as pytorch3d's default discards them), and so are faces whose doubled
     raster area is at most eps_area. Corners are taken by plain indexing;
-    its backward is autograd's scatter-add.
+    its backward is autograd's scatter-add. Runs in the span "setup" (the
+    camera transform with it).
     """
+    with span("setup", meshes.verts) as sp:
+        meshes, camera = sp.inputs(meshes, camera)
+        return sp.outputs(_setup_face_planes(meshes, camera, znear,
+                                             eps_area))
+
+
+def _setup_face_planes(meshes: Meshes, camera: PerspectiveCamera,
+                       znear: float, eps_area: float) -> FacePlanes:
     H, W = camera.image_size
     s = camera.ndc_scale
 
@@ -98,7 +108,15 @@ def setup_faces(
     """Project meshes through the camera and build per-face raster data.
 
     Faces with any corner at z <= znear are invalid (no near-plane
-    clipping), and so are padded and degenerate faces."""
+    clipping), and so are padded and degenerate faces. Runs in the span
+    "setup" (the camera transform with it)."""
+    with span("setup", meshes.verts) as sp:
+        meshes, camera = sp.inputs(meshes, camera)
+        return sp.outputs(_setup_faces(meshes, camera, znear, eps_area))
+
+
+def _setup_faces(meshes: Meshes, camera: PerspectiveCamera, znear: float,
+                 eps_area: float) -> FaceRasterData:
     H, W = camera.image_size
     s = camera.ndc_scale
 

@@ -1,6 +1,7 @@
 """Utilities of the port (counterpart of ``torch_renderer_tpu.utils``):
 checkpoints, numerical-safety instrumentation, metric logging, the timing
-and profiling harness, and the captured-step runner of the loops
+and profiling harness with the program's spans and counters
+(``utils.timing``), and the captured-step runner of the loops
 (``utils.graph``)."""
 
 from .checkpoint import export_mesh_snapshot, load_checkpoint, save_checkpoint

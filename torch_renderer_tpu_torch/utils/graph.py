@@ -27,6 +27,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from .timing import count, span
+
 
 # One side stream per device for every warm-up and capture: cuBLAS keeps a
 # workspace for each stream it has run on for the life of the process, so a
@@ -70,6 +72,11 @@ class StepGraph:
     generators: the CUDA ``torch.Generator``s step() draws from, registered
     with the graph before its capture (the device's default generator
     registers itself; passing it, or None, is harmless).
+
+    Spans (``utils.timing``): every call runs in the host span "issue",
+    the replay in "issue/replay"; step() runs in the span "step", whose
+    device markers a graph captured with spans on replays. Each capture
+    adds 1 to the counter "captures".
     """
 
     def __init__(self, step: Callable, device, capture=None,
@@ -83,18 +90,27 @@ class StepGraph:
         self._warm = False
 
     def __call__(self):
-        if not self.captured:
+        with span("issue"):
+            if not self.captured:
+                return self._step()
+            if self.graph is None:
+                if not self._warm:
+                    return self._warm_up()
+                graph = torch.cuda.CUDAGraph()
+                _register_generators(graph, self.generators)
+                with torch.cuda.graph(graph,
+                                      stream=_side_stream(self.device)):
+                    self.outputs = self._step()
+                self.graph = graph
+                count("captures")
+            with span("issue/replay"):
+                self.graph.replay()
+            return self.outputs
+
+    def _step(self):
+        """step() in the span "step" (captured with it when spans are on)."""
+        with span("step", self.device):
             return self.step()
-        if self.graph is None:
-            if not self._warm:
-                return self._warm_up()
-            graph = torch.cuda.CUDAGraph()
-            _register_generators(graph, self.generators)
-            with torch.cuda.graph(graph, stream=_side_stream(self.device)):
-                self.outputs = self.step()
-            self.graph = graph
-        self.graph.replay()
-        return self.outputs
 
     def release(self) -> None:
         """Drop the graph and its outputs, so that the graph's private
@@ -112,7 +128,7 @@ class StepGraph:
         torch.cuda.set_sync_debug_mode("error")
         try:
             with torch.cuda.stream(side):
-                out = self.step()
+                out = self._step()
         finally:
             torch.cuda.set_sync_debug_mode(before)
         current.wait_stream(side)
@@ -213,6 +229,13 @@ class CapturedCall:
     call's own record, which outlives the caller's blocks as the graphs
     do; ``warn_budgets()`` warns once for each budget that overflowed
     since its last call (a host read).
+
+    ``bodies`` counts the bodies this call ran from the host (an eager
+    call, a warm-up or a capture: each launches fn's kernels once; a
+    replay launches from its graph and counts nothing), and adds each to
+    the ``utils.timing`` counter "call_bodies" of every call.
+    Spans: a call runs in the host span "issue", with the signature walk
+    in "issue/key" and the static input copies in "issue/copy_in".
     """
 
     def __init__(self, fn: Callable, device, capture=None):
@@ -222,31 +245,33 @@ class CapturedCall:
         self.device = torch.device(device)
         self.captured = resolve_capture(capture, self.device)
         self.budgets = BudgetRecord()
-        self.traced = 0
+        self.bodies = 0
         self._graphs: dict = {}
 
     def _run(self, *args):
         """fn's body, run from the host: an eager call, a warm-up or a
-        capture; ``traced`` counts them (each launches fn's kernels once;
-        a replay launches from the graph)."""
-        self.traced += 1
+        capture."""
+        self.bodies += 1
+        count("call_bodies")
         return self.fn(*args)
 
     def __call__(self, *args):
         from ..rasterize.binning import recording_budgets
 
-        with recording_budgets(self.budgets):
+        with recording_budgets(self.budgets), span("issue"):
             if not self.captured:
-                return self._run(*args)
+                with span("step", self.device):
+                    return self._run(*args)
             return self._through_static(*args)
 
     def _through_static(self, *args):
         """fn(*args) through the graph of args' signature: args copied
         into its static inputs, then a replay (the first call: the warm-up
         and the capture first; not captured, fn over the static inputs)."""
-        tensors: list = []
-        key = _leaves(args, tensors)
-        entry = self._graphs.get(key)
+        with span("issue/key"):
+            tensors: list = []
+            key = _leaves(args, tensors)
+            entry = self._graphs.get(key)
         first = entry is None
         if first:
             static = [_StaticInput(x) for x in tensors]
@@ -255,8 +280,9 @@ class CapturedCall:
                               self.captured)
             entry = self._graphs[key] = (static, graph)
         static, graph = entry
-        for s, x in zip(static, tensors):
-            s.copy_from(x)
+        with span("issue/copy_in"):
+            for s, x in zip(static, tensors):
+                s.copy_from(x)
         if first and self.captured:
             graph()           # the eager warm-up
         return graph()
